@@ -5,6 +5,7 @@ of ``whisper_ipa_tpu.models.convert.flatten_params``; a round trip through
 the port must give back the JAX arrays bit for bit.
 """
 
+import ast
 import os
 import subprocess
 import sys
@@ -14,21 +15,25 @@ import numpy as np
 import pytest
 import torch
 
-from whisper_ipa_tpu.config import CONFIGS
+from whisper_ipa_tpu.config import CONFIGS as JAX_CONFIGS
 from whisper_ipa_tpu.models import flatten_params as jax_flatten_params
 from whisper_ipa_tpu.models import init_params as jax_init_params
+from whisper_ipa_torch.config import CONFIGS
 from whisper_ipa_torch.models import init_params, params_from_numpy, params_to_numpy
 
 torch.set_num_threads(1)
 
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
 CFG = replace(CONFIGS["test-tiny"], n_audio_ctx=32, n_text_ctx=48)
+JCFG = replace(JAX_CONFIGS["test-tiny"], n_audio_ctx=32, n_text_ctx=48)
 
 
 @pytest.fixture(scope="module")
 def jax_flat():
     return {
         k: np.asarray(v)
-        for k, v in jax_flatten_params(jax_init_params(CFG, seed=0)).items()
+        for k, v in jax_flatten_params(jax_init_params(JCFG, seed=0)).items()
     }
 
 
@@ -45,7 +50,7 @@ def test_bridge_copies(jax_flat):
     """The port's tree owns its memory: editing it leaves the source."""
     params = params_from_numpy(jax_flat)
     params["decoder"]["ln"]["g"].add_(1.0)
-    assert np.array_equal(jax_flat["decoder.ln.g"], np.ones(CFG.n_text_state))
+    assert np.array_equal(jax_flat["decoder.ln.g"], np.ones(JCFG.n_text_state))
 
 
 def test_init_matches_reference_layout(jax_flat):
@@ -73,18 +78,43 @@ def test_init_is_seeded():
 
 
 def test_port_never_imports_jax():
+    """Importing every module of the port loads neither jax nor any module
+    of the JAX package (not even one that holds no JAX)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import whisper_ipa_torch\n"
         "names = [m.name for m in pkgutil.walk_packages("
         "whisper_ipa_torch.__path__, 'whisper_ipa_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' "
+        "or m.startswith(('jax.', 'jaxlib', 'whisper_ipa_tpu')))\n"
+        "assert not bad, bad\n"
         "print(len(names))\n"
     )
     out = subprocess.run(
         [sys.executable, "-c", code], capture_output=True, text=True,
-        timeout=120, cwd=os.path.dirname(os.path.dirname(__file__)),
+        timeout=120, cwd=REPO_ROOT,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 12  # every module was imported
+    assert int(out.stdout.strip()) >= 30  # every module was imported
+
+
+def _imported_modules(path):
+    names = set()
+    for node in ast.walk(ast.parse(open(path).read(), path)):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module)
+    return names
+
+
+def test_chip_smoke_imports_nothing_of_jax():
+    """chip_smoke.py (every import, at any depth) names neither jax nor the
+    JAX package."""
+    names = _imported_modules(os.path.join(REPO_ROOT, "chip_smoke.py"))
+    assert "whisper_ipa_torch" in {n.split(".")[0] for n in names}
+    bad = sorted(
+        n for n in names if n.split(".")[0] in ("jax", "jaxlib", "whisper_ipa_tpu")
+    )
+    assert not bad, bad

@@ -12,7 +12,12 @@ same comparisons at the main path's full shapes.
 import pytest
 import torch
 
+from whisper_ipa_torch.config import CONFIGS
+from whisper_ipa_torch.models import init_params
+from whisper_ipa_torch.models.convert import flatten_params
 from whisper_ipa_torch.ops import (
+    attention_backward,
+    attention_backward_plain,
     attention_plain,
     decode_attention_plain,
     decode_cross_attention_int8_tminor,
@@ -20,7 +25,9 @@ from whisper_ipa_torch.ops import (
     log_mel_power,
     log_mel_power_plain,
 )
+from whisper_ipa_torch.ops.attention import _forward_kernel
 from whisper_ipa_torch.ops.mel_kernel import normalize, reflect_pad
+from whisper_ipa_torch.train import create_train_state, train_step
 
 pytestmark = pytest.mark.cuda
 
@@ -89,8 +96,60 @@ def test_decode_attention_kernel(dev, dtype, dh, t_pad, t):
         assert (got.float() - want.float()).abs().max().item() <= 0.02 * scale
 
 
-def test_attention_kernel_refuses_grad(dev):
-    """No backward kernel yet: inputs that need a gradient are refused."""
-    q = torch.randn((1, 1, 128, 64), device=dev, requires_grad=True)
-    with pytest.raises(NotImplementedError):
-        fused_attention(q, q.detach(), q.detach())
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("dh", [32, 64])
+@pytest.mark.parametrize("tq,tk", [(130, 257), (1100, 300)])
+def test_attention_backward_kernel(dev, tq, tk, dh, dtype, tol):
+    """K5 against its plain version, relative to max|grad|: f32 1e-4 (another
+    summation order than cuBLAS), bf16 2% (the plain version rounds P and dS
+    to bf16 before its products; the kernel keeps them in f32)."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q, g = (torch.randn((2, 3, tq, dh), generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    k, v = (torch.randn((2, 3, tk, dh), generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    scale = dh ** -0.5
+    out, lse = _forward_kernel(q, k, v, scale, with_lse=True)
+    before = attention_backward.launches
+    got = attention_backward(q, k, v, out, g, lse, scale)
+    assert attention_backward.launches == before + 1
+    for a, b in zip(got, attention_backward_plain(q, k, v, g, scale)):
+        assert a.shape == b.shape and a.dtype == dtype
+        err = (a.float() - b.float()).abs().max().item()
+        assert err < tol * b.float().abs().max().item()
+
+
+def test_fused_attention_autograd_runs_k5(dev):
+    q, k, v = (torch.randn((2, 3, 200, 64), device=dev, requires_grad=True)
+               for _ in range(3))
+    before = attention_backward.launches
+    got = torch.autograd.grad(fused_attention(q, k, v, 0.125).sum(), (q, k, v))
+    assert attention_backward.launches == before + 1
+    want = torch.autograd.grad(attention_plain(q, k, v, 0.125).sum(), (q, k, v))
+    for a, b in zip(got, want):
+        assert (a - b).abs().max().item() < 1e-4 * b.abs().max().item()
+
+
+def test_whisper_small_unfrozen_bf16_train_step(dev):
+    """One full fine-tune step at whisper-small width, bf16 activations:
+    K2 and K5 run once per encoder layer, the loss is finite and every
+    encoder weight moves."""
+    cfg = CONFIGS["small"]
+    params = init_params(cfg, seed=0, device=dev)
+    before = {n: t.clone() for n, t in flatten_params(params).items()
+              if n.startswith("encoder.")}
+    state, tx = create_train_state(params, learning_rate=1e-4,
+                                   freeze_encoder=False)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    mel = torch.randn((2, 3000, cfg.n_mels), generator=gen, device=dev)
+    tokens = torch.full((2, 32), 50257, device=dev, dtype=torch.long)
+    tokens[:, :20] = torch.randint(0, 50000, (2, 20), generator=gen, device=dev)
+    k2, k5 = fused_attention.launches, attention_backward.launches
+    state, loss = train_step(state, mel, tokens, cfg, tx, 50257,
+                             freeze_encoder=False, dtype_name="bfloat16")
+    assert fused_attention.launches - k2 == cfg.n_audio_layer
+    assert attention_backward.launches - k5 == cfg.n_audio_layer
+    assert torch.isfinite(loss).item()
+    after = flatten_params(state.params)
+    assert all(not torch.equal(after[n], t) for n, t in before.items()
+               if n.endswith(".w"))

@@ -15,7 +15,7 @@ import torch
 
 import jax.numpy as jnp
 
-from whisper_ipa_tpu.config import CONFIGS
+from whisper_ipa_tpu.config import CONFIGS as JAX_CONFIGS
 from whisper_ipa_tpu.decode import DecodingOptions as JaxOptions
 from whisper_ipa_tpu.decode import build_blank_mask as jax_blank_mask
 from whisper_ipa_tpu.decode import build_suppress_mask as jax_suppress_mask
@@ -23,7 +23,8 @@ from whisper_ipa_tpu.decode import decode as jax_decode
 from whisper_ipa_tpu.decode import initial_tokens as jax_initial_tokens
 from whisper_ipa_tpu.models import flatten_params as jax_flatten_params
 from whisper_ipa_tpu.models import init_params as jax_init_params
-from whisper_ipa_tpu.tokenizer import get_tokenizer
+from whisper_ipa_tpu.tokenizer import get_tokenizer as jax_get_tokenizer
+from whisper_ipa_torch.config import CONFIGS
 from whisper_ipa_torch.decode import (
     DecodingOptions,
     build_blank_mask,
@@ -32,10 +33,12 @@ from whisper_ipa_torch.decode import (
     initial_tokens,
 )
 from whisper_ipa_torch.models import params_from_numpy
+from whisper_ipa_torch.tokenizer import get_tokenizer
 
 torch.set_num_threads(1)
 
 CFG = replace(CONFIGS["test-tiny"], n_audio_ctx=32, n_text_ctx=48)
+JCFG = replace(JAX_CONFIGS["test-tiny"], n_audio_ctx=32, n_text_ctx=48)
 N_MEL_FRAMES = CFG.n_audio_ctx * 2
 SAMPLE_LEN = 16
 BF16_MIN_AGREEMENT = 0.5  # of token positions, over 4 rows x 16 tokens
@@ -43,7 +46,7 @@ BF16_MIN_AGREEMENT = 0.5  # of token positions, over 4 rows x 16 tokens
 
 @pytest.fixture(scope="module")
 def jax_params():
-    return jax_init_params(CFG, seed=0)
+    return jax_init_params(JCFG, seed=0)
 
 
 @pytest.fixture(scope="module")
@@ -63,15 +66,20 @@ def tok():
     return get_tokenizer(multilingual=True, language="en")
 
 
+@pytest.fixture(scope="module")
+def jtok():
+    return jax_get_tokenizer(multilingual=True, language="en")
+
+
 def _options(cls, **kw):
     return cls(language="en", without_timestamps=True, sample_len=SAMPLE_LEN, **kw)
 
 
 @pytest.mark.parametrize("kv_int8", [False, True])
-def test_greedy_tokens_match_jax_f32(params, jax_params, mel, tok, kv_int8):
+def test_greedy_tokens_match_jax_f32(params, jax_params, mel, tok, jtok, kv_int8):
     ref = jax_decode(
-        jax_params, CFG, jnp.asarray(mel), _options(JaxOptions, kv_int8=kv_int8),
-        tokenizer=tok,
+        jax_params, JCFG, jnp.asarray(mel), _options(JaxOptions, kv_int8=kv_int8),
+        tokenizer=jtok,
     )
     ours = decode(
         params, CFG, mel, _options(DecodingOptions, kv_int8=kv_int8), tokenizer=tok
@@ -85,14 +93,14 @@ def test_greedy_tokens_match_jax_f32(params, jax_params, mel, tok, kv_int8):
         assert a.compression_ratio == b.compression_ratio
 
 
-def test_eot_ends_rows_like_jax(params, jax_params, mel, tok):
+def test_eot_ends_rows_like_jax(params, jax_params, mel, tok, jtok):
     """Suppressing every text token but one forces early EOTs; the finished
     masking and the log-prob sums must match the reference's."""
     allowed = {100, tok.eot}
     suppress = [t for t in range(tok.eot + 1) if t not in allowed]
     kw = dict(suppress_tokens=suppress, suppress_blank=False)
     ref = jax_decode(
-        jax_params, CFG, jnp.asarray(mel), _options(JaxOptions, **kw), tokenizer=tok
+        jax_params, JCFG, jnp.asarray(mel), _options(JaxOptions, **kw), tokenizer=jtok
     )
     ours = decode(params, CFG, mel, _options(DecodingOptions, **kw), tokenizer=tok)
     for a, b in zip(ours, ref):
@@ -100,10 +108,10 @@ def test_eot_ends_rows_like_jax(params, jax_params, mel, tok):
         assert a.avg_logprob == pytest.approx(b.avg_logprob, abs=1e-4)
 
 
-def test_bf16_agreement(params, jax_params, mel, tok):
+def test_bf16_agreement(params, jax_params, mel, tok, jtok):
     ref = jax_decode(
-        jax_params, CFG, jnp.asarray(mel),
-        _options(JaxOptions, fp16=True, kv_int8=True), tokenizer=tok,
+        jax_params, JCFG, jnp.asarray(mel),
+        _options(JaxOptions, fp16=True, kv_int8=True), tokenizer=jtok,
     )
     ours = decode(
         params, CFG, mel, _options(DecodingOptions, fp16=True, kv_int8=True),
@@ -137,7 +145,7 @@ def test_temperature_sampling_is_seeded(params, mel, tok):
     assert all(r.temperature == 1.0 for r in a)
 
 
-def test_masks_and_prefix_match_jax(tok):
+def test_masks_and_prefix_match_jax(tok, jtok):
     for kw in (
         dict(without_timestamps=True),
         dict(without_timestamps=False, suppress_tokens=[-1, 5, 7]),
@@ -146,11 +154,11 @@ def test_masks_and_prefix_match_jax(tok):
         ours, theirs = DecodingOptions(**kw), JaxOptions(**kw)
         np.testing.assert_array_equal(
             build_suppress_mask(tok, ours, CFG.n_vocab),
-            jax_suppress_mask(tok, theirs, CFG.n_vocab),
+            jax_suppress_mask(jtok, theirs, JCFG.n_vocab),
         )
-        assert initial_tokens(tok, ours) == jax_initial_tokens(tok, theirs)
+        assert initial_tokens(tok, ours) == jax_initial_tokens(jtok, theirs)
     np.testing.assert_array_equal(
-        build_blank_mask(tok, CFG.n_vocab), jax_blank_mask(tok, CFG.n_vocab)
+        build_blank_mask(tok, CFG.n_vocab), jax_blank_mask(jtok, JCFG.n_vocab)
     )
 
 
@@ -160,7 +168,7 @@ def test_masks_and_prefix_match_jax(tok):
         dict(beam_size=2),
         dict(best_of=3, temperature=0.5),
         dict(kv_int4=True),
-        dict(language=None),
+        dict(best_of=2),
         dict(without_timestamps=False),
     ],
 )

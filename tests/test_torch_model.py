@@ -15,13 +15,14 @@ import torch
 
 import jax.numpy as jnp
 
-from whisper_ipa_tpu.config import CONFIGS
+from whisper_ipa_tpu.config import CONFIGS as JAX_CONFIGS
 from whisper_ipa_tpu.models import decode_step as jax_decode_step
 from whisper_ipa_tpu.models import decoder_logits as jax_decoder_logits
 from whisper_ipa_tpu.models import encode as jax_encode
 from whisper_ipa_tpu.models import flatten_params as jax_flatten_params
 from whisper_ipa_tpu.models import init_cache as jax_init_cache
 from whisper_ipa_tpu.models import init_params as jax_init_params
+from whisper_ipa_torch.config import CONFIGS
 from whisper_ipa_torch.models import (
     decode_step,
     decoder_logits,
@@ -33,6 +34,7 @@ from whisper_ipa_torch.models import (
 torch.set_num_threads(1)
 
 CFG = replace(CONFIGS["test-tiny"], n_audio_ctx=32, n_text_ctx=48)
+JCFG = replace(JAX_CONFIGS["test-tiny"], n_audio_ctx=32, n_text_ctx=48)
 N_MEL_FRAMES = CFG.n_audio_ctx * 2
 TOKENS = np.array(
     [[50258, 50259, 50359, 50363, 100, 200],
@@ -44,7 +46,7 @@ LOGIT_ATOL = 2e-4
 
 @pytest.fixture(scope="module")
 def jax_params():
-    return jax_init_params(CFG, seed=0)
+    return jax_init_params(JCFG, seed=0)
 
 
 @pytest.fixture(scope="module")
@@ -67,7 +69,7 @@ def feats(params, mel):
 
 @pytest.fixture(scope="module")
 def jax_feats(jax_params, mel):
-    return jax_encode(jax_params, CFG, jnp.asarray(mel))
+    return jax_encode(jax_params, JCFG, jnp.asarray(mel))
 
 
 def test_encode_matches_jax(feats, jax_feats):
@@ -82,7 +84,7 @@ def test_decoder_logits_match_jax(params, jax_params, jax_feats):
     with torch.inference_mode():
         ours = decoder_logits(params, CFG, torch.from_numpy(TOKENS), feats)
     ref = np.asarray(
-        jax_decoder_logits(jax_params, CFG, jnp.asarray(TOKENS), jax_feats)
+        jax_decoder_logits(jax_params, JCFG, jnp.asarray(TOKENS), jax_feats)
     )
     assert ours.dtype == torch.float32 and ours.shape == (2, 6, CFG.n_vocab)
     np.testing.assert_allclose(ours.numpy(), ref, atol=LOGIT_ATOL, rtol=0)
@@ -100,13 +102,13 @@ def test_decode_step_matches_jax(params, jax_params, jax_feats, kv_int8):
             steps.append(decode_step(params, CFG, tok, cache, pos)[0])
 
     jcache = jax_init_cache(
-        jax_params, CFG, jax_feats, max_len=16, cross_kv_int8=kv_int8
+        jax_params, JCFG, jax_feats, max_len=16, cross_kv_int8=kv_int8
     )
-    ref, jcache = jax_decode_step(jax_params, CFG, jnp.asarray(TOKENS[:, :4]), jcache, 0)
+    ref, jcache = jax_decode_step(jax_params, JCFG, jnp.asarray(TOKENS[:, :4]), jcache, 0)
     refs = [ref]
     for pos in (4, 5):
         ref, jcache = jax_decode_step(
-            jax_params, CFG, jnp.asarray(TOKENS[:, pos:pos + 1]), jcache, pos
+            jax_params, JCFG, jnp.asarray(TOKENS[:, pos:pos + 1]), jcache, pos
         )
         refs.append(ref)
     for ours, ref in zip(steps, refs):
@@ -124,7 +126,7 @@ def test_init_cache_int8_matches_jax(params, jax_params, jax_feats):
     feats = torch.from_numpy(np.array(jax_feats))
     with torch.inference_mode():
         cache = init_cache(params, CFG, feats, max_len=8, cross_kv_int8=True)
-    ref = jax_init_cache(jax_params, CFG, jax_feats, max_len=8, cross_kv_int8=True)
+    ref = jax_init_cache(jax_params, JCFG, jax_feats, max_len=8, cross_kv_int8=True)
     L, B, H, Dh = CFG.n_text_layer, 2, CFG.n_text_head, CFG.n_text_head_dim
     assert cache.cross_k.shape == (L, B, H, Dh, 128)
     assert cache.cross_k_scale.shape == (L, B, H, 128)

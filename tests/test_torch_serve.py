@@ -11,13 +11,13 @@ import numpy as np
 import pytest
 import torch
 
-from whisper_ipa_tpu.audio import N_SAMPLES, SAMPLE_RATE
-from whisper_ipa_tpu.config import CONFIGS
-from whisper_ipa_tpu.tokenizer import get_tokenizer
+from whisper_ipa_torch.audio import N_SAMPLES, SAMPLE_RATE
+from whisper_ipa_torch.config import CONFIGS
 from whisper_ipa_torch.decode import decode
 from whisper_ipa_torch.models import init_params
 from whisper_ipa_torch.ops import log_mel_spectrogram
 from whisper_ipa_torch.serve import TranscriptionService
+from whisper_ipa_torch.tokenizer import get_tokenizer
 
 torch.set_num_threads(1)
 

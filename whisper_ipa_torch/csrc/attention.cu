@@ -23,6 +23,11 @@
 // tile) get -inf logits and zeroed V rows. The products are fp32 FMAs on
 // the CUDA cores: simple and exact; a wgmma/mma.sync version is later
 // work.
+//
+// Training: when the caller passes an lse buffer, each live row also
+// writes its log-sum-exp, m + log(l) over the scaled logits (f32,
+// (B*H, T)), the residual the backward kernel (attention_bwd.cu, K5)
+// recomputes the probabilities from.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -49,8 +54,8 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 template <typename T, int DH>
 __global__ void __launch_bounds__(kRows)
 attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ out, int tq,
-                     int tk, float scale) {
+                     const T* __restrict__ v, T* __restrict__ out,
+                     float* __restrict__ lse, int tq, int tk, float scale) {
   __shared__ __align__(16) float ks[kKeys][DH];
   __shared__ __align__(16) float vs[kKeys][DH];
 
@@ -130,38 +135,42 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* o = out + bh * tq * DH + static_cast<size_t>(row) * DH;
 #pragma unroll
     for (int d = 0; d < DH; ++d) o[d] = from_f32<T>(acc[d] * inv);
+    if (lse != nullptr) lse[bh * tq + row] = m + logf(l);
   }
 }
 
 template <typename T, int DH>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int bh, int tq, int tk, float scale, cudaStream_t stream) {
+                   float* lse, int bh, int tq, int tk, float scale,
+                   cudaStream_t stream) {
   const dim3 grid((tq + kRows - 1) / kRows, bh);
   attention_fwd_kernel<T, DH><<<grid, kRows, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), tq, tk, scale);
+      static_cast<const T*>(v), static_cast<T*>(out), lse, tq, tk, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // q: (bh, tq, dh); k, v: (bh, tk, dh); out: (bh, tq, dh); all contiguous,
-// bf16 when is_bf16 else fp32; dh in {32, 64}; tk >= 1.
+// bf16 when is_bf16 else fp32; dh in {32, 64}; tk >= 1. lse: null, or an
+// f32 (bh, tq) buffer for the rows' log-sum-exp.
 // Returns cudaGetLastError().
 extern "C" int wipa_attention_fwd(const void* q, const void* k, const void* v,
-                                  void* out, int bh, int tq, int tk, int dh,
-                                  int is_bf16, float scale, int device,
+                                  void* out, void* lse, int bh, int tq, int tk,
+                                  int dh, int is_bf16, float scale, int device,
                                   void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (tk < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (dh == 64) {
-    err = is_bf16 ? launch<__nv_bfloat16, 64>(q, k, v, out, bh, tq, tk, scale, s)
-                  : launch<float, 64>(q, k, v, out, bh, tq, tk, scale, s);
+    err = is_bf16 ? launch<__nv_bfloat16, 64>(q, k, v, out, l, bh, tq, tk, scale, s)
+                  : launch<float, 64>(q, k, v, out, l, bh, tq, tk, scale, s);
   } else if (dh == 32) {
-    err = is_bf16 ? launch<__nv_bfloat16, 32>(q, k, v, out, bh, tq, tk, scale, s)
-                  : launch<float, 32>(q, k, v, out, bh, tq, tk, scale, s);
+    err = is_bf16 ? launch<__nv_bfloat16, 32>(q, k, v, out, l, bh, tq, tk, scale, s)
+                  : launch<float, 32>(q, k, v, out, l, bh, tq, tk, scale, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -5,6 +5,7 @@ from .decoding import (
     build_suppress_mask,
     compression_ratio,
     decode,
+    detect_language,
     initial_tokens,
     sequence_score,
 )
@@ -16,6 +17,7 @@ __all__ = [
     "build_suppress_mask",
     "compression_ratio",
     "decode",
+    "detect_language",
     "initial_tokens",
     "sequence_score",
 ]

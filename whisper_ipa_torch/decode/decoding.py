@@ -8,9 +8,12 @@ whether every row has finished only every ``FINISHED_CHECK_EVERY`` tokens,
 not every token: steps past the end write EOT over EOT and add nothing to
 the scores, so the result is the same as stopping at once.
 
+``language=None`` on a multilingual model identifies each row's language
+from one decoder step on SOT (``detect_language``) and patches it into the
+prefix, as the reference does.
+
 Not ported yet (``decode`` raises ``NotImplementedError``): beam search,
-best-of-N sampling, the int4 cross cache, language detection
-(``language=None`` on a multilingual model) and the timestamp rules.
+best-of-N sampling, the int4 cross cache and the timestamp rules.
 """
 
 from __future__ import annotations
@@ -22,11 +25,10 @@ from typing import List, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from whisper_ipa_tpu.config import WhisperConfig
-from whisper_ipa_tpu.tokenizer import WhisperTokenizer, get_tokenizer
-
+from ..config import WhisperConfig
 from ..models.whisper import cast_decoder_blocks, decode_step, encode, init_cache
 from ..ops.precision import full_fp32
+from ..tokenizer import LANGUAGES, LANGUAGES_V3, WhisperTokenizer, get_tokenizer
 
 FINISHED_CHECK_EVERY = 8
 
@@ -66,6 +68,40 @@ class DecodingResult:
     compression_ratio: float
     audio_features: Optional[np.ndarray] = None
     language: Optional[str] = None
+
+
+def detect_language(
+    params,
+    cfg: WhisperConfig,
+    audio_features,
+    tokenizer: Optional[WhisperTokenizer] = None,
+):
+    """Identify the spoken language from encoder output.
+
+    Returns (language codes, [{code: probability}] per row): one float32
+    decoder step on SOT, softmax over the language-token block.
+    """
+    if tokenizer is None:
+        tokenizer = get_tokenizer(
+            multilingual=cfg.multilingual, num_languages=cfg.num_languages
+        )
+    device = _device_of(params)
+    with torch.inference_mode(), full_fp32():
+        feats = torch.as_tensor(audio_features).to(device)
+        cache = init_cache(params, cfg, feats, max_len=8)
+        sot = torch.full(
+            (feats.shape[0], 1), tokenizer.sot, dtype=torch.long, device=device
+        )
+        logits, _ = decode_step(params, cfg, sot, cache, 0)
+        logits = logits[:, 0].float().cpu().numpy()
+    lang_logits = logits[:, np.asarray(tokenizer.all_language_tokens)]
+    probs = np.exp(lang_logits - lang_logits.max(axis=-1, keepdims=True))
+    probs /= probs.sum(axis=-1, keepdims=True)
+    langs = (
+        LANGUAGES_V3 if tokenizer.num_languages == 100 else LANGUAGES
+    )[: tokenizer.num_languages]
+    codes = [langs[i] for i in probs.argmax(axis=-1)]
+    return codes, [dict(zip(langs, row.tolist())) for row in probs]
 
 
 def compression_ratio(text: str) -> float:
@@ -231,8 +267,6 @@ def _check_supported(options: DecodingOptions, cfg: WhisperConfig) -> None:
         missing.append("best_of > 1")
     if options.kv_int4:
         missing.append("kv_int4")
-    if options.language is None and cfg.multilingual:
-        missing.append("language=None (language detection)")
     if not options.without_timestamps:
         missing.append("timestamp rules (without_timestamps=False)")
     if missing:
@@ -287,6 +321,15 @@ def decode(
         sot_index = prefix.index(tokenizer.sot)
         B = audio_features.shape[0]
         prefix_tokens = torch.tensor(prefix, device=device)[None].repeat(B, 1)
+        detected_langs = None
+        if options.language is None and cfg.multilingual:
+            detected_langs, _ = detect_language(
+                params, cfg, audio_features, tokenizer
+            )
+            prefix_tokens[:, 1] = torch.tensor(
+                [tokenizer.language_token(c) for c in detected_langs],
+                device=device,
+            )
 
         sample_len = options.sample_len or (cfg.n_text_ctx // 2)
         sample_len = min(sample_len, cfg.n_text_ctx - n_prefix)
@@ -330,7 +373,10 @@ def decode(
                 no_speech_prob=float(no_speech_np[b]),
                 temperature=options.temperature,
                 compression_ratio=compression_ratio(text),
-                language=options.language or tokenizer.language,
+                language=(
+                    detected_langs[b] if detected_langs
+                    else options.language or tokenizer.language
+                ),
             )
         )
     return results

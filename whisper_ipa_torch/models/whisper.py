@@ -8,19 +8,22 @@ blocks with cross-attention; logits tied to the token embedding, in f32.
 PyTorch runs eagerly, so a Python loop over layers takes the place of the
 reference's ``lax.scan``, and ``decode_step`` writes the new self-attention
 K/V into the cache buffers in place (the reference returns an updated
-cache; here the returned cache is the same object, updated).
+cache; here the returned cache is the same object, updated). ``remat``
+wraps each layer in ``torch.utils.checkpoint`` where the reference wraps
+its scan body in ``jax.checkpoint``.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from whisper_ipa_tpu.config import WhisperConfig
-
+from ..config import WhisperConfig
 from ..ops.precision import full_fp32
-from .convert import params_to
+from .convert import flatten_params, params_to
 from .layers import (
     attention_block,
     causal_mask,
@@ -118,9 +121,29 @@ def init_params(cfg: WhisperConfig, seed: int = 0, device=None) -> Params:
 
 # -- encoder --------------------------------------------------------------
 
-def encode(params: Params, cfg: WhisperConfig, mel, dtype=torch.float32):
-    """Audio encoder: (B, 2 * n_audio_ctx, n_mels) -> (B, n_audio_ctx, d)."""
+def _layer(body, remat: bool, *args):
+    """One layer, rematerialized in the backward when ``remat``."""
+    if remat:
+        return checkpoint(body, *args, use_reentrant=False)
+    return body(*args)
+
+
+def encode(params: Params, cfg: WhisperConfig, mel, dtype=torch.float32,
+           remat: bool = False):
+    """Audio encoder: (B, 2 * n_audio_ctx, n_mels) -> (B, n_audio_ctx, d).
+
+    remat=True checkpoints each encoder layer (only relevant to a full
+    fine-tune: a frozen encoder runs without autograd).
+    """
     enc = params["encoder"]
+
+    def body(x, block):
+        h, _ = attention_block(
+            layer_norm(x, block["attn_ln"]), block["attn"], cfg.n_audio_head
+        )
+        x = x + h
+        return x + mlp_block(layer_norm(x, block["mlp_ln"]), block)
+
     with full_fp32():
         x = mel.to(dtype)
         x = gelu(conv1d(x, enc["conv1"], stride=1))
@@ -128,49 +151,64 @@ def encode(params: Params, cfg: WhisperConfig, mel, dtype=torch.float32):
         pos = torch.from_numpy(sinusoids(cfg.n_audio_ctx, cfg.n_audio_state))
         x = x + pos.to(device=x.device, dtype=dtype)
         for block in enc["blocks"]:
-            h, _ = attention_block(
-                layer_norm(x, block["attn_ln"]), block["attn"], cfg.n_audio_head
-            )
-            x = x + h
-            x = x + mlp_block(layer_norm(x, block["mlp_ln"]), block)
+            x = _layer(body, remat, x, block)
         return layer_norm(x, enc["ln_post"])
 
 
 # -- decoder (teacher forcing / full sequence) ----------------------------
 
 def decoder_hidden(params: Params, cfg: WhisperConfig, tokens, audio_features,
-                   dtype=torch.float32):
-    """Decoder final hidden states (B, T, d), before the logits product."""
+                   dtype=torch.float32, remat: bool = False):
+    """Decoder final hidden states (B, T, d), before the logits product.
+
+    remat=True checkpoints each layer, its cross K/V projections included
+    (they stay inside the layer, as in the reference).
+    """
     dec = params["decoder"]
     T = tokens.shape[1]
+
+    def body(x, block, audio_features, mask):
+        xa_k = linear(audio_features, block["cross_attn"]["key"])
+        xa_v = linear(audio_features, block["cross_attn"]["value"])
+        h, _ = attention_block(
+            layer_norm(x, block["attn_ln"]), block["attn"],
+            cfg.n_text_head, mask=mask,
+        )
+        x = x + h
+        h, _ = attention_block(
+            layer_norm(x, block["cross_attn_ln"]), block["cross_attn"],
+            cfg.n_text_head, kv=(xa_k, xa_v),
+        )
+        x = x + h
+        return x + mlp_block(layer_norm(x, block["mlp_ln"]), block)
+
     with full_fp32():
         x = dec["token_embedding"][tokens].to(dtype)
         x = x + dec["positional_embedding"][:T].to(dtype)
         mask = causal_mask(T, device=x.device)
         audio_features = audio_features.to(dtype)
         for block in dec["blocks"]:
-            xa_k = linear(audio_features, block["cross_attn"]["key"])
-            xa_v = linear(audio_features, block["cross_attn"]["value"])
-            h, _ = attention_block(
-                layer_norm(x, block["attn_ln"]), block["attn"],
-                cfg.n_text_head, mask=mask,
-            )
-            x = x + h
-            h, _ = attention_block(
-                layer_norm(x, block["cross_attn_ln"]), block["cross_attn"],
-                cfg.n_text_head, kv=(xa_k, xa_v),
-            )
-            x = x + h
-            x = x + mlp_block(layer_norm(x, block["mlp_ln"]), block)
+            x = _layer(body, remat, x, block, audio_features, mask)
         return layer_norm(x, dec["ln"])
 
 
 def decoder_logits(params: Params, cfg: WhisperConfig, tokens, audio_features,
-                   dtype=torch.float32):
-    """Teacher-forced decoder: (B, T) x (B, T_a, d) -> (B, T, n_vocab) f32."""
-    x = decoder_hidden(params, cfg, tokens, audio_features, dtype=dtype)
+                   dtype=torch.float32, remat: bool = False,
+                   bf16_head: bool = False):
+    """Teacher-forced decoder: (B, T) x (B, T_a, d) -> (B, T, n_vocab) f32.
+
+    bf16_head: round the logits product's two operands to bfloat16 and
+    accumulate in float32, as the reference's bf16 operands with
+    ``preferred_element_type=float32`` (the logits stay float32).
+    """
+    x = decoder_hidden(params, cfg, tokens, audio_features, dtype=dtype,
+                       remat=remat)
+    emb = params["decoder"]["token_embedding"]
     with full_fp32():
-        return x.float() @ params["decoder"]["token_embedding"].float().T
+        if bf16_head:
+            return (x.to(torch.bfloat16).float()
+                    @ emb.to(torch.bfloat16).float().T)
+        return x.float() @ emb.float().T
 
 
 # -- decoder (incremental, KV-cached) -------------------------------------
@@ -388,3 +426,10 @@ def decode_step(
             cache.self_v[i, :, pos:pos + S] = v_new
         step_logits = _final_logits(dec, x)
     return step_logits, cache
+
+
+# -- parameter utilities --------------------------------------------------
+
+def count_parameters(params) -> int:
+    """Number of scalars in a parameter (sub)tree."""
+    return sum(int(np.prod(t.shape)) for t in flatten_params(params).values())

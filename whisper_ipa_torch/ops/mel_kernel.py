@@ -1,16 +1,16 @@
 """Log-mel frontend: the K1 kernel (``csrc/mel.cu``) and its plain version.
 
 Counterpart of ``whisper_ipa_tpu/ops/mel_kernel.log_mel_spectrogram_pallas``.
-The numerical contract is the Whisper frontend of ``whisper_ipa_tpu.audio.mel``
+The numerical contract is the Whisper frontend of ``audio/mel.py``
 (16 kHz, N_FFT 400, hop 160, periodic Hann, reflect padding, final frame
 dropped, Slaney mel filterbank, log10 clamp at 1e-10, then max-8 and
 (x+4)/4). As in the JAX package, the reflect padding and the global clamp
 and normalisation stay outside the kernel; the kernel computes the per-frame
 ``log10(max(mel, 1e-10))``.
 
-The DFT bases and mel matrix are ``whisper_ipa_tpu.audio.mel._dft_mel_operators``
-(NumPy only): the Hann window folded into (400, 201) cos/sin bases and the
-(201, n_mels) filterbank.
+The DFT bases and mel matrix are ``audio.mel._dft_mel_operators`` (NumPy):
+the Hann window folded into (400, 201) cos/sin bases and the (201, n_mels)
+filterbank.
 """
 
 from __future__ import annotations
@@ -21,8 +21,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from whisper_ipa_tpu.audio.mel import HOP_LENGTH, N_FFT, _dft_mel_operators
-
+from ..audio.mel import HOP_LENGTH, N_FFT, _dft_mel_operators
 from . import _build
 from .precision import full_fp32
 

@@ -24,13 +24,12 @@ from typing import Callable, List, Optional, Union
 import numpy as np
 import torch
 
-from whisper_ipa_tpu.audio import N_SAMPLES, load_audio, pad_or_trim
-from whisper_ipa_tpu.config import WhisperConfig
-from whisper_ipa_tpu.tokenizer import WhisperTokenizer, get_tokenizer
-
+from .audio import N_SAMPLES, load_audio, pad_or_trim
+from .config import WhisperConfig
 from .decode import DecodingOptions, decode
 from .models.convert import params_to
 from .ops.mel_kernel import log_mel_spectrogram
+from .tokenizer import WhisperTokenizer, get_tokenizer
 
 
 @dataclass
