@@ -14,6 +14,11 @@ weights from seed 0:
   serving   waveform -> log-mel (K1) -> encoder (K2) -> int8 cross-KV
             greedy decode (K4), batch 16; CUDA against the CPU; the
             micro-batching service
+  quantized serving, the same batch three more ways: the int8 cross cache
+            built by the fused kernel (K3); int8 weights with int8
+            activations (K6); int4 weights (K7) with the int4 cross cache
+            (K8); test-tiny CUDA against the CPU for int8 and int4; the
+            service with int4 weights and cache
   training  train() on a seeded synthetic set, batch 12, bf16
             activations: decoder-only (encoder frozen, K2 forward only)
             and --unfreeze-encoder (K2 forward, K5 backward); save and
@@ -48,7 +53,7 @@ TRAIN_LR = 1e-4  # ten times the default: overfit one fixed batch quickly
 
 # The H100 SXM's published peaks (dense) at its 700 W limit
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12}
+PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12, "int8": 1979e12}
 
 
 def require(cond, what: str) -> None:
@@ -346,14 +351,216 @@ def check_attention_backward(torch, dev):
     return entry
 
 
+def rel_err(a, b) -> float:
+    """max|a - b| over max|b|."""
+    return max_abs(a, b) / float(b.float().abs().max())
+
+
+def check_kv_init(torch, dev):
+    from whisper_ipa_torch.models.layers import linear
+    from whisper_ipa_torch.ops import kv_init as kv
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    B, T, d, H = MAIN_BATCH, 1500, 768, 12
+    x = 0.5 * torch.randn((B, T, d), generator=gen, device=dev)
+    wk, wv = (0.05 * torch.randn((d, d), generator=gen, device=dev)
+              for _ in range(2))
+    b = 0.1 * torch.randn((d,), generator=gen, device=dev)
+    entry = None
+    # bounds: codes >= 99.9% equal, within 1 where the (position, head)
+    # scale is the same and 2 where the head's maximum itself rounded the
+    # other way (cuBLAS sums the projection in another order, so a bf16
+    # rounding may flip); scales 2^-7 relative in bf16 (one ulp of the
+    # head's maximum), 2^-6 in bf16 with the V bias (one ulp of the
+    # projection plus the bias add's rounding: two ulps of a sum that the
+    # bias made smaller), 1e-5 in f32
+    for dtype, bias in ((torch.bfloat16, None), (torch.bfloat16, b),
+                        (torch.float32, b)):
+        xd, wkd, wvd = x.to(dtype), wk.to(dtype), wv.to(dtype)
+        args = (xd, wkd, None, wvd, bias, H)
+        before = kv.fused_kv_init_int8.launches
+        got = kv.fused_kv_init_int8(*args, out_dtype=dtype)
+        torch.cuda.synchronize()
+        require(kv.fused_kv_init_int8.launches == before + 1, "K3 counter rose")
+        want = kv.fused_kv_init_plain(*args, dtype)
+        if dtype == torch.bfloat16:
+            tol = 2 ** -7 if bias is None else 2 ** -6
+        else:
+            tol = 1e-5
+        code_ok, equal, worst, scale_rel = True, [], 0, 0.0
+        for i in (0, 2):
+            require(got[i].shape == (B, H, 64, 1536), f"K3 shape {tuple(got[i].shape)}")
+            diff = (got[i].int() - want[i].int()).abs()
+            same = (got[i + 1] == want[i + 1])[:, :, None, :]
+            code_ok &= bool((diff <= torch.where(same, 1, 2)).all())
+            equal.append(float((diff == 0).float().mean()))
+            worst = max(worst, int(diff.max()))
+            scale_rel = max(scale_rel, float(((got[i + 1] - want[i + 1]).abs()
+                                              / want[i + 1].clamp_min(1e-30)).max()))
+            require(bool((got[i][..., T:] == 0).all())
+                    and bool((got[i + 1][..., T:] == 0).all())
+                    and bool((got[i + 1][..., :T] > 0).all()),
+                    "K3 tail code 0 and scale 0")
+        ms = cuda_ms(lambda: kv.fused_kv_init_int8(*args, out_dtype=dtype))
+        plain_ms = cuda_ms(lambda: kv.fused_kv_init_plain(*args, dtype))
+        log(f"[K3 kv init] x ({B}, {T}, {d}) {str(dtype)[6:]}, H {H}, V bias "
+            f"{bias is not None}: codes equal {min(equal):.5f}, max|diff| "
+            f"{worst} (scale-aware bound 1/2), scales max relative "
+            f"{scale_rel:.3e} (bound {tol:g}); kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms")
+        require(code_ok and min(equal) >= 0.999 and scale_rel <= tol,
+                f"K3 {dtype} bias {bias is not None} within bounds")
+        if entry is None:
+            def unfused():  # what init_cache runs without the switch
+                return [kv.quantize_kv_heads(linear(xd, {"w": w, "b": bb}), H)
+                        for w, bb in ((wkd, None), (wvd, bias))]
+
+            lib_ms = cuda_ms(unfused)
+            log(f"[K3 kv init] library: unfused torch.matmul (cuBLAS) + the "
+                f"plain quantizer {lib_ms:.4f} ms on the same inputs")
+            out_bytes = nbytes(*got)
+            entry = dict(max_abs_err=float(worst), ms=ms, plain_ms=plain_ms,
+                         **bound(nbytes(xd, wkd, wvd) + out_bytes,
+                                 2 * 2 * B * T * d * d, "bf16"),
+                         library_ms=lib_ms)
+    return entry
+
+
+def check_int8_matmul(torch, dev):
+    from whisper_ipa_torch.ops import quant_matmul as qm
+    from whisper_ipa_torch.ops.quant import quantize_linear
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    entry = None
+    for m, k, n in ((24000, 768, 768), (16, 768, 768), (24000, 3072, 768)):
+        q = quantize_linear({"w": 0.05 * torch.randn((k, n), generator=gen,
+                                                     device=dev)})
+        w_q, w_s = q["w_q"].to(dev), q["w_s"].to(dev)
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        before = qm.int8_matmul.launches
+        got = qm.int8_matmul(x, w_q, w_s)
+        torch.cuda.synchronize()
+        require(qm.int8_matmul.launches == before + 1, "K6 counter rose")
+        want = qm.int8_matmul_plain(x, w_q, w_s)
+        err = rel_err(got, want)
+        ms = cuda_ms(lambda: qm.int8_matmul(x, w_q, w_s))
+        plain_ms = cuda_ms(lambda: qm.int8_matmul_plain(x, w_q, w_s))
+        lib = ""
+        lib_ms = None
+        if m > 16:  # cuBLASLt's int8 product wants more than 16 rows
+            xf = x.float()
+            s = xf.abs().amax(1, keepdim=True).clamp_min(1e-6) / 127
+            x_codes = torch.clamp(torch.round(xf / s), -127, 127).to(torch.int8)
+            lib_ms = cuda_ms(lambda: torch._int_mm(x_codes, w_q))
+            lib = f", library torch._int_mm on the same codes (product alone) {lib_ms:.4f} ms"
+        log(f"[K6 int8 matmul] ({m}, {k}) bf16 x ({k}, {n}) int8: "
+            f"max|kernel-plain|/max|plain| {err:.3e} (bound 1e-6); kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms{lib}")
+        require(err <= 1e-6, f"K6 ({m}, {k}, {n}) within 1e-6")
+        if entry is None:
+            entry = dict(max_abs_err=max_abs(got, want), ms=ms, plain_ms=plain_ms,
+                         **bound(nbytes(x, w_q, w_s, got), 2 * m * k * n, "int8"),
+                         library_ms=lib_ms)
+    return entry
+
+
+def check_int4_matmul(torch, dev):
+    from whisper_ipa_torch.ops import quant_matmul as qm
+    from whisper_ipa_torch.ops.quant import quantize_linear_int4
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    entry = None
+    for k, n in ((768, 3072), (3072, 768)):
+        q = quantize_linear_int4({"w": 0.05 * torch.randn((k, n), generator=gen,
+                                                          device=dev)})
+        w_q4, w_s4 = q["w_q4"].to(dev), q["w_s4"].to(dev)
+        for m in (16, 64):
+            for dtype in (torch.bfloat16, torch.float32):
+                x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+                before = qm.int4_matmul.launches
+                got = qm.int4_matmul(x, w_q4, w_s4)
+                torch.cuda.synchronize()
+                require(qm.int4_matmul.launches == before + 1, "K7 counter rose")
+                want = qm.int4_matmul_plain(x, w_q4, w_s4)
+                err = rel_err(got, want)
+                ms = cuda_ms(lambda: qm.int4_matmul(x, w_q4, w_s4))
+                plain_ms = cuda_ms(lambda: qm.int4_matmul_plain(x, w_q4, w_s4))
+                log(f"[K7 int4 matmul] ({m}, {k}) {str(dtype)[6:]} x packed "
+                    f"({k // 2}, {n}): max|kernel-plain|/max|plain| {err:.3e} "
+                    f"(bound 1e-5); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+                require(err <= 1e-5, f"K7 ({m}, {k}, {n}) {dtype} within 1e-5")
+                if entry is None:
+                    entry = dict(max_abs_err=max_abs(got, want), ms=ms,
+                                 plain_ms=plain_ms,
+                                 **bound(nbytes(x, w_q4, w_s4, got),
+                                         2 * m * k * n, "fp32"),
+                                 library_ms=None)
+    return entry
+
+
+def check_decode_attention_int4(torch, dev):
+    from whisper_ipa_torch.ops import decode_attention as da
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    B, H, T, T_pad = MAIN_BATCH, 12, 1500, 1536
+    entry = None
+    # bounds: f32 q 1e-5 of max|out|; bf16 q 1e-2: the plain version rounds
+    # its logits and weighted probabilities to bf16
+    for dh in (64, 32):
+        def packed():  # any byte is two valid 4-bit codes
+            c = torch.randint(-128, 128, (B, H, dh, T_pad // 2), generator=gen,
+                              device=dev)
+            return c.to(torch.int8).contiguous()
+
+        def scales():
+            s = 0.1 + 0.2 * torch.rand((B, H, T_pad), generator=gen, device=dev)
+            s[..., T:] = 0.0  # padded positions
+            return s.contiguous()
+
+        k, ks, v, vs = packed(), scales(), packed(), scales()
+        q32 = torch.randn((B, H, 1, dh), generator=gen, device=dev) * dh ** -0.5
+        for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-5)):
+            q = q32.to(dtype)
+            before = da.decode_cross_attention_int4_tminor.launches
+            got = da.decode_cross_attention_int4_tminor(q, k, ks, v, vs)
+            torch.cuda.synchronize()
+            require(da.decode_cross_attention_int4_tminor.launches == before + 1,
+                    "K8 counter rose")
+            want = da.decode_attention_int4_plain(q, k, ks, v, vs)
+            require(got.shape == (B, H, 1, dh) and got.dtype == dtype,
+                    "K8 shape/dtype")
+            err = rel_err(got, want)
+            ms = cuda_ms(lambda: da.decode_cross_attention_int4_tminor(q, k, ks, v, vs))
+            plain_ms = cuda_ms(lambda: da.decode_attention_int4_plain(q, k, ks, v, vs))
+            log(f"[K8 int4 decode attention] B={B} H={H} Dh={dh} T_pad={T_pad} "
+                f"(scale 0 from {T}) q {str(dtype)[6:]}: max|kernel-plain|/"
+                f"max|plain| {err:.3e} (bound {tol:g}); kernel {ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms")
+            require(err <= tol, f"K8 Dh {dh} q {dtype} within {tol}")
+            if entry is None:
+                # q.k over every cached position and p.v back, 2 flops a
+                # MAC, f32 on the CUDA cores
+                entry = dict(max_abs_err=max_abs(got, want), ms=ms,
+                             plain_ms=plain_ms,
+                             **bound(nbytes(q, k, ks, v, vs, got),
+                                     4 * B * H * dh * T_pad, "fp32"),
+                             library_ms=None)
+    return entry
+
+
 def counters():
-    from whisper_ipa_torch.ops import attention, decode_attention, mel_kernel
+    from whisper_ipa_torch.ops import (attention, decode_attention, kv_init,
+                                       mel_kernel, quant_matmul)
 
     return {
         "K1": mel_kernel.log_mel_power,
         "K2": attention.fused_attention,
+        "K3": kv_init.fused_kv_init_int8,
         "K4": decode_attention.decode_cross_attention_int8_tminor,
         "K5": attention.attention_backward,
+        "K6": quant_matmul.int8_matmul,
+        "K7": quant_matmul.int4_matmul,
+        "K8": decode_attention.decode_cross_attention_int4_tminor,
     }
 
 
@@ -363,14 +570,21 @@ def synthetic_audio(batch: int, seconds: float, seed: int) -> np.ndarray:
             ).astype(np.float32)
 
 
-def phase_main_path(torch, dev, cfg, params, tok):
+SERVING_RUNS = 3
+
+
+def phase_serving_path(torch, dev, cfg, params, tok, name, expect, **opts):
+    """One warm-up and SERVING_RUNS timed runs of waveform -> log-mel ->
+    decode() at batch 16, 64 tokens a row; each run's launches are counted
+    from 0. ``expect`` maps kernels to their launches in one run (None: >
+    0). Returns (launches of a run, the last run's results)."""
     from whisper_ipa_torch.decode import DecodingOptions, decode
     from whisper_ipa_torch.ops import log_mel_spectrogram
 
     options = DecodingOptions(
         language="en", without_timestamps=True, sample_len=MAIN_SAMPLE_LEN,
         suppress_tokens=[-1, tok.eot],  # every row decodes all 64 tokens
-        fp16=True, kv_int8=True,
+        fp16=True, **opts,
     )
     audio = torch.from_numpy(synthetic_audio(MAIN_BATCH, 30.0, seed=1)).to(dev)
 
@@ -384,22 +598,18 @@ def phase_main_path(torch, dev, cfg, params, tok):
     torch.cuda.synchronize()
     warm = time.time() - t0
 
-    for fn in counters().values():
-        fn.launches = 0
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.time()
-    mel, results = run()
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    launches = {name: fn.launches for name, fn in counters().items()}
-    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-    walls = [wall]
-    for _ in range(2):  # the spread, outside the counted run
+    walls, per_run, peaks = [], [], []
+    for _ in range(SERVING_RUNS):
+        for fn in counters().values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.time()
-        run()
+        mel, results = run()
         torch.cuda.synchronize()
         walls.append(time.time() - t0)
+        per_run.append({k: fn.launches for k, fn in counters().items()})
+        peaks.append(torch.cuda.max_memory_allocated(dev) / 1e9)
 
     require(bool(torch.isfinite(mel).all()), "log-mel finite")
     require(len(results) == MAIN_BATCH, "one result per row")
@@ -408,15 +618,71 @@ def phase_main_path(torch, dev, cfg, params, tok):
         # avg_logprob and no_speech_prob are read off the logits
         require(np.isfinite(r.avg_logprob) and np.isfinite(r.no_speech_prob),
                 "finite logits")
-    for name in ("K1", "K2", "K4"):
-        require(launches[name] > 0, f"{name} launched on the main path")
+    require(all(c == per_run[0] for c in per_run), f"{name}: same launches each run")
+    launches = {k: c for k, c in per_run[0].items() if c}
+    for kernel, want in expect.items():
+        got = per_run[0][kernel]
+        require(got > 0 if want is None else got == want,
+                f"{name}: {kernel} launched {got} times, expected "
+                f"{'> 0' if want is None else want}")
     audio_s = MAIN_BATCH * 30.0
-    log(f"[main path] whisper-small bf16 int8 cross-KV, batch {MAIN_BATCH} x "
-        f"30 s, {MAIN_SAMPLE_LEN} tokens/row: wall {wall:.3f} s "
-        f"({audio_s / wall:.1f} audio-s/s); runs {[round(w, 4) for w in walls]} s; "
-        f"warm-up run {warm:.2f} s; peak device memory {peak_gb:.2f} GB; "
-        f"launches {launches}")
-    return launches
+    log(f"[{name}] whisper-small bf16, batch {MAIN_BATCH} x 30 s, "
+        f"{MAIN_SAMPLE_LEN} tokens/row: walls {[round(w, 4) for w in walls]} s "
+        f"({[round(audio_s / w, 1) for w in walls]} audio-s/s); warm-up run "
+        f"{warm:.2f} s; peak device memory {[round(p, 2) for p in peaks]} GB; "
+        f"launches per run {launches}")
+    return per_run[0], results
+
+
+def phase_quantized_paths(torch, dev, cfg, params, tok, by_path, default_results):
+    """The three quantized serving runs of the main path's batch."""
+    from whisper_ipa_torch.models import (params_to, use_fused_kv_init,
+                                          use_int8_activations)
+    from whisper_ipa_torch.ops.quant import quantize_params
+
+    steps = MAIN_SAMPLE_LEN - 1  # single-query steps after the prefix step
+    n_dec, n_enc = cfg.n_text_layer, cfg.n_audio_layer
+    try:
+        use_fused_kv_init(True)
+        by_path["serving fused KV init"], fused = phase_serving_path(
+            torch, dev, cfg, params, tok, "serving fused KV init",
+            {"K1": 1, "K2": n_enc, "K3": n_dec, "K4": steps * n_dec},
+            kv_int8=True)
+    finally:
+        use_fused_kv_init(False)
+    same = sum(x == y for a, b in zip(fused, default_results)
+               for x, y in zip(a.tokens, b.tokens))
+    log(f"[serving fused KV init] {same}/{MAIN_BATCH * MAIN_SAMPLE_LEN} token "
+        f"positions equal the default serving run's (informative: random "
+        f"weights, near-tie argmaxes)")
+
+    t0 = time.time()
+    q8 = params_to(quantize_params(params, bits=8), dev)
+    log(f"[quantize] whisper-small int8 on the host in {time.time() - t0:.1f} s")
+    try:
+        use_int8_activations(True)
+        # every int8 linear: 6 an encoder layer, the 2 cross projections a
+        # decoder layer in init_cache, 8 a decoder layer a step
+        by_path["serving int8"], _ = phase_serving_path(
+            torch, dev, cfg, q8, tok, "serving int8",
+            {"K1": 1, "K2": n_enc, "K6": 6 * n_enc + 2 * n_dec
+             + 8 * n_dec * MAIN_SAMPLE_LEN, "K4": steps * n_dec},
+            kv_int8=True)
+    finally:
+        use_int8_activations(False)
+    del q8
+
+    t0 = time.time()
+    q4 = params_to(quantize_params(params, bits=4), dev)
+    log(f"[quantize] whisper-small int4 on the host in {time.time() - t0:.1f} s")
+    # K7 for the decode-shaped linears only (8 a decoder layer a step);
+    # the encoder and the cross projections take the half-weight path
+    by_path["serving int4"], _ = phase_serving_path(
+        torch, dev, cfg, q4, tok, "serving int4",
+        {"K1": 1, "K2": n_enc, "K7": 8 * n_dec * MAIN_SAMPLE_LEN, "K3": 0,
+         "K6": 0, "K8": steps * n_dec, "K4": 0}, kv_int4=True)
+    del q4
+    torch.cuda.empty_cache()
 
 
 def phase_parity(torch, dev, tok):
@@ -443,6 +709,28 @@ def phase_parity(torch, dev, tok):
         f"CPU tokens per row {same}")
     require(all(same), "test-tiny greedy tokens identical on CUDA and CPU")
 
+    # quantized weights: int8 with the int8 cache (weight-only on both
+    # sides), int4 with the int4 cache (K7 and K8 on CUDA, the half-weight
+    # and plane paths on the CPU)
+    from whisper_ipa_torch.ops.quant import quantize_params
+
+    for bits, kv, kernels in ((8, dict(kv_int8=True), ("K4",)),
+                              (4, dict(kv_int4=True), ("K7", "K8"))):
+        q_cpu = quantize_params(cpu_params, bits=bits)
+        q_gpu = params_to(q_cpu, dev)
+        opts = DecodingOptions(language="en", without_timestamps=True,
+                               sample_len=16, **kv)
+        before = {k: counters()[k].launches for k in kernels}
+        gpu = decode(q_gpu, cfg, mel, opts, tokenizer=tok)
+        ran = {k: counters()[k].launches - before[k] for k in kernels}
+        cpu = decode(q_cpu, cfg, mel, opts, tokenizer=tok)
+        same = [a.tokens == b.tokens for a, b in zip(gpu, cpu)]
+        log(f"[parity] test-tiny f32 int{bits} weights, {kv}, 2 rows x 16 "
+            f"tokens: CUDA == CPU tokens per row {same}; CUDA launches {ran}")
+        require(all(n > 0 for n in ran.values()), f"int{bits}: kernels ran")
+        require(all(same), f"test-tiny int{bits} greedy tokens identical on "
+                           f"CUDA and CPU")
+
     # whisper-small, f32, batch 2: informative only (random-init near-ties)
     cfg = CONFIGS["small"]
     cpu_params = init_params(cfg, seed=0)
@@ -461,7 +749,7 @@ def phase_parity(torch, dev, tok):
         f"CPU decode {cpu_s:.1f} s)")
 
 
-def phase_service(torch, dev, cfg, params, tok):
+def phase_service(torch, dev, cfg, params, tok, **svc_kw):
     from whisper_ipa_torch.audio import N_SAMPLES, pad_or_trim
     from whisper_ipa_torch.decode import decode
     from whisper_ipa_torch.ops import log_mel_spectrogram
@@ -470,7 +758,7 @@ def phase_service(torch, dev, cfg, params, tok):
     seconds = [5.0, 12.0, 40.0, 8.0, 20.0, 3.0]  # the third spans 2 windows
     clips = [synthetic_audio(1, s, seed=10 + i)[0] for i, s in enumerate(seconds)]
     svc = TranscriptionService(params, cfg, device=dev, batch_size=4,
-                               max_wait_ms=1000.0, tokenizer=tok)
+                               max_wait_ms=1000.0, tokenizer=tok, **svc_kw)
     try:
         futs = [svc.submit(c) for c in clips]
         outs = [f.result(timeout=300) for f in futs]
@@ -489,7 +777,7 @@ def phase_service(torch, dev, cfg, params, tok):
         audio = torch.from_numpy(np.stack(g)).to(dev)
         with torch.inference_mode():
             mel = log_mel_spectrogram(audio, n_mels=cfg.n_mels)
-        ref.extend(decode(params, cfg, mel, svc.options, tokenizer=tok))
+        ref.extend(decode(svc.params, cfg, mel, svc.options, tokenizer=tok))
     segs = [seg for o in outs for seg in o["segments"]]
     require(len(segs) == 7, f"7 windows answered, got {len(segs)}")
     for seg, r in zip(segs, ref):
@@ -497,9 +785,9 @@ def phase_service(torch, dev, cfg, params, tok):
         require(abs(seg["avg_logprob"] - r.avg_logprob) < 1e-3,
                 "service avg_logprob == decode() avg_logprob")
     lat = [round(o["latency_sec"], 3) for o in outs]
-    log(f"[service] 6 requests ({seconds} s audio) resolved, texts and "
-        f"avg_logprobs equal decode() on the same windows; latencies s {lat}; "
-        f"stats {stats}")
+    log(f"[service {svc_kw or 'default'}] 6 requests ({seconds} s audio) "
+        f"resolved, texts and avg_logprobs equal decode() on the same windows; "
+        f"latencies s {lat}; stats {stats}")
 
 
 TRAIN_IPAS = ["kæt", "bʌtn̩", "ə̥tʃ", "aːm", "ɡɯɣ", "n̩æp", "t͡ʃiːz", "ŋ̊ʷa",
@@ -730,12 +1018,24 @@ def main() -> int:
         ("K2 fused_attention", check_attention,
          "whisper_ipa_torch/csrc/attention.cu",
          "whisper_ipa_tpu/ops/attention.py:463"),
+        ("K3 fused_kv_init_int8", check_kv_init,
+         "whisper_ipa_torch/csrc/kv_init.cu",
+         "whisper_ipa_tpu/ops/kv_init.py:135"),
         ("K4 decode_cross_attention_int8_tminor", check_decode_attention,
          "whisper_ipa_torch/csrc/decode_attention.cu",
          "whisper_ipa_tpu/ops/decode_attention.py:112"),
         ("K5 attention_backward", check_attention_backward,
          "whisper_ipa_torch/csrc/attention_bwd.cu",
          "whisper_ipa_tpu/ops/attention.py:216"),
+        ("K6 int8_matmul", check_int8_matmul,
+         "whisper_ipa_torch/csrc/quant_matmul.cu",
+         "whisper_ipa_tpu/ops/quant_matmul.py:77"),
+        ("K7 int4_matmul", check_int4_matmul,
+         "whisper_ipa_torch/csrc/quant_matmul.cu",
+         "whisper_ipa_tpu/ops/quant_matmul.py:190"),
+        ("K8 decode_cross_attention_int4_tminor", check_decode_attention_int4,
+         "whisper_ipa_torch/csrc/decode_attention.cu",
+         "whisper_ipa_tpu/ops/decode_attention.py:236"),
     ):
         entry = check(torch, dev)
         kernels.append(dict(name=name, route="cuda", source=source,
@@ -745,9 +1045,15 @@ def main() -> int:
     tok = get_tokenizer(multilingual=True, num_languages=cfg.num_languages,
                         language="en")
     params = init_params(cfg, seed=0, device=dev)
-    by_path = {"serving": phase_main_path(torch, dev, cfg, params, tok)}
+    by_path = {}
+    by_path["serving"], default_results = phase_serving_path(
+        torch, dev, cfg, params, tok, "serving",
+        {"K1": 1, "K2": cfg.n_audio_layer,
+         "K4": (MAIN_SAMPLE_LEN - 1) * cfg.n_text_layer}, kv_int8=True)
+    phase_quantized_paths(torch, dev, cfg, params, tok, by_path, default_results)
     phase_parity(torch, dev, tok)
     phase_service(torch, dev, cfg, params, tok)
+    phase_service(torch, dev, cfg, params, tok, quant_bits=4, kv_int4=True)
     del params
     torch.cuda.empty_cache()
 
@@ -761,8 +1067,9 @@ def main() -> int:
     phase_train_parity(torch, dev)
     log(f"[done] all phases passed in {time.time() - t_start:.1f} s")
 
-    # launches: the sum over the counted runs of each path (serving, the
-    # two training modes), with the per-path counts beside it
+    # launches: the sum over the paths of one counted run each (the four
+    # serving runs, the two training modes), with the per-path counts
+    # beside it
     for k in kernels:
         key = k["name"].split()[0]
         k["launches_by_path"] = {p: c[key] for p, c in by_path.items() if c[key]}

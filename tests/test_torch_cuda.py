@@ -15,16 +15,27 @@ import torch
 from whisper_ipa_torch.config import CONFIGS
 from whisper_ipa_torch.models import init_params
 from whisper_ipa_torch.models.convert import flatten_params
+from whisper_ipa_torch.models import layers
+from whisper_ipa_torch.models.whisper import _quantize_kv_heads4
 from whisper_ipa_torch.ops import (
     attention_backward,
     attention_backward_plain,
     attention_plain,
+    decode_attention_int4_plain,
     decode_attention_plain,
+    decode_cross_attention_int4_tminor,
     decode_cross_attention_int8_tminor,
     fused_attention,
+    fused_kv_init_int8,
+    fused_kv_init_plain,
+    int4_matmul,
+    int4_matmul_plain,
+    int8_matmul,
+    int8_matmul_plain,
     log_mel_power,
     log_mel_power_plain,
 )
+from whisper_ipa_torch.ops.quant import quantize_linear, quantize_linear_int4
 from whisper_ipa_torch.ops.attention import _forward_kernel
 from whisper_ipa_torch.ops.mel_kernel import normalize, reflect_pad
 from whisper_ipa_torch.train import create_train_state, train_step
@@ -153,3 +164,116 @@ def test_whisper_small_unfrozen_bf16_train_step(dev):
     after = flatten_params(state.params)
     assert all(not torch.equal(after[n], t) for n, t in before.items()
                if n.endswith(".w"))
+
+
+def _rel(a, b) -> float:
+    return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(16, 768, 768), (1000, 768, 768), (37, 3072, 768)])
+def test_int8_matmul_kernel(dev, m, k, n, dtype):
+    """K6 against its plain version: the same integer sums, rescaled in
+    f32; rows not a multiple of the 64-row tile. Relative 1e-6 of max|y|."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q = quantize_linear({"w": 0.05 * torch.randn((k, n), generator=gen, device=dev)})
+    w_q, w_s = q["w_q"].to(dev), q["w_s"].to(dev)
+    x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+    before = int8_matmul.launches
+    got = int8_matmul(x, w_q, w_s)
+    assert int8_matmul.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    assert _rel(got, int8_matmul_plain(x, w_q, w_s)) <= 1e-6
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(16, 768, 3072), (64, 3072, 768), (5, 128, 200)])
+def test_int4_matmul_kernel(dev, m, k, n, dtype):
+    """K7 against its plain version, relative 1e-5 of max|y| (f32 sums in
+    another order)."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q = quantize_linear_int4(
+        {"w": 0.05 * torch.randn((k, n), generator=gen, device=dev)})
+    w_q4, w_s4 = q["w_q4"].to(dev), q["w_s4"].to(dev)
+    x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+    before = int4_matmul.launches
+    got = int4_matmul(x, w_q4, w_s4)
+    assert int4_matmul.launches == before + 1
+    assert _rel(got, int4_matmul_plain(x, w_q4, w_s4)) <= 1e-5
+
+
+def test_quantized_linear_routes(dev):
+    """On CUDA a decode-shaped int4 linear runs K7 and an encoder-shaped one
+    the half-weight path; int8 weights run K6 only under the switch."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    w = 0.05 * torch.randn((768, 768), generator=gen, device=dev)
+    q4 = {k: v.to(dev) for k, v in quantize_linear_int4({"w": w}).items()}
+    q8 = {k: v.to(dev) for k, v in quantize_linear({"w": w}).items()}
+    small = torch.randn((16, 1, 768), generator=gen, device=dev, dtype=torch.bfloat16)
+    large = torch.randn((4, 1500, 768), generator=gen, device=dev, dtype=torch.bfloat16)
+    k7, k6 = int4_matmul.launches, int8_matmul.launches
+    layers.linear(small, q4)
+    layers.linear(large, q4)
+    assert int4_matmul.launches == k7 + 1
+    layers.linear(small, q8)
+    assert int8_matmul.launches == k6
+    try:
+        layers.use_int8_activations(True)
+        layers.linear(large, q8)
+    finally:
+        layers.use_int8_activations(False)
+    assert int8_matmul.launches == k6 + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh,t", [(32, 32), (64, 1500)])
+def test_decode_attention_int4_kernel(dev, dtype, dh, t):
+    """K8 against its plain version: f32 rtol = atol = 1e-5; bf16 q 1% of
+    max|out| (the plain version rounds logits and probabilities to bf16)."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    B, H = 3, 5
+    kf, vf = (torch.randn((B, t, H * dh), generator=gen, device=dev)
+              for _ in range(2))
+    k, ks = _quantize_kv_heads4(kf, H)
+    v, vs = _quantize_kv_heads4(vf, H)
+    q = (torch.randn((B, H, 1, dh), generator=gen, device=dev) * dh ** -0.5).to(dtype)
+    before = decode_cross_attention_int4_tminor.launches
+    got = decode_cross_attention_int4_tminor(q, k, ks, v, vs)
+    assert decode_cross_attention_int4_tminor.launches == before + 1
+    want = decode_attention_int4_plain(q, k, ks, v, vs)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        assert _rel(got, want) <= 1e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("B,T,d,H", [(2, 150, 64, 2), (2, 1500, 768, 12)])
+def test_kv_init_kernel(dev, B, T, d, H, bias, dtype):
+    """K3 against its plain version (cuBLAS sums in another order, so a
+    bf16 rounding of the projection may fall the other way): scales within
+    2^-7 relative in bf16 (one ulp of the head's maximum), 2^-6 in bf16
+    with a bias (one ulp of the projection, then the bias add's own
+    rounding: two ulps of a sum that the bias made smaller) and 1e-5 in
+    f32; codes >= 99.9% equal, within 1 where the (position, head) scale
+    is the same and within 2 where the head's maximum itself rounded the
+    other way; tail code 0 and scale 0."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = 0.5 * torch.randn((B, T, d), generator=gen, device=dev)
+    wk, wv = (0.05 * torch.randn((d, d), generator=gen, device=dev) for _ in range(2))
+    bv = 0.1 * torch.randn((d,), generator=gen, device=dev) if bias else None
+    before = fused_kv_init_int8.launches
+    got = fused_kv_init_int8(x, wk, None, wv, bv, H, out_dtype=dtype)
+    assert fused_kv_init_int8.launches == before + 1
+    want = fused_kv_init_plain(x, wk, None, wv, bv, H, dtype)
+    tol = (2 ** -6 if bias else 2 ** -7) if dtype == torch.bfloat16 else 1e-5
+    for i in (0, 2):
+        diff = (got[i].int() - want[i].int()).abs()
+        same_scale = (got[i + 1] == want[i + 1])[:, :, None, :]
+        assert (diff <= torch.where(same_scale, 1, 2)).all()
+        assert (diff == 0).float().mean().item() >= 0.999
+        assert (got[i][..., T:] == 0).all()
+    for i in (1, 3):
+        assert ((got[i] - want[i]).abs() <= tol * want[i].abs()).all()
+        assert (got[i][..., T:] == 0).all() and (got[i][..., :T] > 0).all()

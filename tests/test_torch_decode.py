@@ -167,7 +167,6 @@ def test_masks_and_prefix_match_jax(tok, jtok):
     [
         dict(beam_size=2),
         dict(best_of=3, temperature=0.5),
-        dict(kv_int4=True),
         dict(best_of=2),
         dict(without_timestamps=False),
     ],

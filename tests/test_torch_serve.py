@@ -93,12 +93,10 @@ def test_requests_resolve_and_match_decode(service, params, tok):
 @pytest.mark.parametrize(
     "kw",
     [
-        dict(quant_bits=8),
         dict(draft_params={}, draft_cfg=CFG),
         dict(medusa_params={}),
         dict(mesh=object()),
         dict(beam_size=2),
-        dict(kv_int4=True),
     ],
 )
 def test_unported_options_raise(params, kw):

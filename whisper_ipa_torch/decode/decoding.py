@@ -12,8 +12,11 @@ the scores, so the result is the same as stopping at once.
 from one decoder step on SOT (``detect_language``) and patches it into the
 prefix, as the reference does.
 
+The cross cache is float, int8 (``kv_int8``) or nibble-packed int4
+(``kv_int4``, which wins over ``kv_int8`` as in the reference).
+
 Not ported yet (``decode`` raises ``NotImplementedError``): beam search,
-best-of-N sampling, the int4 cross cache and the timestamp rules.
+best-of-N sampling and the timestamp rules.
 """
 
 from __future__ import annotations
@@ -206,6 +209,7 @@ def _greedy_decode(
     dtype: torch.dtype,
     sot_index: int,
     cross_kv_int8: bool,
+    cross_kv_int4: bool,
 ):
     """Batched greedy/temperature decode; returns (tokens (B, n_prefix +
     sample_len), sum_logprobs (B,), sot_logits (B, n_vocab))."""
@@ -215,7 +219,7 @@ def _greedy_decode(
     max_len = n_prefix + sample_len
     cache = init_cache(
         params, cfg, audio_features, max_len=max_len, dtype=dtype,
-        cross_kv_int8=cross_kv_int8,
+        cross_kv_int8=cross_kv_int8, cross_kv_int4=cross_kv_int4,
     )
     prefix_logits, cache = decode_step(
         params, cfg, prefix_tokens, cache, 0, dtype=dtype
@@ -265,8 +269,6 @@ def _check_supported(options: DecodingOptions, cfg: WhisperConfig) -> None:
         missing.append("beam_size")
     if options.best_of is not None and options.best_of > 1:
         missing.append("best_of > 1")
-    if options.kv_int4:
-        missing.append("kv_int4")
     if not options.without_timestamps:
         missing.append("timestamp rules (without_timestamps=False)")
     if missing:
@@ -350,7 +352,7 @@ def decode(
             params, cfg, audio_features, prefix_tokens, suppress_mask,
             blank_mask, tokenizer.eot, int(sample_len),
             float(options.temperature), generator, dtype, sot_index,
-            options.kv_int8,
+            options.kv_int8, options.kv_int4,
         )
         no_speech_probs = torch.softmax(sot_logits, dim=-1)[:, tokenizer.no_speech]
         tokens_np = tokens.cpu().numpy()

@@ -14,7 +14,9 @@ from .whisper import (
     encode,
     init_cache,
     init_params,
+    use_fused_kv_init,
 )
+from .layers import use_int8_activations
 
 __all__ = [
     "DecoderCache",
@@ -30,4 +32,6 @@ __all__ = [
     "params_to",
     "params_to_numpy",
     "unflatten_params",
+    "use_fused_kv_init",
+    "use_int8_activations",
 ]

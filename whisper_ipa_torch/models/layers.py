@@ -12,9 +12,14 @@ Rounding follows the reference: ``linear`` rounds the product to the
 activation dtype before adding the bias in that dtype, ``layer_norm``
 takes its statistics in f32 and casts back, and softmax is f32. The
 1/sqrt(d_head) scale is split as d_head**-0.25 on q and k, except where a
-kernel takes it whole on q. Only float weights are handled here; the
-reference's quantized-weight branches (``w_q``, ``w_q4``) are not ported
-yet.
+kernel takes it whole on q.
+
+``linear`` also takes the quantized forms of ``ops/quant.py``:
+{"w_q", "w_s"} (int8, per output channel) and {"w_q4", "w_s4"} (nibble-
+packed int4, group scales). On the CPU they take the reference's CPU
+routes (weight-only dequantize; the int4 half-weights), so tokens match
+the JAX package. On CUDA a decode-shaped int4 call runs K7, and under
+``use_int8_activations(True)`` every int8 call runs K6.
 """
 
 from __future__ import annotations
@@ -25,10 +30,13 @@ import torch.nn.functional as F
 
 from ..ops.attention import fused_attention
 from ..ops.decode_attention import (
+    decode_attention_int4_plain,
     decode_attention_plain,
+    decode_cross_attention_int4_tminor,
     decode_cross_attention_int8_tminor,
 )
 from ..ops.precision import full_fp32
+from ..ops.quant_matmul import int4_halves, int4_matmul, int8_matmul
 
 # Minimum query length for the fused encoder-attention kernel, as in the
 # reference (``_FUSED_MIN_QLEN``): decode steps and short cross-attention
@@ -45,9 +53,61 @@ def layer_norm(x, p, eps: float = 1e-5):
     return (y * p["g"] + p["b"]).to(x.dtype)
 
 
+_INT8_ACTIVATIONS = False
+
+
+def use_int8_activations(enabled: bool) -> None:
+    """Full int8 serving: int8-quantized weights AND activations run K6
+    (``ops/quant_matmul.int8_matmul``) on CUDA. It changes the numbers (two
+    int8 quantizations), so it is opt-in; the CPU ignores it, as the
+    reference does."""
+    global _INT8_ACTIVATIONS
+    _INT8_ACTIVATIONS = enabled
+
+
+def _unpack_int4(packed, w_s4, dtype):
+    """The full dequantized (in, out) weight, for tests and inspection."""
+    lo, hi = int4_halves(packed, w_s4, dtype)
+    n_half, n_out = packed.shape
+    return torch.stack([lo, hi], dim=1).reshape(2 * n_half, n_out)
+
+
+# K7 serves decode-shaped int4 calls only: the reference's eligibility rule
+# (``layers.py:94-101``, whole 8-row tiles of packed rows per scale group
+# and M * K <= 2 * 1024 * 1024). Encoder-shaped calls and the cross K/V
+# projections of ``init_cache`` (M = B * 1500) take the half-weight path, as
+# in the reference. Decided before launch; not a recovery path.
+_INT4_MATMUL_MAX_MK = 2 * 1024 * 1024
+
+
+def _int4_matmul_eligible(x, p) -> bool:
+    rows_per_group = p["w_q4"].shape[0] // p["w_s4"].shape[0]
+    return (
+        x.device.type == "cuda"
+        and rows_per_group % 8 == 0
+        and x.numel() <= _INT4_MATMUL_MAX_MK
+    )
+
+
 def linear(x, p):
-    """x @ w rounded to x's dtype, then + b in that dtype."""
-    y = x @ p["w"].to(x.dtype)
+    """x @ w rounded to x's dtype, then + b in that dtype (the quantized
+    forms as in the module docstring)."""
+    if "w_q4" in p:
+        if _int4_matmul_eligible(x, p):
+            y = int4_matmul(x, p["w_q4"], p["w_s4"]).to(x.dtype)
+        else:
+            lo, hi = int4_halves(p["w_q4"], p["w_s4"], x.dtype)
+            # even input features meet the low-nibble half, odd the high
+            y = x[..., 0::2] @ lo + x[..., 1::2] @ hi
+    elif "w_q" in p:
+        if _INT8_ACTIVATIONS and x.device.type == "cuda":
+            y = int8_matmul(x, p["w_q"], p["w_s"]).to(x.dtype)
+        else:
+            # weight-only int8: eager PyTorch writes this dequantized copy
+            # on every call (XLA fused it into the product)
+            y = x @ (p["w_q"].to(x.dtype) * p["w_s"].to(x.dtype))
+    else:
+        y = x @ p["w"].to(x.dtype)
     if p.get("b") is not None:
         y = y + p["b"].to(x.dtype)
     return y
@@ -164,21 +224,25 @@ def multi_head_attention_two_part(
 
 
 def multi_head_attention_int8kv(q, k_i8, k_scale, v_i8, v_scale, n_head: int):
-    """Unmasked attention over the int8 T-minor cache.
+    """Unmasked attention over the quantized T-minor cross cache.
 
-    q: (B, S, d); k_i8/v_i8: (B, H, Dh, T_pad) int8; scales: (B, H, T_pad)
-    f32 with 0 on padded positions. Single-query steps go to K4 (on CUDA
-    the kernel, on CPU its plain version); longer query blocks (the SOT
-    prefix) take the plain version directly.
+    q: (B, S, d); k_i8/v_i8: (B, H, Dh, T_pad) int8, or (B, H, Dh, T_pad/2)
+    nibble-packed int4 (two positions a byte) when the scales are twice as
+    long; scales: (B, H, T_pad) f32 with 0 on padded positions.
+    Single-query steps go to K4 (int8) or K8 (int4), the kernel on CUDA and
+    its plain version on the CPU; longer query blocks (the SOT prefix) take
+    the plain version directly.
     """
     d_head = q.shape[-1] // n_head
     qh = split_heads(q * (d_head ** -0.5), n_head)  # (B, H, S, Dh)
-    if qh.shape[2] == 1:
-        out = decode_cross_attention_int8_tminor(
-            qh.contiguous(), k_i8, k_scale, v_i8, v_scale
-        )
+    if k_scale.shape[-1] != k_i8.shape[-1]:
+        kernel, plain = decode_cross_attention_int4_tminor, decode_attention_int4_plain
     else:
-        out = decode_attention_plain(qh, k_i8, k_scale, v_i8, v_scale)
+        kernel, plain = decode_cross_attention_int8_tminor, decode_attention_plain
+    if qh.shape[2] == 1:
+        out = kernel(qh.contiguous(), k_i8, k_scale, v_i8, v_scale)
+    else:
+        out = plain(qh, k_i8, k_scale, v_i8, v_scale)
     return merge_heads(out)
 
 

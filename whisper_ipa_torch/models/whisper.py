@@ -22,7 +22,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..config import WhisperConfig
-from ..ops.precision import full_fp32
+from ..ops.kv_init import fused_kv_init_int8, quantize_kv_heads
+from ..ops.precision import div_ieee, full_fp32
 from .convert import flatten_params, params_to
 from .layers import (
     attention_block,
@@ -220,7 +221,9 @@ class DecoderCache(NamedTuple):
     cross_k/cross_v: (L, B, T_a, d) in the compute dtype, or, with an int8
     cross cache, head-split T-minor codes (L, B, H, Dh, T_pad) int8 with
     cross_k_scale/cross_v_scale (L, B, H, T_pad) f32; T_pad is T_a rounded
-    up to 128 and scale 0 marks a padded position.
+    up to 128 and scale 0 marks a padded position. An int4 cross cache
+    packs two T-adjacent codes a byte: (L, B, H, Dh, T_pad/2) int8, same
+    scales.
     """
 
     self_k: torch.Tensor
@@ -231,24 +234,31 @@ class DecoderCache(NamedTuple):
     cross_v_scale: Optional[torch.Tensor] = None
 
 
-def _quantize_kv_heads(x, n_head: int):
-    """Symmetric int8 per-(position, head) quantization, T-minor layout.
+_quantize_kv_heads = quantize_kv_heads  # the reference's name
 
-    (B, T, d) -> codes (B, H, Dh, T_pad) int8, scales (B, H, T_pad) f32:
-    scale = max(amax over Dh, 1e-8) / 127, codes rounded half to even, T
-    padded to a multiple of 128 with code 0 and scale 0.
+
+def _quantize_kv_heads4(x, n_head: int):
+    """Symmetric int4 per-(position, head) quantization, T-minor packed.
+
+    (B, T, d) -> codes (B, H, Dh, T_pad/2) int8 (even position in the low
+    nibble, odd in the high), scales (B, H, T_pad) f32: scale = max(amax
+    over Dh, 1e-8) / 7, codes round(x / scale) clipped to [-7, 7], T padded
+    to a multiple of 128 with code 0 and scale 0.
     """
     B, T, d = x.shape
     dh = d // n_head
     xf = x.transpose(1, 2).float().reshape(B, n_head, dh, T)
     amax = xf.abs().amax(dim=2)  # (B, H, T)
-    scale = torch.clamp_min(amax, 1e-8) / 127.0
-    codes = torch.round(xf / scale[:, :, None, :]).to(torch.int8)
+    scale = div_ieee(torch.clamp_min(amax, 1e-8), 7.0)
+    codes = torch.clamp(torch.round(xf / scale[:, :, None, :]), -7, 7).to(
+        torch.int8
+    )
     t_pad = ((T + 127) // 128) * 128
     if t_pad != T:
         codes = torch.nn.functional.pad(codes, (0, t_pad - T))
         scale = torch.nn.functional.pad(scale, (0, t_pad - T))
-    return codes.contiguous(), scale.contiguous()
+    packed = (codes[..., 0::2] & 0xF) | (codes[..., 1::2] << 4)
+    return packed.contiguous(), scale.contiguous()
 
 
 def cast_decoder_blocks(params: Params, dtype) -> Params:
@@ -284,6 +294,17 @@ def cast_decoder_blocks(params: Params, dtype) -> Params:
     return {**params, "decoder": dec}
 
 
+_FUSED_KV_INIT = False
+
+
+def use_fused_kv_init(enabled: bool) -> None:
+    """Build the int8 cross cache with K3 (``ops/kv_init.py``): projection
+    and quantization in one kernel on CUDA, its plain version on the CPU.
+    Taken only with float cross weights and the int8 (not int4) cache."""
+    global _FUSED_KV_INIT
+    _FUSED_KV_INIT = enabled
+
+
 def init_cache(
     params: Params,
     cfg: WhisperConfig,
@@ -291,15 +312,19 @@ def init_cache(
     max_len: Optional[int] = None,
     dtype=torch.float32,
     cross_kv_int8: bool = False,
+    cross_kv_int4: bool = False,
 ) -> DecoderCache:
     """Allocate the self-attention buffers and project the cross K/V once
-    per layer (int8-quantized when ``cross_kv_int8``)."""
+    per layer (int8- or int4-quantized when ``cross_kv_int8`` /
+    ``cross_kv_int4``)."""
     B = audio_features.shape[0]
     L = cfg.n_text_layer
     n_ctx = max_len or cfg.n_text_ctx
     d = cfg.n_text_state
     device = audio_features.device
     audio_features = audio_features.to(dtype)
+    quantized = cross_kv_int8 or cross_kv_int4
+    quantize = _quantize_kv_heads4 if cross_kv_int4 else _quantize_kv_heads
     ks: List[torch.Tensor] = []
     vs: List[torch.Tensor] = []
     k_scales: List[torch.Tensor] = []
@@ -308,11 +333,21 @@ def init_cache(
         # one layer at a time: the float projection transient stays one
         # layer's (B, T_a, d)
         for block in params["decoder"]["blocks"]:
-            k = linear(audio_features, block["cross_attn"]["key"])
-            v = linear(audio_features, block["cross_attn"]["value"])
-            if cross_kv_int8:
-                k, k_s = _quantize_kv_heads(k, cfg.n_text_head)
-                v, v_s = _quantize_kv_heads(v, cfg.n_text_head)
+            pk, pv = block["cross_attn"]["key"], block["cross_attn"]["value"]
+            # the reference's condition: float weights, int8 mode, switch on
+            if (_FUSED_KV_INIT and cross_kv_int8 and not cross_kv_int4
+                    and "w" in pk and "w" in pv):
+                k, k_s, v, v_s = fused_kv_init_int8(
+                    audio_features, pk["w"], pk.get("b"), pv["w"],
+                    pv.get("b"), cfg.n_text_head, out_dtype=dtype,
+                )
+            else:
+                k = linear(audio_features, pk)
+                v = linear(audio_features, pv)
+                if quantized:
+                    k, k_s = quantize(k, cfg.n_text_head)
+                    v, v_s = quantize(v, cfg.n_text_head)
+            if quantized:
                 k_scales.append(k_s)
                 v_scales.append(v_s)
             ks.append(k)
@@ -322,13 +357,13 @@ def init_cache(
         self_v=torch.zeros((L, B, n_ctx, d), dtype=dtype, device=device),
         cross_k=torch.stack(ks),
         cross_v=torch.stack(vs),
-        cross_k_scale=torch.stack(k_scales) if cross_kv_int8 else None,
-        cross_v_scale=torch.stack(v_scales) if cross_kv_int8 else None,
+        cross_k_scale=torch.stack(k_scales) if quantized else None,
+        cross_v_scale=torch.stack(v_scales) if quantized else None,
     )
 
 
 def _cross_attn_default(cfg: WhisperConfig):
-    """Cross-attention policy: the int8 T-minor cache when scales are
+    """Cross-attention policy: the quantized T-minor cache when scales are
     present, full precision otherwise."""
 
     def cross_attn(qc, xk, xv, k_scale, v_scale):

@@ -4,6 +4,12 @@
   attention         K2  encoder attention forward   csrc/attention.cu
                     K5  its backward (training)     csrc/attention_bwd.cu
   decode_attention  K4  int8 single-query decode    csrc/decode_attention.cu
+                    K8  int4 single-query decode    csrc/decode_attention.cu
+  kv_init           K3  fused int8 cross-KV build   csrc/kv_init.cu
+  quant_matmul      K6  int8 x int8 product         csrc/quant_matmul.cu
+                    K7  int4-weight product         csrc/quant_matmul.cu
+
+``quant`` quantizes the weights on the host (no kernel).
 
 Importing builds nothing: a kernel is compiled on its first CUDA launch
 (or by ``_build.build_all()``).
@@ -17,20 +23,40 @@ from .attention import (
 )
 from .blockwise_ce import blockwise_cross_entropy
 from .decode_attention import (
+    decode_attention_int4_plain,
     decode_attention_plain,
+    decode_cross_attention_int4_tminor,
     decode_cross_attention_int8_tminor,
 )
+from .kv_init import fused_kv_init_int8, fused_kv_init_plain
 from .mel_kernel import log_mel_power, log_mel_power_plain, log_mel_spectrogram
+from .quant import quantize_params, quantized_bytes
+from .quant_matmul import (
+    int4_matmul,
+    int4_matmul_plain,
+    int8_matmul,
+    int8_matmul_plain,
+)
 
 __all__ = [
     "attention_backward",
     "attention_backward_plain",
     "attention_plain",
     "blockwise_cross_entropy",
+    "decode_attention_int4_plain",
     "decode_attention_plain",
+    "decode_cross_attention_int4_tminor",
     "decode_cross_attention_int8_tminor",
     "fused_attention",
+    "fused_kv_init_int8",
+    "fused_kv_init_plain",
+    "int4_matmul",
+    "int4_matmul_plain",
+    "int8_matmul",
+    "int8_matmul_plain",
     "log_mel_power",
     "log_mel_power_plain",
     "log_mel_spectrogram",
+    "quantize_params",
+    "quantized_bytes",
 ]

@@ -30,7 +30,10 @@ PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 
-KERNEL_SOURCES = ("mel", "attention", "attention_bwd", "decode_attention")
+KERNEL_SOURCES = (
+    "mel", "attention", "attention_bwd", "decode_attention", "quant_matmul",
+    "kv_init",
+)
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -1,12 +1,15 @@
-"""Single-query cross-attention over the int8 T-minor cache: the K4 kernel
-(``csrc/decode_attention.cu``) and its plain version.
+"""Single-query cross-attention over the quantized T-minor cache: K4 (int8)
+and K8 (nibble-packed int4), both in ``csrc/decode_attention.cu``, each
+beside its plain version.
 
-Counterpart of ``whisper_ipa_tpu/ops/decode_attention.
-decode_cross_attention_int8_tminor``. The JAX package keeps its kernel off by
-default because XLA fuses the int8 convert into its einsums; eager PyTorch
-does not, and would write a bf16 copy of the whole cache on every layer of
-every token, so the port runs the kernel for every single-query step with
-an int8 cache on CUDA (``models/layers.multi_head_attention_int8kv``).
+Counterparts of ``whisper_ipa_tpu/ops/decode_attention.
+decode_cross_attention_int8_tminor`` and ``..._int4_tminor``. The JAX
+package keeps both kernels off by default because XLA fuses the convert
+(and the nibble shifts) into its einsums; eager PyTorch does not, and would
+write a copy of the whole cache (two bf16 planes of it for int4) on every
+layer of every token, so the port runs the kernels for every single-query
+step with a quantized cache on CUDA
+(``models/layers.multi_head_attention_int8kv``).
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .quant import unpack_nibbles
 
 _MAX_CHUNK = 8 * 1024  # positions per block: 32 KB of f32 logits
 
@@ -32,6 +36,31 @@ def decode_attention_plain(q, k_i8, k_scale, v_i8, v_scale):
     return torch.matmul(w, v_i8.to(q.dtype).transpose(-1, -2))
 
 
+def decode_attention_int4_plain(q, k_p4, k_scale, v_p4, v_scale):
+    """Plain PyTorch K8: the reference's nibble-plane einsum path
+    (``layers._mha_int4kv``), in q's dtype.
+
+    q: (B, H, S, Dh) pre-scaled by Dh^-0.5; k_p4/v_p4: (B, H, Dh, T_pad/2)
+    int8, two positions a byte; scales: (B, H, T_pad) f32, 0 marking a
+    padded position -> (B, H, S, Dh). Each plane is contracted on its own
+    and only the (B, H, S, T) logits and probabilities are interleaved.
+    """
+    B, H, S, _ = q.shape
+    t2 = k_p4.shape[-1]
+    k_lo, k_hi = unpack_nibbles(k_p4, q.dtype)
+    l_even = torch.matmul(q, k_lo).float()
+    l_odd = torch.matmul(q, k_hi).float()
+    logits = torch.stack([l_even, l_odd], dim=-1).reshape(B, H, S, 2 * t2)
+    ks = k_scale[:, :, None, :]
+    logits = torch.where(ks > 0.0, logits * ks, float("-inf"))
+    w = torch.softmax(logits, dim=-1) * v_scale[:, :, None, :]
+    v_lo, v_hi = unpack_nibbles(v_p4, q.dtype)
+    w_even = w[..., 0::2].to(q.dtype)
+    w_odd = w[..., 1::2].to(q.dtype)
+    return (torch.matmul(w_even, v_lo.transpose(-1, -2))
+            + torch.matmul(w_odd, v_hi.transpose(-1, -2)))
+
+
 def _split(bh: int, t_pad: int, device: torch.device):
     """Blocks along T: enough (split, b*h) blocks for two per SM."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
@@ -43,25 +72,19 @@ def _split(bh: int, t_pad: int, device: torch.device):
     return -(-t_pad // chunk), chunk
 
 
-def decode_cross_attention_int8_tminor(q, k_i8, k_scale, v_i8, v_scale):
-    """K4 wrapper: (B, H, 1, Dh) x int8 (B, H, Dh, T_pad) + scales (B, H,
-    T_pad) -> (B, H, 1, Dh) in q's dtype.
-
-    q must carry the full Dh^-0.5 scale; T_pad % 128 == 0 (``init_cache``
-    pads). CUDA tensors run the kernel, CPU tensors the plain version.
-    """
+def _check(q, k, k_scale, v, v_scale, t_codes: int, name: str):
     B, H, S, Dh = q.shape
     if S != 1:
-        raise ValueError("decode_cross_attention_int8_tminor is single-query")
-    if k_i8.shape != (B, H, Dh, k_i8.shape[-1]) or v_i8.shape != k_i8.shape:
+        raise ValueError(f"{name} is single-query")
+    if k.shape != (B, H, Dh, t_codes) or v.shape != k.shape:
         raise ValueError(
-            f"codes must be (B, H, Dh, T) int8 matching q {tuple(q.shape)}, "
-            f"got {tuple(k_i8.shape)}, {tuple(v_i8.shape)}"
+            f"codes must be (B, H, Dh, {t_codes}) int8 matching q "
+            f"{tuple(q.shape)}, got {tuple(k.shape)}, {tuple(v.shape)}"
         )
-    T = k_i8.shape[-1]
+    T = k_scale.shape[-1]
     if k_scale.shape != (B, H, T) or v_scale.shape != (B, H, T):
         raise ValueError("scales must be (B, H, T)")
-    if k_i8.dtype != torch.int8 or v_i8.dtype != torch.int8:
+    if k.dtype != torch.int8 or v.dtype != torch.int8:
         raise ValueError("codes must be int8")
     if k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32:
         raise ValueError("scales must be float32")
@@ -69,9 +92,13 @@ def decode_cross_attention_int8_tminor(q, k_i8, k_scale, v_i8, v_scale):
         raise ValueError(f"q must be f32 or bf16, got {q.dtype}")
     if T % 128 != 0:
         raise ValueError(f"T={T} must be padded to a multiple of 128")
-    tensors = (q, k_i8, k_scale, v_i8, v_scale)
-    if q.device.type == "cpu":
-        return decode_attention_plain(*tensors)
+
+
+def _launch(symbol: str, q, k, k_scale, v, v_scale):
+    """Run a decode kernel of ``csrc/decode_attention.cu`` on CUDA tensors."""
+    B, H, _, Dh = q.shape
+    T = k_scale.shape[-1]
+    tensors = (q, k, k_scale, v, v_scale)
     if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
         raise ValueError("all operands must be on one CUDA device")
     if Dh not in (32, 64):
@@ -86,19 +113,53 @@ def decode_cross_attention_int8_tminor(q, k_i8, k_scale, v_i8, v_scale):
         (B * H, n_split, Dh + 2), dtype=torch.float32, device=q.device
     )
     fn = _build.entry(
-        "decode_attention",
-        "wipa_decode_attention_int8",
+        "decode_attention", symbol,
         [_build.P] * 7 + [_build.I] * 6 + [_build.I, _build.P],
     )
     rc = fn(
-        q.data_ptr(), k_i8.data_ptr(), k_scale.data_ptr(), v_i8.data_ptr(),
+        q.data_ptr(), k.data_ptr(), k_scale.data_ptr(), v.data_ptr(),
         v_scale.data_ptr(), out.data_ptr(), part.data_ptr(),
         B * H, Dh, T, n_split, chunk, int(q.dtype == torch.bfloat16),
         q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _build.check(rc, "wipa_decode_attention_int8")
+    _build.check(rc, symbol)
+    return out
+
+
+def decode_cross_attention_int8_tminor(q, k_i8, k_scale, v_i8, v_scale):
+    """K4 wrapper: (B, H, 1, Dh) x int8 (B, H, Dh, T_pad) + scales (B, H,
+    T_pad) -> (B, H, 1, Dh) in q's dtype.
+
+    q must carry the full Dh^-0.5 scale; T_pad % 128 == 0 (``init_cache``
+    pads). CUDA tensors run the kernel, CPU tensors the plain version.
+    """
+    _check(q, k_i8, k_scale, v_i8, v_scale, k_scale.shape[-1],
+           "decode_cross_attention_int8_tminor")
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k_i8, k_scale, v_i8, v_scale)
+    out = _launch("wipa_decode_attention_int8", q, k_i8, k_scale, v_i8, v_scale)
     decode_cross_attention_int8_tminor.launches += 1
     return out
 
 
 decode_cross_attention_int8_tminor.launches = 0
+
+
+def decode_cross_attention_int4_tminor(q, k_p4, k_scale, v_p4, v_scale):
+    """K8 wrapper: (B, H, 1, Dh) x nibble-packed int4 (B, H, Dh, T_pad/2) +
+    scales (B, H, T_pad) -> (B, H, 1, Dh) in q's dtype.
+
+    Byte t2 holds position 2*t2 in its low nibble and 2*t2+1 in its high;
+    scale 0 masks a position. q must carry the full Dh^-0.5 scale; T_pad %
+    128 == 0. CUDA tensors run the kernel, CPU tensors the plain version.
+    """
+    _check(q, k_p4, k_scale, v_p4, v_scale, k_scale.shape[-1] // 2,
+           "decode_cross_attention_int4_tminor")
+    if q.device.type == "cpu":
+        return decode_attention_int4_plain(q, k_p4, k_scale, v_p4, v_scale)
+    out = _launch("wipa_decode_attention_int4", q, k_p4, k_scale, v_p4, v_scale)
+    decode_cross_attention_int4_tminor.launches += 1
+    return out
+
+
+decode_cross_attention_int4_tminor.launches = 0

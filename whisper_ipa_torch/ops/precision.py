@@ -50,3 +50,16 @@ def full_fp32():
                     torch.backends.cuda.matmul.allow_tf32,
                     torch.backends.cudnn.allow_tf32,
                 ) = _Scope.saved
+
+
+def div_ieee(a: torch.Tensor, c: float) -> torch.Tensor:
+    """a / c, correctly rounded on every device.
+
+    On CUDA, PyTorch computes ``tensor / python_number`` as a product with
+    the number's reciprocal, which can miss the IEEE quotient by an ulp; the
+    quantizers' scales must be the IEEE quotient the kernels and the
+    reference compute, because a one-ulp scale decides exact rounding ties
+    (frequent with bf16 inputs). A 0-dim tensor divisor on the same device
+    takes the true division.
+    """
+    return a / a.new_tensor(c)

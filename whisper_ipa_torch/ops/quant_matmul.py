@@ -1,0 +1,143 @@
+"""Quantized-weight matrix products: K6, int8 x int8 with per-row activation
+quantization, and K7, int4 weights with group scales (both in
+``csrc/quant_matmul.cu``), each beside its plain version.
+
+Counterparts of ``whisper_ipa_tpu/ops/quant_matmul.int8_matmul`` and
+``int4_matmul``. Both return f32; ``models/layers.linear`` casts to the
+activation dtype and adds the bias, as the reference does.
+
+K6 changes the numbers (the activations are quantized too), so it runs only
+under ``layers.use_int8_activations(True)`` on CUDA. K7 computes what the
+half-weight path computes; the port routes every decode-shaped ``w_q4``
+call on CUDA to it, because eager PyTorch would otherwise write two
+dequantized (K/2, N) half-weights per call.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from .precision import div_ieee
+from .quant import unpack_nibbles
+
+
+def _rows(x):
+    return x.reshape(-1, x.shape[-1])
+
+
+def int8_matmul_plain(x, w_q, w_scale):
+    """Plain PyTorch K6: (..., K) float x int8 (K, N) + f32 scales (N,) ->
+    (..., N) f32.
+
+    s = max(absmax over the row, 1e-6) / 127, codes = clip(round(x / s),
+    -127, 127); the code products are summed in float64, which is exact
+    here (|sum| <= K * 127^2 < 2^53), then rescaled in f32 as
+    ``acc * s * w_scale``.
+    """
+    xf = _rows(x).float()
+    x_scale = div_ieee(torch.clamp_min(xf.abs().amax(dim=1, keepdim=True), 1e-6),
+                       127.0)
+    x_q = torch.clamp(torch.round(xf / x_scale), -127, 127)
+    acc = torch.matmul(x_q.double(), w_q.double()).float()
+    out = acc * x_scale * w_scale.float()
+    return out.reshape(*x.shape[:-1], w_q.shape[1])
+
+
+def int4_halves(w_q4, w_s4, dtype):
+    """Packed (K/2, N) codes + group scales (K/G, N) -> the dequantized
+    even-row and odd-row halves, each (K/2, N), in ``dtype`` (codes and
+    scales cast first, then multiplied, as the reference does)."""
+    n_half, n_out = w_q4.shape
+    groups = w_s4.shape[0]
+    s = w_s4[:, None, :].to(dtype)
+    lo, hi = unpack_nibbles(w_q4, dtype)
+    return ((lo.reshape(groups, -1, n_out) * s).reshape(n_half, n_out),
+            (hi.reshape(groups, -1, n_out) * s).reshape(n_half, n_out))
+
+
+def int4_matmul_plain(x, w_q4, w_s4):
+    """Plain PyTorch K7: (..., K) float x packed int4 (K/2, N) + group
+    scales (K/G, N) -> (..., N) f32: x in f32, codes dequantized in f32,
+    ``x_even @ lo + x_odd @ hi``."""
+    xf = _rows(x).float()
+    lo, hi = int4_halves(w_q4, w_s4, torch.float32)
+    out = xf[:, 0::2] @ lo + xf[:, 1::2] @ hi
+    return out.reshape(*x.shape[:-1], w_q4.shape[1])
+
+
+def _check_cuda(what: str, x, *tensors):
+    if x.device.type != "cuda" or any(t.device != x.device for t in tensors):
+        raise ValueError(f"{what}: all operands must be on one CUDA device")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{what}: x must be f32 or bf16, got {x.dtype}")
+
+
+def int8_matmul(x, w_q, w_scale):
+    """K6 wrapper: (..., K) f32/bf16 x int8 (K, N) + f32 (N,) -> (..., N) f32.
+
+    CUDA tensors run the kernel, CPU tensors the plain version. K % 4 == 0.
+    """
+    K = x.shape[-1]
+    if w_q.dtype != torch.int8 or w_q.dim() != 2 or w_q.shape[0] != K:
+        raise ValueError(f"w_q must be int8 ({K}, N), got {w_q.dtype} "
+                         f"{tuple(w_q.shape)}")
+    N = w_q.shape[1]
+    if w_scale.shape != (N,) or w_scale.dtype != torch.float32:
+        raise ValueError("w_scale must be f32 (N,)")
+    if x.device.type == "cpu":
+        return int8_matmul_plain(x, w_q, w_scale)
+    _check_cuda("int8_matmul", x, w_q, w_scale)
+    if K % 4:
+        raise ValueError(f"int8_matmul needs K % 4 == 0, got {K}")
+    xr, wq, ws = _rows(x).contiguous(), w_q.contiguous(), w_scale.contiguous()
+    M = xr.shape[0]
+    out = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    x_codes = torch.empty((M, K), dtype=torch.int8, device=x.device)
+    x_scale = torch.empty((M,), dtype=torch.float32, device=x.device)
+    fn = _build.entry("quant_matmul", "wipa_int8_matmul",
+                      [_build.P] * 6 + [_build.I] * 5 + [_build.P])
+    rc = fn(xr.data_ptr(), wq.data_ptr(), ws.data_ptr(),
+            out.data_ptr(), x_codes.data_ptr(), x_scale.data_ptr(), M, K, N,
+            int(x.dtype == torch.bfloat16), x.device.index,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(rc, "wipa_int8_matmul")
+    int8_matmul.launches += 1
+    return out.reshape(*x.shape[:-1], N)
+
+
+int8_matmul.launches = 0
+
+
+def int4_matmul(x, w_q4, w_s4):
+    """K7 wrapper: (..., K) f32/bf16 x packed int4 (K/2, N) + group scales
+    (K/G, N) f32 -> (..., N) f32.
+
+    CUDA tensors run the kernel, CPU tensors the plain version.
+    """
+    K = x.shape[-1]
+    if w_q4.dtype != torch.int8 or w_q4.dim() != 2 or 2 * w_q4.shape[0] != K:
+        raise ValueError(f"w_q4 must be int8 ({K // 2}, N), got {w_q4.dtype} "
+                         f"{tuple(w_q4.shape)}")
+    n_half, N = w_q4.shape
+    groups = w_s4.shape[0]
+    if (w_s4.dim() != 2 or w_s4.shape[1] != N or w_s4.dtype != torch.float32
+            or groups == 0 or n_half % groups):
+        raise ValueError("w_s4 must be f32 (G, N) with G dividing K/2")
+    if x.device.type == "cpu":
+        return int4_matmul_plain(x, w_q4, w_s4)
+    _check_cuda("int4_matmul", x, w_q4, w_s4)
+    xr, wq, ws = _rows(x).contiguous(), w_q4.contiguous(), w_s4.contiguous()
+    M = xr.shape[0]
+    out = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    fn = _build.entry("quant_matmul", "wipa_int4_matmul",
+                      [_build.P] * 4 + [_build.I] * 6 + [_build.P])
+    rc = fn(xr.data_ptr(), wq.data_ptr(), ws.data_ptr(), out.data_ptr(), M, K, N,
+            n_half // groups, int(x.dtype == torch.bfloat16), x.device.index,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(rc, "wipa_int4_matmul")
+    int4_matmul.launches += 1
+    return out.reshape(*x.shape[:-1], N)
+
+
+int4_matmul.launches = 0

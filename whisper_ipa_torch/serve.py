@@ -6,10 +6,13 @@ requests into fixed-size batches of 30 s windows (the tail padded with
 silence), runs waveform -> log-mel (K1 on CUDA) -> encoder -> int8
 cross-KV greedy decode on the service's device, and resolves the futures.
 
-Not ported yet (the constructor raises ``NotImplementedError``): weight
-quantization (``quant_bits``), speculative decoding (draft model, Medusa
-heads), multi-device meshes, beam search and the int4 cross cache. The
-HTTP front end (``whisper_ipa_tpu/cli/serve.py``) is not ported either.
+``quant_bits`` (8 or 4) quantizes the block weights at startup
+(``ops/quant.quantize_params``) before they move to the device; ``kv_int4``
+keeps the cross cache as nibble-packed int4 (and overrides ``kv_int8``).
+
+Not ported yet (the constructor raises ``NotImplementedError``): speculative
+decoding (draft model, Medusa heads), multi-device meshes and beam search.
+The HTTP front end (``whisper_ipa_tpu/cli/serve.py``) is not ported either.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from .config import WhisperConfig
 from .decode import DecodingOptions, decode
 from .models.convert import params_to
 from .ops.mel_kernel import log_mel_spectrogram
+from .ops.quant import quantize_params
 from .tokenizer import WhisperTokenizer, get_tokenizer
 
 
@@ -73,20 +77,20 @@ class TranscriptionService:
         tokenizer: Optional[WhisperTokenizer] = None,
     ):
         unported = {
-            "quant_bits": quant_bits is not None,
             "draft_params/draft_cfg": draft_params is not None
             or draft_cfg is not None,
             "medusa_params/medusa_tree": medusa_params is not None
             or medusa_tree is not None,
             "mesh": mesh is not None,
             "beam_size": beam_size is not None,
-            "kv_int4": kv_int4,
         }
         missing = [name for name, used in unported.items() if used]
         if missing:
             raise NotImplementedError(
                 "not ported to the PyTorch service yet: " + ", ".join(missing)
             )
+        if quant_bits is not None:
+            params = quantize_params(params, bits=quant_bits)
         self.device = torch.device(device)
         self.params = params_to(params, self.device)
         self.cfg = cfg
@@ -101,7 +105,8 @@ class TranscriptionService:
             language=language,
             without_timestamps=True,
             fp16=bf16,
-            kv_int8=kv_int8,
+            kv_int8=kv_int8 and not kv_int4,
+            kv_int4=kv_int4,
         )
         self._queue: "queue.Queue[_Request]" = queue.Queue()
         self._stop = threading.Event()
