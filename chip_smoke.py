@@ -12,18 +12,25 @@ then drives the port's two paths at whisper-small width with random
 weights from seed 0:
 
   serving   waveform -> log-mel (K1) -> encoder (K2) -> int8 cross-KV
-            greedy decode (K4), batch 16; CUDA against the CPU; the
-            micro-batching service
+            greedy decode (K4), batch 16; the same batch with the encoder
+            attention through the head-merged kernel (K10), tokens equal
+            to the default's; CUDA against the CPU; the micro-batching
+            service
   quantized serving, the same batch three more ways: the int8 cross cache
             built by the fused kernel (K3); int8 weights with int8
-            activations (K6); int4 weights (K7) with the int4 cross cache
-            (K8); test-tiny CUDA against the CPU for int8 and int4; the
-            service with int4 weights and cache
+            activations (K6), the weights quantized on the host and again
+            on the card (K9, stochastic rounding); int4 weights (K7) with
+            the int4 cross cache (K8); test-tiny CUDA against the CPU for
+            int8 and int4; the service with int4 weights and cache
   training  train() on a seeded synthetic set, batch 12, bf16
             activations: decoder-only (encoder frozen, K2 forward only)
             and --unfreeze-encoder (K2 forward, K5 backward); save and
             resume on the card; a test-tiny trajectory on CUDA against
             the CPU
+  entry points, on the decoder-only run's checkpoint: the checkpoint
+            loader, cli.evaluate_model, cli.transcribe_single, and the
+            HTTP server of cli.serve (merged attention on: K10 in the
+            service) with its texts against decode()
 
 Each path's kernel launch counts are set to 0 just before it and read just
 after. Any failure raises and exits non-zero; there is no CPU fallback.
@@ -548,9 +555,124 @@ def check_decode_attention_int4(torch, dev):
     return entry
 
 
+def check_sr_quant(torch, dev):
+    from whisper_ipa_torch.ops import sr_quant as sr
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    entry = None
+    # the shapes of whisper-small's block weights; the kernel and the plain
+    # version compute the same Philox bits and IEEE divisions: equal codes
+    # and scales; each code the floor or the ceiling of the IEEE quotient
+    for rows, cols in ((768, 3072), (3072, 768), (768, 768)):
+        w = 0.05 * torch.randn((rows, cols), generator=gen, device=dev)
+        before = sr.stochastic_quantize_int8.launches
+        q, s = sr.stochastic_quantize_int8(w, seed=7)
+        torch.cuda.synchronize()
+        require(sr.stochastic_quantize_int8.launches == before + 1,
+                "K9 counter rose")
+        pq, ps = sr.stochastic_quantize_int8_plain(w, seed=7)
+        exact = torch.equal(q, pq) and torch.equal(s, ps)
+        quot = w / s[None, :]  # a tensor divisor: the IEEE quotient on CUDA
+        lo = torch.floor(quot).clamp(-127, 127)
+        hi = (torch.floor(quot) + 1).clamp(-127, 127)
+        qf = q.float()
+        bracket = bool(((qf == lo) | (qf == hi)).all())
+        step_err = float(((qf * s - w).abs() / s).max())
+        ms = cuda_ms(lambda: sr.stochastic_quantize_int8(w, seed=7))
+        plain_ms = cuda_ms(lambda: sr.stochastic_quantize_int8_plain(w, seed=7))
+        log(f"[K9 sr quant] w ({rows}, {cols}) f32: codes and scales equal the "
+            f"plain version's {exact}; every code floor or ceil of the IEEE "
+            f"quotient {bracket}; max error {step_err:.4f} steps (bound 1); "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        require(exact and bracket and step_err <= 1.0,
+                f"K9 ({rows}, {cols}) exact, bracketed, within one step")
+        if entry is None:
+            # bytes: w read, codes and scales written. Operations a weight:
+            # 10 Philox rounds of 2 mul.hi, 2 mul.lo, 4 xor and 2 key adds
+            # (98 with 9 key bumps), 3 to build u, the division, add, floor,
+            # 2 clamps, convert, and |w| and max in the first pass: 109, at
+            # the CUDA cores' fp32 rate (the table has no int32 rate; int32
+            # multiplies run at half of it)
+            entry = dict(max_abs_err=max_abs(q, pq), ms=ms, plain_ms=plain_ms,
+                         **bound(nbytes(w, q, s), 109 * rows * cols, "fp32"),
+                         library_ms=None)
+    w2 = torch.full((4096, 8), 0.25, device=dev)
+    w2[0] = 127.0  # scale 1.0: codes 0 or 1 with P(1) = 0.25
+    q2, s2 = sr.stochastic_quantize_int8(w2, seed=11)
+    mean = float((q2[1:].float() * s2).mean())
+    log(f"[K9 sr quant] quarter-step unbiasedness: mean {mean:.4f} "
+        f"(0.25 within 0.02)")
+    require(bool((s2 == 1.0).all()) and abs(mean - 0.25) < 0.02,
+            "K9 unbiased on quarter steps")
+    return entry
+
+
+def check_merged_attention(torch, dev):
+    from whisper_ipa_torch.models.layers import merge_heads, split_heads
+    from whisper_ipa_torch.ops import attention as at
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    B, T, H, dh = MAIN_BATCH, 1500, 12, 64
+    scale = dh ** -0.5
+    entry = None
+    # bounds against the plain version: K2's (bf16 2e-2 absolute, f32
+    # 2e-5); against K2 on split heads: equal (one body, one order)
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 2e-5)):
+        q, k, v = (torch.randn((B, T, H * dh), generator=gen, device=dev)
+                   .to(dtype) for _ in range(3))
+        before = at.fused_attention_merged.launches
+        got = at.fused_attention_merged(q, k, v, H, scale)
+        torch.cuda.synchronize()
+        require(at.fused_attention_merged.launches == before + 1,
+                "K10 counter rose")
+        want = at.attention_merged_plain(q, k, v, H, scale)
+        err = max_abs(got, want)
+        split = [split_heads(t, H).contiguous() for t in (q, k, v)]
+        k2 = merge_heads(at.fused_attention(*split, scale))
+        same = torch.equal(got, k2)
+        ms = cuda_ms(lambda: at.fused_attention_merged(q, k, v, H, scale))
+        plain_ms = cuda_ms(lambda: at.attention_merged_plain(q, k, v, H, scale))
+        log(f"[K10 merged attention] ({B}, {T}, {H}x{dh}) {str(dtype)[6:]}: "
+            f"max|kernel-plain| {err:.3e} (bound {tol:g}); equal to K2 on "
+            f"split heads {same}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        require(err < tol and same, f"K10 {dtype} within {tol} and equal to K2")
+        if entry is None:
+            views = [t.view(B, T, H, dh).transpose(1, 2) for t in (q, k, v)]
+            lib_ms = cuda_ms(lambda: torch.nn.functional
+                             .scaled_dot_product_attention(*views, scale=scale))
+            log(f"[K10 merged attention] library: scaled_dot_product_attention "
+                f"on the (B, T, H, Dh).transpose(1, 2) views {lib_ms:.4f} ms")
+            entry = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         **bound(nbytes(q, k, v, got), 4 * B * H * T * T * dh,
+                                 "bf16"),
+                         library_ms=lib_ms)
+
+    # the autograd Function: K10 forward with the LSE, K5 backward on split
+    # heads, against the plain backward (K5's bf16 bound, relative)
+    Bg = 2
+    q, k, v, g = (torch.randn((Bg, T, H * dh), generator=gen, device=dev)
+                  .to(torch.bfloat16) for _ in range(4))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    k10, k5 = at.fused_attention_merged.launches, at.attention_backward.launches
+    got = torch.autograd.grad(at.fused_attention_merged(*leaves, H, scale),
+                              leaves, g)
+    torch.cuda.synchronize()
+    require(at.fused_attention_merged.launches == k10 + 1
+            and at.attention_backward.launches == k5 + 1,
+            "the Function ran K10 forward and K5 backward")
+    want = at.attention_backward_plain(*(split_heads(t, H) for t in (q, k, v, g)),
+                                       scale)
+    rel = [rel_err(a, merge_heads(b)) for a, b in zip(got, want)]
+    log(f"[K10 merged attention] forward + backward ({Bg}, {T}, {H}x{dh}) bf16 "
+        f"through the Function (K10 + K5): max|grad-plain|/max|plain| dq/dk/dv "
+        f"{'/'.join(f'{x:.2e}' for x in rel)} (bound 2e-2)")
+    require(max(rel) < 2e-2, "K10 + K5 gradients within 2e-2")
+    return entry
+
+
 def counters():
     from whisper_ipa_torch.ops import (attention, decode_attention, kv_init,
-                                       mel_kernel, quant_matmul)
+                                       mel_kernel, quant_matmul, sr_quant)
 
     return {
         "K1": mel_kernel.log_mel_power,
@@ -561,6 +683,8 @@ def counters():
         "K6": quant_matmul.int8_matmul,
         "K7": quant_matmul.int4_matmul,
         "K8": decode_attention.decode_cross_attention_int4_tminor,
+        "K9": sr_quant.stochastic_quantize_int8,
+        "K10": attention.fused_attention_merged,
     }
 
 
@@ -634,8 +758,65 @@ def phase_serving_path(torch, dev, cfg, params, tok, name, expect, **opts):
     return per_run[0], results
 
 
+def phase_merged_path(torch, dev, cfg, params, tok, by_path, default_results):
+    """The main path's batch with the encoder attention through K10."""
+    from whisper_ipa_torch.models import use_merged_attention
+
+    steps = MAIN_SAMPLE_LEN - 1
+    try:
+        use_merged_attention(True)
+        by_path["serving merged"], merged = phase_serving_path(
+            torch, dev, cfg, params, tok, "serving merged",
+            {"K1": 1, "K2": 0, "K10": cfg.n_audio_layer,
+             "K4": steps * cfg.n_text_layer}, kv_int8=True)
+    finally:
+        use_merged_attention(False)
+    same = sum(x == y for a, b in zip(merged, default_results)
+               for x, y in zip(a.tokens, b.tokens))
+    log(f"[serving merged] {same}/{MAIN_BATCH * MAIN_SAMPLE_LEN} token "
+        f"positions equal the default serving run's (K10 equals K2 on split "
+        f"heads bit for bit)")
+    require(same == MAIN_BATCH * MAIN_SAMPLE_LEN,
+            "merged serving tokens equal the default's")
+
+
+def phase_device_quantize(torch, dev, cfg, params, q8_host, by_path):
+    """quantize_params_device (K9) on the card-resident params, held
+    against the host quantizer's tree; returns the quantized tree."""
+    from whisper_ipa_torch.models import flatten_params
+    from whisper_ipa_torch.ops.sr_quant import quantize_params_device
+
+    for fn in counters().values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    d8 = quantize_params_device(params)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {k: fn.launches for k, fn in counters().items()}
+    by_path["device quantize int8"] = launches
+    n_weights = 6 * (cfg.n_audio_layer + cfg.n_text_layer) + 4 * cfg.n_text_layer
+    require({k: c for k, c in launches.items() if c} == {"K9": n_weights},
+            f"K9 launched once a block weight ({n_weights}), got {launches}")
+    dev_flat, host_flat = flatten_params(d8), flatten_params(q8_host)
+    require(sorted(dev_flat) == sorted(host_flat), "the host quantizer's layout")
+    scales = [n for n in dev_flat if n.endswith(".w_s")]
+    require(all(dev_flat[n].device == dev for n in dev_flat), "stays on the card")
+    scales_equal = all(torch.equal(dev_flat[n], host_flat[n]) for n in scales)
+    code_diff = max(int((dev_flat[n[:-1] + "q"].int()
+                         - host_flat[n[:-1] + "q"].int()).abs().max())
+                    for n in scales)
+    log(f"[device quantize] whisper-small int8 on the card (K9, {n_weights} "
+        f"weights) in {wall:.4f} s (host clock, synchronised); scales equal "
+        f"the host quantizer's {scales_equal}; codes within {code_diff} of "
+        f"its round-to-nearest codes (bound 1)")
+    require(scales_equal and code_diff <= 1, "K9 tree against the host's")
+    return d8
+
+
 def phase_quantized_paths(torch, dev, cfg, params, tok, by_path, default_results):
-    """The three quantized serving runs of the main path's batch."""
+    """The three quantized serving runs of the main path's batch, and the
+    int8 run again with the weights quantized on the card (K9)."""
     from whisper_ipa_torch.models import (params_to, use_fused_kv_init,
                                           use_int8_activations)
     from whisper_ipa_torch.ops.quant import quantize_params
@@ -658,19 +839,22 @@ def phase_quantized_paths(torch, dev, cfg, params, tok, by_path, default_results
 
     t0 = time.time()
     q8 = params_to(quantize_params(params, bits=8), dev)
-    log(f"[quantize] whisper-small int8 on the host in {time.time() - t0:.1f} s")
+    log(f"[quantize] whisper-small int8 on the host in {time.time() - t0:.4f} s")
+    d8 = phase_device_quantize(torch, dev, cfg, params, q8, by_path)
+    # every int8 linear: 6 an encoder layer, the 2 cross projections a
+    # decoder layer in init_cache, 8 a decoder layer a step
+    int8_expect = {"K1": 1, "K2": n_enc, "K6": 6 * n_enc + 2 * n_dec
+                   + 8 * n_dec * MAIN_SAMPLE_LEN, "K4": steps * n_dec}
     try:
         use_int8_activations(True)
-        # every int8 linear: 6 an encoder layer, the 2 cross projections a
-        # decoder layer in init_cache, 8 a decoder layer a step
         by_path["serving int8"], _ = phase_serving_path(
-            torch, dev, cfg, q8, tok, "serving int8",
-            {"K1": 1, "K2": n_enc, "K6": 6 * n_enc + 2 * n_dec
-             + 8 * n_dec * MAIN_SAMPLE_LEN, "K4": steps * n_dec},
+            torch, dev, cfg, q8, tok, "serving int8", int8_expect, kv_int8=True)
+        by_path["serving device-int8"], _ = phase_serving_path(
+            torch, dev, cfg, d8, tok, "serving device-int8", int8_expect,
             kv_int8=True)
     finally:
         use_int8_activations(False)
-    del q8
+    del q8, d8
 
     t0 = time.time()
     q4 = params_to(quantize_params(params, bits=4), dev)
@@ -860,9 +1044,142 @@ def run_train(torch, dev, data: str, out: str, freeze: bool, steps: int,
     return read_train_log(out), launches, peak_gb, wall
 
 
-def phase_train(torch, dev, tok, root: str):
-    """Both fine-tuning modes through train(), the loop's validation, then
-    save and resume. Each run's directory goes once it has been read (a
+def _http(url: str, body: bytes = None, content_type: str = "audio/wav"):
+    """GET (no body) or POST ``url``; the response's lines, JSON-decoded."""
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body,
+                                 headers={"Content-Type": content_type})
+    with urllib.request.urlopen(req, timeout=300) as r:
+        return [json.loads(line) for line in r if line.strip()]
+
+
+def phase_entry_points(torch, dev, cfg, data: str, run_dir: str, ckpt_flat,
+                       by_path):
+    """The inference entry points on the decoder-only run's checkpoint, at
+    whisper-small: the loader, the evaluation CLI, the single-file CLI and
+    the HTTP server (merged attention on, so K10 runs in the service)."""
+    import threading
+
+    from whisper_ipa_torch.audio import (N_SAMPLES, load_audio_bytes,
+                                         pad_or_trim, write_wav)
+    from whisper_ipa_torch.cli import evaluate_model, transcribe_single
+    from whisper_ipa_torch.cli import serve as serve_cli
+    from whisper_ipa_torch.decode import decode
+    from whisper_ipa_torch.models import (checkpoint_overlay_mode,
+                                          flatten_params, load_checkpoint_auto,
+                                          use_merged_attention)
+    from whisper_ipa_torch.ops import log_mel_spectrogram
+    from whisper_ipa_torch.train.loop import load_or_init_params
+
+    t_phase = time.time()
+    ckpt = os.path.join(run_dir, f"checkpoint-{TRAIN_STEPS}")
+    # no weights on the card: the base is init_params(seed 0), as in train()
+    mode = checkpoint_overlay_mode(ckpt)
+    loaded, n = load_checkpoint_auto(
+        ckpt, load_or_init_params("small", cfg, None, device=dev))
+    flat = flatten_params(loaded)
+    n_dec = sum(k.startswith("decoder.") for k in ckpt_flat)
+    same = sorted(flat) == sorted(ckpt_flat) and all(
+        flat[k].device == dev and torch.equal(flat[k].cpu(), ckpt_flat[k])
+        for k in ckpt_flat)
+    del loaded, flat
+    log(f"[entry loader] auto overlay mode from training_config.json: "
+        f"{'full' if mode else 'decoder-only'}; {n} tensors overlaid "
+        f"(decoder {n_dec}); the loaded tree equals the checkpoint's tensors "
+        f"bit for bit on the card {same}")
+    require(mode is False and n == n_dec and same,
+            "decoder-only auto overlay reproduces the checkpoint")
+
+    t0 = time.time()
+    results = evaluate_model.main([
+        "--skip-base", "--base-model", "small", "--checkpoint", ckpt,
+        "--test-data", data, "--num-samples", "0"])
+    log(f"[entry evaluate_model] {len(results['hypotheses'])} samples, f32, "
+        f"batch 8, in {time.time() - t0:.1f} s: PER {results['per']:.2f}%, "
+        f"PFER {results['pfer']:.2f}%")
+    require(len(results["hypotheses"]) == TRAIN_BATCH
+            and np.isfinite(results["per"]) and np.isfinite(results["pfer"]),
+            "evaluation scored every sample")
+
+    with open(data) as f:
+        wavs = [e["audio_path"] for e in json.load(f)]
+    text = transcribe_single.main(["--base-model", "small", "--checkpoint",
+                                   ckpt, "--audio", wavs[0]])
+    log(f"[entry transcribe_single] {wavs[0]!r}: {text!r}; equals the "
+        f"evaluation's hypothesis {text == results['hypotheses'][0]}")
+    require(text == results["hypotheses"][0],
+            "transcribe_single text == the evaluation's hypothesis")
+
+    long_path = os.path.join(os.path.dirname(data), "long40.wav")
+    write_wav(long_path, synthetic_audio(1, 40.0, seed=20)[0])
+    bodies = {}
+    for name, path in (("short", wavs[1]), ("long", long_path)):
+        with open(path, "rb") as f:
+            bodies[name] = f.read()
+    use_merged_attention(True)
+    try:
+        server, service = serve_cli.build_server([
+            "--model", "small", "--checkpoint", ckpt, "--batch-size", "4",
+            "--port", "0"])
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        for fn in counters().values():
+            fn.launches = 0
+        thread.start()
+        try:
+            health = _http(f"{url}/healthz")
+            short = _http(f"{url}/transcribe", bodies["short"])[0]
+            stream = _http(f"{url}/transcribe_stream", bodies["long"])
+            stats = _http(f"{url}/stats")[0]
+        finally:
+            server.shutdown()
+            server.server_close()
+            service.close()
+            thread.join(timeout=30)
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in counters().items()}
+        by_path["HTTP service merged"] = launches
+        require(not thread.is_alive() and not service._thread.is_alive(),
+                "server and service threads stopped")
+
+        def expected(windows):
+            group = [pad_or_trim(w) for w in windows]
+            group += [np.zeros(N_SAMPLES, np.float32)] * (4 - len(group))
+            audio = torch.from_numpy(np.stack(group)).to(dev)
+            with torch.inference_mode():
+                mel = log_mel_spectrogram(audio, n_mels=cfg.n_mels)
+            res = decode(service.params, cfg, mel, service.options,
+                         tokenizer=service.tokenizer)
+            return [r.text for r in res[:len(windows)]]
+
+        want_short = expected([load_audio_bytes(bodies["short"])])
+        long_audio = load_audio_bytes(bodies["long"])
+        want_long = expected([long_audio[:N_SAMPLES], long_audio[N_SAMPLES:]])
+    finally:
+        use_merged_attention(False)
+    kinds = [next(iter(line)) for line in stream]
+    partials = [line["partial"]["text"] for line in stream[:-1]]
+    log(f"[entry serve] HTTP on 127.0.0.1, batch 4, merged attention: healthz "
+        f"{health}; /transcribe {short['text']!r}; /transcribe_stream lines "
+        f"{kinds}; stats {stats}; texts equal decode()'s "
+        f"{[short['text']] == want_short and partials == want_long}; launches "
+        f"{ {k: c for k, c in launches.items() if c} }")
+    require(health == [{"status": "ok"}], "/healthz")
+    require(kinds == ["partial", "partial", "final"], "two partials, then final")
+    require([short["text"]] == want_short and partials == want_long
+            and stream[-1]["final"]["text"] == "".join(want_long),
+            "the server's texts equal decode()'s")
+    require(stats == {"requests": 2, "batches": 2, "windows": 3}, "/stats")
+    require(launches["K10"] == 2 * cfg.n_audio_layer and launches["K2"] == 0,
+            "K10 ran the service's encoder (once a layer a batch), K2 not")
+    log(f"[entry points] phase passed in {time.time() - t_phase:.1f} s")
+
+
+def phase_train(torch, dev, tok, root: str, by_path):
+    """Both fine-tuning modes through train(), the loop's validation and
+    the inference entry points on the decoder-only checkpoint, then save
+    and resume. Each run's directory goes once it has been read (a
     whisper-small checkpoint with its optimizer state is ~3 GB)."""
     from whisper_ipa_torch.config import CONFIGS
     from whisper_ipa_torch.data import create_data_loader
@@ -915,6 +1232,7 @@ def phase_train(torch, dev, tok, root: str):
                 f"{metrics['per']:.2f}%, PFER {metrics['pfer']:.2f}%")
             require(np.isfinite(metrics["per"]) and np.isfinite(metrics["pfer"]),
                     "validation metrics finite")
+            phase_entry_points(torch, dev, cfg, data, out, final, by_path)
         else:
             require(launches["K5"] == 12 * TRAIN_STEPS,
                     f"unfrozen: K5 launched 12 x steps, got {launches['K5']}")
@@ -1036,6 +1354,12 @@ def main() -> int:
         ("K8 decode_cross_attention_int4_tminor", check_decode_attention_int4,
          "whisper_ipa_torch/csrc/decode_attention.cu",
          "whisper_ipa_tpu/ops/decode_attention.py:236"),
+        ("K9 stochastic_quantize_int8", check_sr_quant,
+         "whisper_ipa_torch/csrc/sr_quant.cu",
+         "whisper_ipa_tpu/ops/sr_quant.py:94"),
+        ("K10 fused_attention_merged", check_merged_attention,
+         "whisper_ipa_torch/csrc/attention.cu",
+         "whisper_ipa_tpu/ops/attention.py:383"),
     ):
         entry = check(torch, dev)
         kernels.append(dict(name=name, route="cuda", source=source,
@@ -1050,6 +1374,7 @@ def main() -> int:
         torch, dev, cfg, params, tok, "serving",
         {"K1": 1, "K2": cfg.n_audio_layer,
          "K4": (MAIN_SAMPLE_LEN - 1) * cfg.n_text_layer}, kv_int8=True)
+    phase_merged_path(torch, dev, cfg, params, tok, by_path, default_results)
     phase_quantized_paths(torch, dev, cfg, params, tok, by_path, default_results)
     phase_parity(torch, dev, tok)
     phase_service(torch, dev, cfg, params, tok)
@@ -1059,7 +1384,7 @@ def main() -> int:
 
     root = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
-        trained = phase_train(torch, dev, tok, root)
+        trained = phase_train(torch, dev, tok, root, by_path)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     for mode, r in trained.items():

@@ -36,7 +36,15 @@ from whisper_ipa_torch.ops import (
     log_mel_power_plain,
 )
 from whisper_ipa_torch.ops.quant import quantize_linear, quantize_linear_int4
-from whisper_ipa_torch.ops.attention import _forward_kernel
+from whisper_ipa_torch.ops.attention import (
+    _forward_kernel,
+    attention_merged_plain,
+    fused_attention_merged,
+)
+from whisper_ipa_torch.ops.sr_quant import (
+    stochastic_quantize_int8,
+    stochastic_quantize_int8_plain,
+)
 from whisper_ipa_torch.ops.mel_kernel import normalize, reflect_pad
 from whisper_ipa_torch.train import create_train_state, train_step
 
@@ -277,3 +285,107 @@ def test_kv_init_kernel(dev, B, T, d, H, bias, dtype):
     for i in (1, 3):
         assert ((got[i] - want[i]).abs() <= tol * want[i].abs()).all()
         assert (got[i][..., T:] == 0).all() and (got[i][..., :T] > 0).all()
+
+
+@pytest.mark.parametrize("rows,cols", [(256, 64), (300, 70), (768, 3072), (3072, 768)])
+def test_sr_quant_kernel(dev, rows, cols):
+    """K9 equals its plain version bit for bit (the same Philox bits and
+    IEEE divisions), its scales equal the host quantizer's, and the codes
+    stay on the card."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    w = 0.05 * torch.randn((rows, cols), generator=gen, device=dev)
+    w[:, 0] = 0.0  # an all-zero column: scale 1e-8 / 127, codes 0
+    before = stochastic_quantize_int8.launches
+    q, s = stochastic_quantize_int8(w, seed=17)
+    assert stochastic_quantize_int8.launches == before + 1
+    assert q.device == w.device and q.dtype == torch.int8 and s.shape == (cols,)
+    pq, ps = stochastic_quantize_int8_plain(w, seed=17)
+    assert torch.equal(q, pq) and torch.equal(s, ps)
+    host = quantize_linear({"w": w.cpu()})
+    assert torch.equal(s[1:].cpu(), host["w_s"][1:])
+    assert (q[:, 0] == 0).all()
+    assert (q.int().cpu() - host["w_q"].int()).abs().max().item() <= 1
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("dh", [32, 64])
+@pytest.mark.parametrize("tq,tk,h", [(128, 128, 2), (256, 300, 3), (130, 257, 12)])
+def test_merged_attention_kernel(dev, tq, tk, h, dh, dtype, atol):
+    """K10 against its plain version at K2's bounds, and against K2 on split
+    heads bit for bit (one body, one arithmetic order)."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (
+        torch.randn((2, t, h * dh), generator=gen, device=dev).to(dtype)
+        for t in (tq, tk, tk)
+    )
+    scale = dh ** -0.5
+    before = fused_attention_merged.launches
+    got = fused_attention_merged(q, k, v, h, scale)
+    assert fused_attention_merged.launches == before + 1
+    assert got.shape == q.shape and got.dtype == dtype
+    want = attention_merged_plain(q, k, v, h, scale)
+    assert (got.float() - want.float()).abs().max().item() < atol
+
+    def split(x):
+        return layers.split_heads(x, h).contiguous()
+
+    k2 = layers.merge_heads(fused_attention(split(q), split(k), split(v), scale))
+    assert torch.equal(got, k2)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_merged_attention_autograd_runs_k10_k5(dev, dtype, tol):
+    """The Function: K10 forward (with the LSE), K5 backward on split heads;
+    gradients against the plain backward, relative to max|grad| as K5's."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    h, dh = 3, 64
+    q, k, v, g = (
+        torch.randn((2, t, h * dh), generator=gen, device=dev).to(dtype)
+        for t in (200, 170, 170, 200)
+    )
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    k10, k5 = fused_attention_merged.launches, attention_backward.launches
+    out = fused_attention_merged(*leaves, h, 0.125)
+    got = torch.autograd.grad(out, leaves, g)
+    assert fused_attention_merged.launches == k10 + 1
+    assert attention_backward.launches == k5 + 1
+
+    def split(x):
+        return layers.split_heads(x, h)
+
+    want = attention_backward_plain(split(q), split(k), split(v), split(g), 0.125)
+    for a, b in zip(got, want):
+        b = layers.merge_heads(b)
+        assert a.shape == b.shape and a.dtype == dtype
+        assert (a.float() - b.float()).abs().max().item() < (
+            tol * b.float().abs().max().item())
+
+
+def test_merged_tokens_cuda_equal_cpu(dev):
+    """f32 test-tiny with the fused switch on: the encoder runs K10 on CUDA
+    (once a layer) and the greedy tokens equal the CPU's."""
+    from dataclasses import replace
+
+    from whisper_ipa_torch.decode import DecodingOptions, decode
+    from whisper_ipa_torch.models import params_to
+    from whisper_ipa_torch.tokenizer import get_tokenizer
+
+    cfg = replace(CONFIGS["test-tiny"], n_audio_ctx=150, n_text_ctx=48)
+    cpu_params = init_params(cfg, seed=0)
+    mel = torch.randn((2, 300, cfg.n_mels),
+                      generator=torch.Generator().manual_seed(0))
+    opts = DecodingOptions(language="en", without_timestamps=True,
+                           sample_len=16, kv_int8=True)
+    tok = get_tokenizer(multilingual=True, language="en")
+    layers.use_fused_attention(True)
+    layers.use_merged_attention(True)
+    try:
+        k10, k2 = fused_attention_merged.launches, fused_attention.launches
+        gpu = decode(params_to(cpu_params, dev), cfg, mel, opts, tokenizer=tok)
+        assert fused_attention_merged.launches - k10 == cfg.n_audio_layer
+        assert fused_attention.launches == k2
+        cpu = decode(cpu_params, cfg, mel, opts, tokenizer=tok)
+    finally:
+        layers.use_merged_attention(False)
+        layers.use_fused_attention(None)
+    assert [r.tokens for r in gpu] == [r.tokens for r in cpu]

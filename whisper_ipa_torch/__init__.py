@@ -2,17 +2,20 @@
 
 The JAX package beside it is the reference; this package mirrors its module
 names so each counterpart is easy to find, and imports ``torch`` but never
-``jax``. Host modules that hold no JAX (``whisper_ipa_tpu.config``,
-``whisper_ipa_tpu.audio``, ``whisper_ipa_tpu.tokenizer``) are reused, not
-copied.
+``jax`` nor anything of ``whisper_ipa_tpu``: the host modules it needs
+(config, audio, tokenizer, metrics, data) are its own copies.
 
 Layout:
   csrc/       hand-written CUDA C++ kernels for sm_90a (built at first use)
   ops/        kernel wrappers, each beside its plain PyTorch version
-              (mel_kernel, attention, decode_attention) + the nvcc builder
+              (mel_kernel, attention, decode_attention, kv_init,
+              quant_matmul, sr_quant) + the nvcc build step (_build)
   models/     Whisper encoder/decoder over a parameter dict tree, int8
-              cross-KV cache, and the numpy bridge to the canonical names
+              cross-KV cache, the numpy bridge to the canonical names, and
+              the checkpoint loader
   decode/     DecodingOptions / decode(): greedy and temperature sampling
+  train/      single-device fine-tuning
+  cli/        the command-line entry points
   serve.py    micro-batching TranscriptionService
 
 Every wrapper runs its kernel for CUDA tensors and its plain version for

@@ -28,6 +28,17 @@
 // writes its log-sum-exp, m + log(l) over the scaled logits (f32,
 // (B*H, T)), the residual the backward kernel (attention_bwd.cu, K5)
 // recomputes the probabilities from.
+//
+// K10, head-merged I/O (wipa_attention_merged_fwd). Replaces:
+// whisper_ipa_tpu/ops/attention.py, fused_attention_merged (:308,
+// pallas_call :383, body _attn_kernel_merged :252). q, k, v and out are
+// (B, T, H*Dh): head h of row t lies at column h*Dh of a row of stride
+// H*Dh, so the split/merge copies around K2 disappear. The body is K2's,
+// addressed through (n_head, row stride): K2 is its n_head = 1 case, where
+// (B*H, T, Dh) is a merged layout with one head. Block (b*H + h, query
+// tile) reads head h's slices; the arithmetic is K2's in K2's order, so
+// K10's output equals K2's on split heads bit for bit. A bf16 head slice
+// is 64 or 128 B. Bound: K2's (the same operations and bytes).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -55,22 +66,27 @@ template <typename T, int DH>
 __global__ void __launch_bounds__(kRows)
 attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ out,
-                     float* __restrict__ lse, int tq, int tk, float scale) {
+                     float* __restrict__ lse, int n_head, int tq, int tk,
+                     float scale) {
   __shared__ __align__(16) float ks[kKeys][DH];
   __shared__ __align__(16) float vs[kKeys][DH];
 
+  // block y = b * n_head + h; rows of every operand have stride n_head*DH
   const size_t bh = blockIdx.y;
+  const size_t b = bh / n_head;
+  const size_t h = bh - b * n_head;
+  const size_t rs = static_cast<size_t>(n_head) * DH;
   const int row = blockIdx.x * kRows + threadIdx.x;
   const bool live = row < tq;
-  const T* qb = q + bh * tq * DH;
-  const T* kb = k + bh * tk * DH;
-  const T* vb = v + bh * tk * DH;
+  const T* qb = q + b * tq * rs + h * DH;
+  const T* kb = k + b * tk * rs + h * DH;
+  const T* vb = v + b * tk * rs + h * DH;
 
   float qr[DH];
   float acc[DH];
 #pragma unroll
   for (int d = 0; d < DH; ++d) {
-    qr[d] = live ? to_f32(qb[static_cast<size_t>(row) * DH + d]) * scale : 0.0f;
+    qr[d] = live ? to_f32(qb[static_cast<size_t>(row) * rs + d]) * scale : 0.0f;
     acc[d] = 0.0f;
   }
   float m = -INFINITY;
@@ -83,8 +99,8 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int d = i - j * DH;
       const int key = k0 + j;
       const bool in = key < tk;
-      ks[j][d] = in ? to_f32(kb[static_cast<size_t>(key) * DH + d]) : 0.0f;
-      vs[j][d] = in ? to_f32(vb[static_cast<size_t>(key) * DH + d]) : 0.0f;
+      ks[j][d] = in ? to_f32(kb[static_cast<size_t>(key) * rs + d]) : 0.0f;
+      vs[j][d] = in ? to_f32(vb[static_cast<size_t>(key) * rs + d]) : 0.0f;
     }
     __syncthreads();
 
@@ -132,7 +148,7 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (live) {
     const float inv = 1.0f / l;
-    T* o = out + bh * tq * DH + static_cast<size_t>(row) * DH;
+    T* o = out + b * tq * rs + h * DH + static_cast<size_t>(row) * rs;
 #pragma unroll
     for (int d = 0; d < DH; ++d) o[d] = from_f32<T>(acc[d] * inv);
     if (lse != nullptr) lse[bh * tq + row] = m + logf(l);
@@ -141,13 +157,37 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int DH>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   float* lse, int bh, int tq, int tk, float scale,
-                   cudaStream_t stream) {
+                   float* lse, int bh, int n_head, int tq, int tk,
+                   float scale, cudaStream_t stream) {
   const dim3 grid((tq + kRows - 1) / kRows, bh);
   attention_fwd_kernel<T, DH><<<grid, kRows, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), lse, tq, tk, scale);
+      static_cast<const T*>(v), static_cast<T*>(out), lse, n_head, tq, tk,
+      scale);
   return cudaGetLastError();
+}
+
+// bh = batch * n_head blocks along y; n_head = 1 is K2's split layout.
+int dispatch(const void* q, const void* k, const void* v, void* out,
+             void* lse, int bh, int n_head, int tq, int tk, int dh,
+             int is_bf16, float scale, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (tk < 1 || n_head < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
+  if (dh == 64) {
+    err = is_bf16
+        ? launch<__nv_bfloat16, 64>(q, k, v, out, l, bh, n_head, tq, tk, scale, s)
+        : launch<float, 64>(q, k, v, out, l, bh, n_head, tq, tk, scale, s);
+  } else if (dh == 32) {
+    err = is_bf16
+        ? launch<__nv_bfloat16, 32>(q, k, v, out, l, bh, n_head, tq, tk, scale, s)
+        : launch<float, 32>(q, k, v, out, l, bh, n_head, tq, tk, scale, s);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -160,19 +200,19 @@ extern "C" int wipa_attention_fwd(const void* q, const void* k, const void* v,
                                   void* out, void* lse, int bh, int tq, int tk,
                                   int dh, int is_bf16, float scale, int device,
                                   void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (tk < 1) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* l = static_cast<float*>(lse);
-  if (dh == 64) {
-    err = is_bf16 ? launch<__nv_bfloat16, 64>(q, k, v, out, l, bh, tq, tk, scale, s)
-                  : launch<float, 64>(q, k, v, out, l, bh, tq, tk, scale, s);
-  } else if (dh == 32) {
-    err = is_bf16 ? launch<__nv_bfloat16, 32>(q, k, v, out, l, bh, tq, tk, scale, s)
-                  : launch<float, 32>(q, k, v, out, l, bh, tq, tk, scale, s);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(err);
+  return dispatch(q, k, v, out, lse, bh, 1, tq, tk, dh, is_bf16, scale, device,
+                  stream);
+}
+
+// K10. q, out: (b, tq, n_head * dh); k, v: (b, tk, n_head * dh); all
+// contiguous, bf16 when is_bf16 else fp32; dh in {32, 64}; tk >= 1. lse:
+// null, or an f32 (b, n_head, tq) buffer for the rows' log-sum-exp.
+// Returns cudaGetLastError().
+extern "C" int wipa_attention_merged_fwd(const void* q, const void* k,
+                                         const void* v, void* out, void* lse,
+                                         int b, int n_head, int tq, int tk,
+                                         int dh, int is_bf16, float scale,
+                                         int device, void* stream) {
+  return dispatch(q, k, v, out, lse, b * n_head, n_head, tq, tk, dh, is_bf16,
+                  scale, device, stream);
 }

@@ -10,14 +10,19 @@ how the tests hand the JAX package's weights to the port.
 Checkpoints are the reference's contract, kept bit for bit: a single
 ``model.safetensors`` with MLX module names and layouts ((out, in) linear,
 (out, width, in) conv), written and read by the in-tree
-``safetensors_io``; HF-transformers names load too. The decoder-overlay
-loaders of the inference CLIs are not ported yet.
+``safetensors_io``; HF-transformers names load too. The inference CLIs
+load a checkpoint over base weights with ``load_checkpoint_auto``: the
+decoder-only overlay of the reference contract, or every tensor for a full
+fine-tune, as the run's ``training_config.json`` says.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import re
-from typing import Any, Dict, Mapping, Optional
+import sys
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -240,6 +245,161 @@ def save_safetensors(path: str, params: Params) -> None:
 
 def load_safetensors_flat(path: str) -> Dict[str, torch.Tensor]:
     return safetensors_io.load_file(path)
+
+
+def _overlay(base_params: Params,
+             canon: Mapping[str, torch.Tensor]) -> Tuple[Params, int]:
+    """Overwrite the base tree's tensors with the canonical checkpoint
+    tensors of the same names, as f32 on the base tensor's device; returns
+    (params, number overlaid). A shape mismatch raises."""
+    base_flat = flatten_params(base_params)
+    n_loaded = 0
+    for k, v in canon.items():
+        if k in base_flat:
+            expected = base_flat[k]
+            v = torch.as_tensor(v)
+            if tuple(v.shape) != tuple(expected.shape):
+                raise ValueError(
+                    f"shape mismatch for {k}: checkpoint {tuple(v.shape)} vs "
+                    f"model {tuple(expected.shape)}"
+                )
+            base_flat[k] = v.to(device=expected.device,
+                                dtype=torch.float32).contiguous()
+            n_loaded += 1
+    return unflatten_params(base_flat), n_loaded
+
+
+def overlay_decoder_weights(
+    base_params: Params, checkpoint_flat: Mapping[str, torch.Tensor]
+) -> Tuple[Params, int]:
+    """The decoder-overlay load: overwrite decoder.* onto base params.
+
+    Returns (params, number of overlaid tensors), the reference's
+    decoder-only contract (its scripts/evaluate_model.py:56-73).
+    """
+    fmt = detect_format(checkpoint_flat)
+    decoder_only = {
+        k: v for k, v in checkpoint_flat.items()
+        if "decoder" in k.split(".")[0:2]
+    }
+    canon = (_hf_to_canonical(decoder_only) if fmt == "hf"
+             else _mlx_to_canonical(decoder_only))
+    canon = {k: v for k, v in canon.items() if k.startswith("decoder.")}
+    return _overlay(base_params, canon)
+
+
+def checkpoint_overlay_mode(checkpoint_path: str) -> Optional[bool]:
+    """Whether a checkpoint needs the full overlay (a trained encoder),
+    from its run's training_config.json.
+
+    ``checkpoint-N`` / ``best-checkpoint`` directories sit inside the run
+    directory that holds ``training_config.json``; a run recorded with
+    ``freeze_encoder: false`` trained its encoder. Returns True (full),
+    False (decoder-only), or None (no metadata: the caller decides, and
+    checkpoints of the reference pipeline keep its decoder-only contract).
+    """
+    d = checkpoint_path
+    if not os.path.isdir(d):
+        d = os.path.dirname(d)
+    for cand in (d, os.path.dirname(d)):
+        cfg_path = os.path.join(cand, "training_config.json")
+        if os.path.isfile(cfg_path):
+            try:
+                with open(cfg_path) as f:
+                    fe = json.load(f)["training_args"].get("freeze_encoder")
+            except (OSError, ValueError, KeyError, AttributeError, TypeError):
+                return None
+            if fe is None:
+                return None
+            return not fe
+    return None
+
+
+def load_checkpoint_auto(
+    checkpoint_path: str, base_params: Params, full: Optional[bool] = None
+) -> Tuple[Params, int]:
+    """``load_checkpoint_model`` with the overlay mode read from the run.
+
+    full=None reads the run's training_config.json
+    (``checkpoint_overlay_mode``): full fine-tunes get the full overlay,
+    everything else the decoder-only contract. True/False override it (the
+    CLIs' --full-checkpoint / --decoder-only).
+    """
+    if full is None:
+        full = checkpoint_overlay_mode(checkpoint_path)
+        if full:
+            # stderr: a CLI's stdout stays its report
+            print(
+                "(auto) full overlay: checkpoint run recorded "
+                "freeze_encoder=false, so its encoder is trained",
+                file=sys.stderr,
+            )
+        full = bool(full)
+    return load_checkpoint_model(checkpoint_path, base_params, full=full)
+
+
+_vocab_mismatch_warned = False
+
+
+def _guard_vocab_provenance(checkpoint_dir: str) -> None:
+    """Refuse to decode a checkpoint through a different vocabulary.
+
+    Every inference entry point loads weights through
+    ``load_checkpoint_model``, so a checkpoint trained with byte-fallback
+    ranks meeting real tiktoken ranks (or the reverse) is caught here: the
+    text-token ids differ though the special tokens line up. Unstamped
+    checkpoints pass. WHISPER_IPA_TPU_ALLOW_VOCAB_MISMATCH=1 turns the
+    error into one warning a process.
+    """
+    meta_path = os.path.join(checkpoint_dir, "training_state.json")
+    if not os.path.isfile(meta_path):
+        return
+    try:
+        with open(meta_path) as f:
+            stamped = json.load(f).get("vocab_provenance")
+    except (OSError, ValueError, AttributeError):
+        return
+    if stamped is None:
+        return
+    from ..tokenizer import get_tokenizer
+
+    current = getattr(get_tokenizer(multilingual=True), "provenance", None)
+    if current is None or stamped == current:
+        return
+    msg = (
+        f"checkpoint {checkpoint_dir} was trained with vocabulary "
+        f"{stamped!r} but the active tokenizer is {current!r}; text "
+        "token ids are incompatible and decoded output would be "
+        "garbage. Point WHISPER_IPA_TPU_TIKTOKEN at the matching rank "
+        "file, or set WHISPER_IPA_TPU_ALLOW_VOCAB_MISMATCH=1 to "
+        "override."
+    )
+    if os.environ.get("WHISPER_IPA_TPU_ALLOW_VOCAB_MISMATCH") == "1":
+        global _vocab_mismatch_warned
+        if not _vocab_mismatch_warned:
+            print(f"WARNING: {msg}", file=sys.stderr)
+            _vocab_mismatch_warned = True
+        return
+    raise ValueError(msg)
+
+
+def load_checkpoint_model(
+    checkpoint_path: str, base_params: Params, full: bool = False
+) -> Tuple[Params, int]:
+    """Load ``<dir>/model.safetensors`` (or a .safetensors path) over
+    ``base_params``: the decoder's tensors, or with full=True every
+    matching tensor (a full fine-tune's trained encoder too). The result
+    stays on the base tensors' devices, in f32."""
+    weights_path = checkpoint_path
+    if os.path.isdir(checkpoint_path):
+        weights_path = os.path.join(checkpoint_path, "model.safetensors")
+    _guard_vocab_provenance(os.path.dirname(os.path.abspath(weights_path)))
+    flat = load_safetensors_flat(weights_path)
+    if not full:
+        return overlay_decoder_weights(base_params, flat)
+    if detect_format(flat) == "hf":
+        return _overlay(base_params, _hf_to_canonical(flat))
+    return _overlay(base_params, _mlx_to_canonical(flat))
 
 
 def cast_tree_dtype(tree, dtype):

@@ -24,11 +24,13 @@ the JAX package. On CUDA a decode-shaped int4 call runs K7, and under
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.attention import fused_attention
+from ..ops.attention import fused_attention, fused_attention_merged
 from ..ops.decode_attention import (
     decode_attention_int4_plain,
     decode_attention_plain,
@@ -159,15 +161,37 @@ def causal_mask(n_ctx: int, device=None) -> torch.Tensor:
     return torch.full((n_ctx, n_ctx), float("-inf"), device=device).triu(1)
 
 
+# The reference's switches for the encoder's self-attention kernels:
+# use_fused_attention(True | False | None): None (auto) takes the kernel for
+# bf16 only; use_merged_attention(True) sends eligible calls to K10, the
+# head-merged kernel, instead of K2 on split heads (the default, as in the
+# reference). WHISPER_IPA_TPU_MERGED_ATTN=1 turns the latter on at import.
+_FUSED_ATTENTION = None
+_MERGED_ATTENTION = os.environ.get("WHISPER_IPA_TPU_MERGED_ATTN") == "1"
+
+
+def use_fused_attention(enabled) -> None:
+    """True = always (when eligible), False = never, None = auto (bf16)."""
+    global _FUSED_ATTENTION
+    _FUSED_ATTENTION = enabled
+
+
+def use_merged_attention(enabled: bool) -> None:
+    """Eligible encoder attention through K10 (head-merged I/O)."""
+    global _MERGED_ATTENTION
+    _MERGED_ATTENTION = enabled
+
+
 def _fused_eligible(q, mask) -> bool:
-    """The reference's auto policy: the kernel for unmasked bf16 attention
-    with at least FUSED_MIN_QLEN queries, on the accelerator."""
-    return (
-        mask is None
-        and q.dtype == torch.bfloat16
-        and q.shape[1] >= FUSED_MIN_QLEN
-        and q.device.type == "cuda"
-    )
+    """The reference's policy: the kernel for unmasked attention with at
+    least FUSED_MIN_QLEN queries, on the accelerator, for bf16 unless
+    ``use_fused_attention`` says otherwise."""
+    if mask is not None or q.shape[1] < FUSED_MIN_QLEN:
+        return False
+    enabled = _FUSED_ATTENTION
+    if enabled is None:
+        enabled = q.dtype == torch.bfloat16
+    return bool(enabled) and q.device.type == "cuda"
 
 
 def multi_head_attention(q, k, v, n_head: int, mask=None):
@@ -177,6 +201,9 @@ def multi_head_attention(q, k, v, n_head: int, mask=None):
     """
     d_head = q.shape[-1] // n_head
     if _fused_eligible(q, mask):
+        if _MERGED_ATTENTION:
+            return fused_attention_merged(q, k, v, n_head,
+                                          scale=float(d_head ** -0.5))
         return merge_heads(
             fused_attention(
                 split_heads(q, n_head),

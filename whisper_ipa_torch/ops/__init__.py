@@ -8,8 +8,11 @@
   kv_init           K3  fused int8 cross-KV build   csrc/kv_init.cu
   quant_matmul      K6  int8 x int8 product         csrc/quant_matmul.cu
                     K7  int4-weight product         csrc/quant_matmul.cu
+  sr_quant          K9  stochastic int8 weights     csrc/sr_quant.cu
+  attention         K10 head-merged attention fwd   csrc/attention.cu
 
-``quant`` quantizes the weights on the host (no kernel).
+``quant`` quantizes the weights on the host (no kernel); ``sr_quant``
+quantizes them where they lie.
 
 Importing builds nothing: a kernel is compiled on its first CUDA launch
 (or by ``_build.build_all()``).
@@ -18,8 +21,10 @@ Importing builds nothing: a kernel is compiled on its first CUDA launch
 from .attention import (
     attention_backward,
     attention_backward_plain,
+    attention_merged_plain,
     attention_plain,
     fused_attention,
+    fused_attention_merged,
 )
 from .blockwise_ce import blockwise_cross_entropy
 from .decode_attention import (
@@ -37,10 +42,16 @@ from .quant_matmul import (
     int8_matmul,
     int8_matmul_plain,
 )
+from .sr_quant import (
+    quantize_params_device,
+    stochastic_quantize_int8,
+    stochastic_quantize_int8_plain,
+)
 
 __all__ = [
     "attention_backward",
     "attention_backward_plain",
+    "attention_merged_plain",
     "attention_plain",
     "blockwise_cross_entropy",
     "decode_attention_int4_plain",
@@ -48,6 +59,7 @@ __all__ = [
     "decode_cross_attention_int4_tminor",
     "decode_cross_attention_int8_tminor",
     "fused_attention",
+    "fused_attention_merged",
     "fused_kv_init_int8",
     "fused_kv_init_plain",
     "int4_matmul",
@@ -58,5 +70,8 @@ __all__ = [
     "log_mel_power_plain",
     "log_mel_spectrogram",
     "quantize_params",
+    "quantize_params_device",
     "quantized_bytes",
+    "stochastic_quantize_int8",
+    "stochastic_quantize_int8_plain",
 ]

@@ -32,7 +32,7 @@ BUILD_DIR = PKG_DIR / "build"
 
 KERNEL_SOURCES = (
     "mel", "attention", "attention_bwd", "decode_attention", "quant_matmul",
-    "kv_init",
+    "kv_init", "sr_quant",
 )
 
 NVCC_FLAGS = (
@@ -127,4 +127,5 @@ def check(rc: int, what: str) -> None:
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+U32 = ctypes.c_uint32
 F32 = ctypes.c_float

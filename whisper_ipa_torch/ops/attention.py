@@ -1,5 +1,6 @@
 """Unmasked attention: the K2 forward (``csrc/attention.cu``) and K5
-backward (``csrc/attention_bwd.cu``) kernels and their plain versions.
+backward (``csrc/attention_bwd.cu``) kernels, K10 (K2 with head-merged
+I/O, ``csrc/attention.cu``), and their plain versions.
 
 Counterpart of ``whisper_ipa_tpu/ops/attention.fused_attention``, a
 ``jax.custom_vjp`` whose forward and backward are Pallas kernels. Here it
@@ -11,9 +12,16 @@ alone. ``models/layers.multi_head_attention`` sends the encoder's
 self-attention here under the reference's policy: no mask, bf16 q, at
 least 128 queries, on CUDA.
 
-CPU tensors run the plain versions, ``attention_plain`` forward and
-``attention_backward_plain`` backward; CUDA tensors run the kernels or
-raise.
+``fused_attention_merged`` is the counterpart of the reference's
+``fused_attention_merged``: q, k, v and the output stay (B, T, H*Dh), and
+K10 reads each head's columns through the row stride, so no split or merge
+copy is made. Its backward runs K5 on split-head copies and merges the
+gradients, as the reference does. ``models/layers.multi_head_attention``
+sends eligible calls to it under ``use_merged_attention(True)``.
+
+CPU tensors run the plain versions, ``attention_plain`` (and
+``attention_merged_plain``) forward and ``attention_backward_plain``
+backward; CUDA tensors run the kernels or raise.
 """
 
 from __future__ import annotations
@@ -207,3 +215,115 @@ def fused_attention(q, k, v, scale: float = 1.0):
 
 
 fused_attention.launches = 0
+
+
+# -- K10: head-merged I/O ---------------------------------------------------
+
+# models/layers imports this module, so its split_heads/merge_heads are
+# repeated here rather than imported
+def _split(x, n_head: int):
+    b, t, d = x.shape
+    return x.reshape(b, t, n_head, d // n_head).transpose(1, 2)
+
+
+def _merge(x):
+    b, h, t, dh = x.shape
+    return x.transpose(1, 2).reshape(b, t, h * dh)
+
+
+def attention_merged_plain(q, k, v, n_head: int, scale: float = 1.0):
+    """Plain PyTorch K10: ``attention_plain`` over the heads of (B, T, d)
+    operands, (B, Tq, d) out."""
+    return _merge(attention_plain(_split(q, n_head), _split(k, n_head),
+                                  _split(v, n_head), scale))
+
+
+def _check_merged(q, k, v, n_head: int) -> None:
+    if q.dim() != 3 or k.shape != v.shape or k.dim() != 3 or (
+        q.shape[0] != k.shape[0] or q.shape[2] != k.shape[2]
+    ) or q.shape[2] % n_head:
+        raise ValueError(
+            f"fused_attention_merged wants (B, T, d) q/k/v with d % {n_head} "
+            f"== 0, got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    _check(_split(q, n_head), _split(k, n_head), _split(v, n_head))
+
+
+def _merged_forward_kernel(q, k, v, n_head: int, scale: float, with_lse: bool):
+    """Launch K10 on contiguous CUDA (B, T, d) q/k/v; returns (out, lse
+    (B, H, Tq) f32 or None)."""
+    B, Tq, d = q.shape
+    Tk = k.shape[1]
+    out = torch.empty_like(q)
+    lse = (
+        torch.empty((B, n_head, Tq), dtype=torch.float32, device=q.device)
+        if with_lse else None
+    )
+    fn = _build.entry(
+        "attention",
+        "wipa_attention_merged_fwd",
+        [_build.P, _build.P, _build.P, _build.P, _build.P, _build.I,
+         _build.I, _build.I, _build.I, _build.I, _build.I, _build.F32,
+         _build.I, _build.P],
+    )
+    rc = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr() if with_lse else None,
+        B, n_head, Tq, Tk, d // n_head, int(q.dtype == torch.bfloat16),
+        float(scale), q.device.index,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(rc, "wipa_attention_merged_fwd")
+    fused_attention_merged.launches += 1
+    return out, lse
+
+
+class _FusedAttentionMerged(torch.autograd.Function):
+    """Forward K10 (with the LSE residual), backward K5 on split heads; on
+    the CPU the plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, n_head, scale):
+        ctx.n_head, ctx.scale = n_head, scale
+        if q.device.type == "cpu":
+            out, lse = attention_merged_plain(q, k, v, n_head, scale), None
+        else:
+            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+            out, lse = _merged_forward_kernel(q, k, v, n_head, scale,
+                                              with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        n = ctx.n_head
+        dq, dk, dv = attention_backward(
+            *(_split(t, n).contiguous() for t in (q, k, v, out, g)), lse,
+            ctx.scale,
+        )
+        return _merge(dq), _merge(dk), _merge(dv), None, None
+
+
+def fused_attention_merged(q, k, v, n_head: int, scale: float = 1.0):
+    """(B, Tq, d) x (B, Tk, d) -> (B, Tq, d), d = n_head * Dh, no mask;
+    differentiable.
+
+    CUDA tensors run K10 (bf16 or f32, Dh 32 or 64) and, under autograd,
+    K5 on split heads for the gradient; CPU tensors run the plain versions.
+    """
+    _check_merged(q, k, v, n_head)
+    if torch.is_grad_enabled() and (
+        q.requires_grad or k.requires_grad or v.requires_grad
+    ):
+        return _FusedAttentionMerged.apply(q, k, v, int(n_head), float(scale))
+    if q.device.type == "cpu":
+        return attention_merged_plain(q, k, v, n_head, scale)
+    out, _ = _merged_forward_kernel(
+        q.contiguous(), k.contiguous(), v.contiguous(), n_head, scale,
+        with_lse=False,
+    )
+    return out
+
+
+fused_attention_merged.launches = 0

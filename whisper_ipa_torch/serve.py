@@ -12,7 +12,7 @@ keeps the cross cache as nibble-packed int4 (and overrides ``kv_int8``).
 
 Not ported yet (the constructor raises ``NotImplementedError``): speculative
 decoding (draft model, Medusa heads), multi-device meshes and beam search.
-The HTTP front end (``whisper_ipa_tpu/cli/serve.py``) is not ported either.
+The HTTP front end over it is ``cli/serve.py``.
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ from .models.convert import params_to
 from .ops.mel_kernel import log_mel_spectrogram
 from .ops.quant import quantize_params
 from .tokenizer import WhisperTokenizer, get_tokenizer
+from .train.loop import resolve_device
 
 
 @dataclass
@@ -50,8 +51,9 @@ class _Request:
 class TranscriptionService:
     """Thread-safe micro-batching transcription service on one device.
 
-    device: where the model runs ("cuda", "cuda:1", "cpu"); the parameters
-    are moved there. batch_size: fixed device batch (tail padded with
+    device: where the model runs ("cuda" by default, "cuda:1", "cpu"); the
+    parameters are moved there, and "cuda" without a card raises.
+    batch_size: fixed device batch (tail padded with
     silence). max_wait_ms: how long a request waits for the batch to fill.
     """
 
@@ -60,7 +62,7 @@ class TranscriptionService:
         params,
         cfg: WhisperConfig,
         *,
-        device: Union[str, torch.device],
+        device: Union[str, torch.device] = "cuda",
         batch_size: int = 8,
         max_wait_ms: float = 50.0,
         language: Optional[str] = "en",
@@ -89,9 +91,9 @@ class TranscriptionService:
             raise NotImplementedError(
                 "not ported to the PyTorch service yet: " + ", ".join(missing)
             )
+        self.device = resolve_device(device)
         if quant_bits is not None:
             params = quantize_params(params, bits=quant_bits)
-        self.device = torch.device(device)
         self.params = params_to(params, self.device)
         self.cfg = cfg
         self.batch_size = batch_size

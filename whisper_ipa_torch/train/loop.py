@@ -54,12 +54,13 @@ from .step import create_train_state, train_step
 
 
 def resolve_device(device) -> torch.device:
-    """The training device; "cuda" without a card raises (no silent CPU)."""
+    """The device to run on; "cuda" without a card raises (no silent
+    CPU). Training, the service and the inference CLIs share it."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "device='cuda' but torch.cuda.is_available() is false; pass "
-            "device='cpu' (--device cpu) to train on the CPU"
+            "device='cpu' (--device cpu) to run on the CPU"
         )
     return dev
 
