@@ -93,6 +93,17 @@ def max_abs(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
+def bf16_within(got, want, atol: float) -> bool:
+    """Every element within atol of the plain value, or within one bf16 ulp
+    of it where that is larger: an output at or above 1 in magnitude whose
+    fp32 sums round to the neighbouring bf16 value is 2^-7 off."""
+    import torch
+
+    w = want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(2.0 ** -126))) - 7)
+    return bool(((got.float() - w).abs() <= ulp.clamp_min(atol)).all())
+
+
 def bound(n_bytes: float, n_flops: float, flop_type: str) -> dict:
     """The least time the card could take: the larger of the bytes over the
     memory rate and the operations over the peak rate for their type."""
@@ -192,13 +203,14 @@ def check_attention(torch, dev):
 
     gen = torch.Generator(device=dev).manual_seed(0)
     entry = None
-    # bounds: f32 2e-5 (the TPU kernel's test bound); bf16 2e-2 absolute at
-    # unit-normal inputs: the plain version rounds its logits and
-    # probabilities to bf16, the kernel keeps them in f32
+    # bounds: f32 2e-5 (the TPU kernel's test bound); bf16 5e-3 absolute at
+    # unit-normal inputs, or one bf16 ulp of outputs at or above 1: both
+    # sides sum in f32 and round P to bf16 before the value product, at
+    # values that differ in the last bits
     for dh, dtype, tol in (
-        (64, torch.bfloat16, 2e-2),
+        (64, torch.bfloat16, 5e-3),
         (64, torch.float32, 2e-5),
-        (32, torch.bfloat16, 2e-2),
+        (32, torch.bfloat16, 5e-3),
         (32, torch.float32, 2e-5),
     ):
         q, k, v = (
@@ -222,7 +234,8 @@ def check_attention(torch, dev):
             f"same inputs: kernel {max_abs(got, exact):.3e}, plain "
             f"{max_abs(want, exact):.3e}; "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        require(err < tol, f"K2 dh={dh} {dtype} within {tol}")
+        ok = bf16_within(got, want, tol) if dtype == torch.bfloat16 else err < tol
+        require(ok, f"K2 dh={dh} {dtype} within {tol}")
         if entry is None:
             bh, tq, tk = q.shape[0] * q.shape[1], q.shape[2], k.shape[2]
             lib_ms = cuda_ms(lambda: torch.nn.functional
@@ -301,12 +314,13 @@ def check_attention_backward(torch, dev):
     entry = None
     # bounds, relative to max|grad|: f32 1e-4 (the CPU tests hold the plain
     # version to the TPU kernel at 1e-5; here the kernel sums 1500 terms in
-    # another order than cuBLAS); bf16 2%: the plain version rounds P and dS
-    # to bf16 before its products, the kernel keeps them in f32
+    # another order than cuBLAS); bf16 1e-2: both sides round P and dS to
+    # bf16 before their products (one ulp 2^-8 relative) at values that
+    # differ in the last bits
     for dh, dtype, tol in (
-        (64, torch.bfloat16, 2e-2),
+        (64, torch.bfloat16, 1e-2),
         (64, torch.float32, 1e-4),
-        (32, torch.bfloat16, 2e-2),
+        (32, torch.bfloat16, 1e-2),
         (32, torch.float32, 1e-4),
     ):
         q, k, v, g = (
@@ -336,17 +350,23 @@ def check_attention_backward(torch, dev):
         require(max(rel) < tol, f"K5 dh={dh} {dtype} within {tol}")
         if entry is None:
             qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+            sdpa = torch.nn.functional.scaled_dot_product_attention
 
             def fwd_bwd(fn):
                 o = fn(qg, kg, vg, scale=scale)
                 return torch.autograd.grad(o, (qg, kg, vg), g)
 
-            lib_ms = cuda_ms(lambda: fwd_bwd(
-                torch.nn.functional.scaled_dot_product_attention))
+            # like for like: SDPA's backward alone, on a saved forward
+            o_lib = sdpa(qg, kg, vg, scale=scale)
+            lib_ms = cuda_ms(lambda: torch.autograd.grad(
+                o_lib, (qg, kg, vg), g, retain_graph=True))
+            del o_lib
+            lib_fb_ms = cuda_ms(lambda: fwd_bwd(sdpa))
             ours_ms = cuda_ms(lambda: fwd_bwd(at.fused_attention))
-            log(f"[K5 attention backward] forward + backward on the same "
-                f"inputs: library scaled_dot_product_attention {lib_ms:.4f} ms, "
-                f"the port's K2 + K5 {ours_ms:.4f} ms")
+            log(f"[K5 attention backward] library: scaled_dot_product_attention "
+                f"backward alone {lib_ms:.4f} ms on the same inputs; forward + "
+                f"backward: library {lib_fb_ms:.4f} ms, the port's K2 + K5 "
+                f"{ours_ms:.4f} ms")
             bh = B * H
             # recomputed S = q k^T, dV = P^T g, dP = g v^T, dQ = dS k,
             # dK = dS^T q: five (T x T x Dh) products, 2 flops a MAC
@@ -615,9 +635,9 @@ def check_merged_attention(torch, dev):
     B, T, H, dh = MAIN_BATCH, 1500, 12, 64
     scale = dh ** -0.5
     entry = None
-    # bounds against the plain version: K2's (bf16 2e-2 absolute, f32
-    # 2e-5); against K2 on split heads: equal (one body, one order)
-    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 2e-5)):
+    # bounds against the plain version: K2's (bf16 5e-3 absolute or one
+    # ulp, f32 2e-5); against K2 on split heads: equal (one body, one order)
+    for dtype, tol in ((torch.bfloat16, 5e-3), (torch.float32, 2e-5)):
         q, k, v = (torch.randn((B, T, H * dh), generator=gen, device=dev)
                    .to(dtype) for _ in range(3))
         before = at.fused_attention_merged.launches
@@ -635,7 +655,8 @@ def check_merged_attention(torch, dev):
         log(f"[K10 merged attention] ({B}, {T}, {H}x{dh}) {str(dtype)[6:]}: "
             f"max|kernel-plain| {err:.3e} (bound {tol:g}); equal to K2 on "
             f"split heads {same}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        require(err < tol and same, f"K10 {dtype} within {tol} and equal to K2")
+        ok = bf16_within(got, want, tol) if dtype == torch.bfloat16 else err < tol
+        require(ok and same, f"K10 {dtype} within {tol} and equal to K2")
         if entry is None:
             views = [t.view(B, T, H, dh).transpose(1, 2) for t in (q, k, v)]
             lib_ms = cuda_ms(lambda: torch.nn.functional
@@ -665,8 +686,8 @@ def check_merged_attention(torch, dev):
     rel = [rel_err(a, merge_heads(b)) for a, b in zip(got, want)]
     log(f"[K10 merged attention] forward + backward ({Bg}, {T}, {H}x{dh}) bf16 "
         f"through the Function (K10 + K5): max|grad-plain|/max|plain| dq/dk/dv "
-        f"{'/'.join(f'{x:.2e}' for x in rel)} (bound 2e-2)")
-    require(max(rel) < 2e-2, "K10 + K5 gradients within 2e-2")
+        f"{'/'.join(f'{x:.2e}' for x in rel)} (bound 1e-2)")
+    require(max(rel) < 1e-2, "K10 + K5 gradients within 1e-2")
     return entry
 
 

@@ -71,10 +71,28 @@ def test_mel_kernel(dev, n_mels):
     assert (got - want).abs().max().item() < 5e-4
 
 
-@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+# query and key counts at every tile edge of the kernels: one row, one
+# short of a 64-row tile, one past it, and the encoder's 1500
+EDGES = [(tq, tk) for tq in (1, 63, 1500) for tk in (1, 65, 1500)]
+
+
+def _bf16_close(got, want, atol=5e-3) -> bool:
+    """Every element within atol, or within one bf16 ulp of the plain value
+    where that is larger: an output at or above 1 in magnitude whose fp32
+    sums round to the neighbouring bf16 value is 2^-7 off."""
+    w = want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(2.0 ** -126))) - 7)
+    return bool(((got.float() - w).abs() <= ulp.clamp_min(atol)).all())
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5), (torch.bfloat16, 5e-3)])
 @pytest.mark.parametrize("dh", [32, 64])
-@pytest.mark.parametrize("tq,tk", [(128, 128), (256, 300), (130, 257)])
+@pytest.mark.parametrize("tq,tk", [(128, 128), (256, 300), (130, 257)] + EDGES)
 def test_attention_kernel(dev, tq, tk, dh, dtype, atol):
+    """K2 against its plain version: f32 2e-5 (the TPU kernel's test
+    bound); bf16 5e-3 absolute, or one bf16 ulp of outputs at or above 1
+    (both sides sum in f32 and round P to bf16 before the value product, at
+    values that differ in the last bits)."""
     gen = torch.Generator(device=dev).manual_seed(0)
     q, k, v = (
         torch.randn((2, 3, t, dh), generator=gen, device=dev).to(dtype)
@@ -84,7 +102,10 @@ def test_attention_kernel(dev, tq, tk, dh, dtype, atol):
     got = fused_attention(q, k, v, dh ** -0.5)
     assert fused_attention.launches == before + 1
     want = attention_plain(q, k, v, dh ** -0.5)
-    assert (got.float() - want.float()).abs().max().item() < atol
+    if dtype == torch.bfloat16:
+        assert _bf16_close(got, want, atol)
+    else:
+        assert (got.float() - want.float()).abs().max().item() < atol
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -115,13 +136,22 @@ def test_decode_attention_kernel(dev, dtype, dh, t_pad, t):
         assert (got.float() - want.float()).abs().max().item() <= 0.02 * scale
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def _grad_err_ok(got, want, tol) -> bool:
+    """max|got - want| within tol of max|want|, or within tol absolute where
+    the gradient is exactly 0 (one key: softmax's gradient vanishes, so dq
+    and dk are 0 and the kernel's are at the level of fp32 cancellation)."""
+    top = want.float().abs().max().item()
+    return (got.float() - want.float()).abs().max().item() <= tol * (top or 1.0)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
 @pytest.mark.parametrize("dh", [32, 64])
-@pytest.mark.parametrize("tq,tk", [(130, 257), (1100, 300)])
+@pytest.mark.parametrize("tq,tk", [(130, 257), (1100, 300)] + EDGES)
 def test_attention_backward_kernel(dev, tq, tk, dh, dtype, tol):
     """K5 against its plain version, relative to max|grad|: f32 1e-4 (another
-    summation order than cuBLAS), bf16 2% (the plain version rounds P and dS
-    to bf16 before its products; the kernel keeps them in f32)."""
+    summation order than cuBLAS), bf16 1e-2: both sides round P and dS to
+    bf16 before their products (one ulp 2^-8 relative) at values that differ
+    in the last bits, and sum up to T such terms."""
     gen = torch.Generator(device=dev).manual_seed(0)
     q, g = (torch.randn((2, 3, tq, dh), generator=gen, device=dev).to(dtype)
             for _ in range(2))
@@ -134,8 +164,36 @@ def test_attention_backward_kernel(dev, tq, tk, dh, dtype, tol):
     assert attention_backward.launches == before + 1
     for a, b in zip(got, attention_backward_plain(q, k, v, g, scale)):
         assert a.shape == b.shape and a.dtype == dtype
-        err = (a.float() - b.float()).abs().max().item()
-        assert err < tol * b.float().abs().max().item()
+        assert _grad_err_ok(a, b, tol)
+
+
+@pytest.mark.parametrize("kernel", ["K2", "K10", "K5"])
+def test_attention_misaligned_operand_raises(dev, kernel):
+    """The kernels copy 16-byte chunks: a bf16 operand at an odd storage
+    offset (contiguous, so ``.contiguous()`` keeps it) raises, and nothing
+    is launched or copied."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    shape = (1, 2, 70, 64) if kernel != "K10" else (1, 70, 128)
+    n = 1
+    for d in shape:
+        n *= d
+    buf = torch.randn((n + 1,), generator=gen, device=dev).to(torch.bfloat16)
+    bad = buf[1:].view(shape)
+    assert bad.is_contiguous() and bad.data_ptr() % 16
+    good = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    if kernel == "K5":
+        out, lse = _forward_kernel(good, good, good, 0.125, with_lse=True)
+    counters = (fused_attention.launches, fused_attention_merged.launches,
+                attention_backward.launches)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        if kernel == "K2":
+            fused_attention(good, bad, good, 0.125)
+        elif kernel == "K10":
+            fused_attention_merged(good, good, bad, 2, 0.125)
+        else:
+            attention_backward(good, good, good, out, bad, lse, 0.125)
+    assert (fused_attention.launches, fused_attention_merged.launches,
+            attention_backward.launches) == counters
 
 
 def test_fused_attention_autograd_runs_k5(dev):
@@ -307,7 +365,7 @@ def test_sr_quant_kernel(dev, rows, cols):
     assert (q.int().cpu() - host["w_q"].int()).abs().max().item() <= 1
 
 
-@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5), (torch.bfloat16, 5e-3)])
 @pytest.mark.parametrize("dh", [32, 64])
 @pytest.mark.parametrize("tq,tk,h", [(128, 128, 2), (256, 300, 3), (130, 257, 12)])
 def test_merged_attention_kernel(dev, tq, tk, h, dh, dtype, atol):
@@ -324,7 +382,10 @@ def test_merged_attention_kernel(dev, tq, tk, h, dh, dtype, atol):
     assert fused_attention_merged.launches == before + 1
     assert got.shape == q.shape and got.dtype == dtype
     want = attention_merged_plain(q, k, v, h, scale)
-    assert (got.float() - want.float()).abs().max().item() < atol
+    if dtype == torch.bfloat16:
+        assert _bf16_close(got, want, atol)
+    else:
+        assert (got.float() - want.float()).abs().max().item() < atol
 
     def split(x):
         return layers.split_heads(x, h).contiguous()
@@ -333,7 +394,7 @@ def test_merged_attention_kernel(dev, tq, tk, h, dh, dtype, atol):
     assert torch.equal(got, k2)
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
 def test_merged_attention_autograd_runs_k10_k5(dev, dtype, tol):
     """The Function: K10 forward (with the LSE), K5 backward on split heads;
     gradients against the plain backward, relative to max|grad| as K5's."""

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exports plain C entry points (no PyTorch headers),
 so ``nvcc`` builds it in seconds into ``whisper_ipa_torch/build/`` as a
 shared library, which ``ctypes`` loads. The library's file name carries a
-hash of its source and flags, so an edited source is rebuilt and a stale
-library is never loaded. Only the package's own sources go into a build;
+hash of its source, of every shared header ``csrc/*.cuh`` and of the
+flags, so an edited source or header is rebuilt and a stale library is
+never loaded. Only the package's own sources go into a build;
 a failed build raises.
 
 Calling convention of every entry point: tensors and the CUDA stream are
@@ -63,11 +64,13 @@ def nvcc_path() -> str:
 
 
 def _library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    # any source may include any shared header, so each library's name
+    # carries every header's bytes too
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _compile(name: str) -> Path:

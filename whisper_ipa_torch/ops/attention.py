@@ -21,7 +21,11 @@ sends eligible calls to it under ``use_merged_attention(True)``.
 
 CPU tensors run the plain versions, ``attention_plain`` (and
 ``attention_merged_plain``) forward and ``attention_backward_plain``
-backward; CUDA tensors run the kernels or raise.
+backward; CUDA tensors run the kernels or raise. In bf16 the kernels run
+on the tensor cores (K2/K10 on ``wgmma``, K5 on ``mma.sync``) and round
+the probabilities (and, backward, dS) to bf16 before their products, as
+the plain versions do; f32 runs fp32 products on the CUDA cores. Every
+operand must start on a 16-byte boundary.
 """
 
 from __future__ import annotations
@@ -36,13 +40,17 @@ def attention_plain(q, k, v, scale: float = 1.0):
 
     (BH..., Tq, Dh) x (BH..., Tk, Dh) -> (BH..., Tq, Dh); the scale is
     applied to q in its own dtype, logits and softmax are f32, and the
-    probabilities are cast back to v's dtype for the value product.
+    probabilities are cast back to v's dtype for the value product. Both
+    products sum in f32 over operands in the input dtype, as the TPU
+    kernel's (``preferred_element_type=float32``) and the CUDA kernels' do:
+    a bf16 matmul would round the logits themselves to bf16.
     """
+    dt = v.dtype
     if scale != 1.0:
         q = q * scale
-    logits = torch.matmul(q, k.transpose(-1, -2)).float()
-    w = torch.softmax(logits, dim=-1).to(v.dtype)
-    return torch.matmul(w, v)
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    w = torch.softmax(logits, dim=-1).to(dt)
+    return torch.matmul(w.float(), v.float()).to(dt)
 
 
 def attention_backward_plain(q, k, v, g, scale: float = 1.0):
@@ -94,8 +102,21 @@ def _check(q, k, v) -> None:
             raise ValueError("fused_attention needs at least one query and key")
 
 
+def _check_aligned(*tensors) -> None:
+    """The kernels copy 16-byte chunks (cp.async): raise, and do not copy,
+    on an operand whose data does not start on a 16-byte boundary (a view
+    at an odd storage offset, which ``.contiguous()`` leaves as it is)."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(
+                f"attention kernels need 16-byte aligned operands, got a "
+                f"{t.dtype} tensor at storage offset {t.storage_offset()}"
+            )
+
+
 def _forward_kernel(q, k, v, scale: float, with_lse: bool):
     """Launch K2 on contiguous CUDA q/k/v; returns (out, lse or None)."""
+    _check_aligned(q, k, v)
     B, H, Tq, Dh = q.shape
     Tk = k.shape[2]
     out = torch.empty_like(q)
@@ -143,6 +164,7 @@ def attention_backward(q, k, v, out, g, lse, scale: float = 1.0):
     q, k, v, out, g, lse = (
         t.contiguous() for t in (q, k, v, out, g, lse)
     )
+    _check_aligned(q, k, v, out, g)
     B, H, Tq, Dh = q.shape
     Tk = k.shape[2]
     dq = torch.empty_like(q)
@@ -252,6 +274,7 @@ def _check_merged(q, k, v, n_head: int) -> None:
 def _merged_forward_kernel(q, k, v, n_head: int, scale: float, with_lse: bool):
     """Launch K10 on contiguous CUDA (B, T, d) q/k/v; returns (out, lse
     (B, H, Tq) f32 or None)."""
+    _check_aligned(q, k, v)
     B, Tq, d = q.shape
     Tk = k.shape[1]
     out = torch.empty_like(q)
