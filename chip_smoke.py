@@ -414,12 +414,12 @@ def check_kv_init(torch, dev):
             tol = 2 ** -7 if bias is None else 2 ** -6
         else:
             tol = 1e-5
-        code_ok, equal, worst, scale_rel = True, [], 0, 0.0
+        equal, worst, scale_rel, over = [], 0, 0.0, 0
         for i in (0, 2):
             require(got[i].shape == (B, H, 64, 1536), f"K3 shape {tuple(got[i].shape)}")
             diff = (got[i].int() - want[i].int()).abs()
             same = (got[i + 1] == want[i + 1])[:, :, None, :]
-            code_ok &= bool((diff <= torch.where(same, 1, 2)).all())
+            over += int((diff > torch.where(same, 1, 2)).sum())
             equal.append(float((diff == 0).float().mean()))
             worst = max(worst, int(diff.max()))
             scale_rel = max(scale_rel, float(((got[i + 1] - want[i + 1]).abs()
@@ -431,11 +431,11 @@ def check_kv_init(torch, dev):
         ms = cuda_ms(lambda: kv.fused_kv_init_int8(*args, out_dtype=dtype))
         plain_ms = cuda_ms(lambda: kv.fused_kv_init_plain(*args, dtype))
         log(f"[K3 kv init] x ({B}, {T}, {d}) {str(dtype)[6:]}, H {H}, V bias "
-            f"{bias is not None}: codes equal {min(equal):.5f}, max|diff| "
-            f"{worst} (scale-aware bound 1/2), scales max relative "
+            f"{bias is not None}: codes equal {min(equal):.6f}, max|diff| "
+            f"{worst} (scale-aware bound 1/2; {over} codes past it), scales max relative "
             f"{scale_rel:.3e} (bound {tol:g}); kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms")
-        require(code_ok and min(equal) >= 0.999 and scale_rel <= tol,
+        require(over == 0 and min(equal) >= 0.999 and scale_rel <= tol,
                 f"K3 {dtype} bias {bias is not None} within bounds")
         if entry is None:
             def unfused():  # what init_cache runs without the switch
@@ -453,25 +453,59 @@ def check_kv_init(torch, dev):
     return entry
 
 
+def device_ms(torch, fn, iters: int = 50) -> float:
+    """Device time of one fn() call in ms: its kernels' time under
+    torch.profiler over iters calls, after a warm-up. Unlike cuda_ms it
+    leaves out the host's time between launches, which dominates at
+    microsecond scale."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    return total / iters / 1e3
+
+
 def check_int8_matmul(torch, dev):
     from whisper_ipa_torch.ops import quant_matmul as qm
     from whisper_ipa_torch.ops.quant import quantize_linear
 
     gen = torch.Generator(device=dev).manual_seed(0)
+    weights = {}
+
+    def codes(k, n):
+        if (k, n) not in weights:
+            q = quantize_linear({"w": 0.05 * torch.randn((k, n), generator=gen,
+                                                         device=dev)})
+            weights[k, n] = q["w_q"].to(dev), q["w_s"].to(dev)
+        return weights[k, n]
+
     entry = None
-    for m, k, n in ((24000, 768, 768), (16, 768, 768), (24000, 3072, 768)):
-        q = quantize_linear({"w": 0.05 * torch.randn((k, n), generator=gen,
-                                                     device=dev)})
-        w_q, w_s = q["w_q"].to(dev), q["w_s"].to(dev)
-        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    # the encoder's and cross projections' rows (B * 1500), then the decode
+    # step's 16 rows, where 6144 of the int8 run's 6240 launches run; both
+    # bodies must equal the plain version bit for bit (exact integer sums,
+    # the same IEEE scales and f32 rescale)
+    for m, k, n, dtype in ((24000, 768, 768, torch.bfloat16),
+                           (16, 768, 768, torch.bfloat16),
+                           (24000, 3072, 768, torch.bfloat16),
+                           (16, 3072, 768, torch.bfloat16),
+                           (16, 768, 3072, torch.float32),
+                           (48, 768, 768, torch.bfloat16)):
+        w_q, w_s = codes(k, n)
+        x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
         before = qm.int8_matmul.launches
         got = qm.int8_matmul(x, w_q, w_s)
         torch.cuda.synchronize()
         require(qm.int8_matmul.launches == before + 1, "K6 counter rose")
         want = qm.int8_matmul_plain(x, w_q, w_s)
-        err = rel_err(got, want)
+        exact = torch.equal(got, want)
         ms = cuda_ms(lambda: qm.int8_matmul(x, w_q, w_s))
         plain_ms = cuda_ms(lambda: qm.int8_matmul_plain(x, w_q, w_s))
+        dev_ms = device_ms(torch, lambda: qm.int8_matmul(x, w_q, w_s))
         lib = ""
         lib_ms = None
         if m > 16:  # cuBLASLt's int8 product wants more than 16 rows
@@ -480,14 +514,32 @@ def check_int8_matmul(torch, dev):
             x_codes = torch.clamp(torch.round(xf / s), -127, 127).to(torch.int8)
             lib_ms = cuda_ms(lambda: torch._int_mm(x_codes, w_q))
             lib = f", library torch._int_mm on the same codes (product alone) {lib_ms:.4f} ms"
-        log(f"[K6 int8 matmul] ({m}, {k}) bf16 x ({k}, {n}) int8: "
-            f"max|kernel-plain|/max|plain| {err:.3e} (bound 1e-6); kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms{lib}")
-        require(err <= 1e-6, f"K6 ({m}, {k}, {n}) within 1e-6")
+        b = bound(nbytes(x, w_q, w_s, got), 2 * m * k * n, "int8")
+        log(f"[K6 int8 matmul] ({m}, {k}) {str(dtype)[6:]} x ({k}, {n}) int8, "
+            f"{'split-K' if m <= qm.SMALL_M_MAX else 'tiled'} body: equal to "
+            f"the plain version bit for bit {exact}; kernel {ms:.4f} ms "
+            f"(device time {dev_ms:.4f} ms, profiler), plain {plain_ms:.4f} "
+            f"ms, bound {b['bound_ms']:.4f} ms{lib}")
+        require(exact, f"K6 ({m}, {k}, {n}) {dtype} equal to its plain version")
         if entry is None:
             entry = dict(max_abs_err=max_abs(got, want), ms=ms, plain_ms=plain_ms,
-                         **bound(nbytes(x, w_q, w_s, got), 2 * m * k * n, "int8"),
-                         library_ms=lib_ms)
+                         **b, library_ms=lib_ms)
+        elif (m, k, n) == (16, 768, 768):
+            entry.update(decode_shape=[m, k, n], decode_ms=ms,
+                         decode_device_ms=dev_ms, decode_plain_ms=plain_ms,
+                         decode_bound_ms=b["bound_ms"])
+
+    # the threshold between the bodies: both at the decode and prefix rows
+    # (device time, profiler)
+    for k, n in ((768, 768), (3072, 768)):
+        w_q, w_s = codes(k, n)
+        row = []
+        for m in (16, 32, 48, 64):
+            x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+            times = [device_ms(torch, lambda: qm._int8_kernel(x, w_q, w_s, small))
+                     for small in (True, False)]
+            row.append(f"M {m}: split-K {times[0]:.4f}, tiled {times[1]:.4f}")
+        log(f"[K6 int8 matmul] bodies at ({k}, {n}), device ms: " + "; ".join(row))
     return entry
 
 
@@ -1421,9 +1473,10 @@ def main() -> int:
         k["launches_by_path"] = {p: c[key] for p, c in by_path.items() if c[key]}
         k["launches"] = sum(k["launches_by_path"].values())
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-             "launches_by_path")
-    print(json.dumps({"kernels": [{k: e[k] for k in order} for e in kernels]}))
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [
+        {**{k: e[k] for k in order}, **{k: v for k, v in e.items() if k not in order}}
+        for e in kernels]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

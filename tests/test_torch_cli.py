@@ -271,6 +271,37 @@ def test_serve_unported_flags_exit(argv, item):
     assert f"ROADMAP queue 1 {item}" in str(e.value.code)
 
 
+# the reference's engine and speculative-decoding options, with what the
+# reference's parser makes of them
+ENGINE_FLAGS = [
+    (["--draft-weights", "d.safetensors"], "draft_weights", "d.safetensors", "item 10"),
+    (["--draft-checkpoint", "run/checkpoint-9"], "draft_checkpoint",
+     "run/checkpoint-9", "item 10"),
+    (["--draft-k", "6"], "draft_k", 6, "item 10"),
+    (["--max-new-tokens", "64"], "max_new_tokens", 64, "item 9"),
+    (["--steps-per-sync", "8"], "steps_per_sync", 8, "item 9"),
+    (["--adaptive-sync"], "adaptive_sync", True, "item 9"),
+    (["--no-join-fast-sync"], "join_fast_sync", False, "item 9"),
+    (["--max-pending", "32"], "max_pending", 32, "item 9"),
+]
+
+
+@pytest.mark.parametrize("argv,dest,value,item", ENGINE_FLAGS)
+def test_serve_engine_flags_parse(argv, dest, value, item):
+    """Each flag parses with the reference's type and default and is inert
+    alone; with the option it belongs to, the run exits naming the item."""
+    defaults = dict(draft_weights=None, draft_checkpoint=None, draft_k=4,
+                    max_new_tokens=128, steps_per_sync=4, adaptive_sync=False,
+                    join_fast_sync=True, max_pending=None)
+    args = serve_cli.build_parser().parse_args(argv)
+    assert {k: getattr(args, k) for k in defaults} == defaults | {dest: value}
+    serve_cli._refuse_unported(args)  # alone: accepted
+    owner = ["--draft-model", "tiny"] if item == "item 10" else ["--continuous"]
+    with pytest.raises(SystemExit) as e:
+        serve_cli.build_server(argv + owner + ["--device", "cpu"])
+    assert f"ROADMAP queue 1 {item}" in str(e.value.code)
+
+
 @pytest.mark.parametrize("argv,item", [
     (["--beam-size", "5"], "item 6"),
     (["--data-parallel"], "item 12"),

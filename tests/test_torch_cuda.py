@@ -237,19 +237,63 @@ def _rel(a, b) -> float:
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m,k,n", [(16, 768, 768), (1000, 768, 768), (37, 3072, 768)])
+@pytest.mark.parametrize("k,n", [(768, 768), (768, 3072), (3072, 768)])
+@pytest.mark.parametrize("m", [1, 4, 16, 17, 37, 64, 1000, 24000])
 def test_int8_matmul_kernel(dev, m, k, n, dtype):
-    """K6 against its plain version: the same integer sums, rescaled in
-    f32; rows not a multiple of the 64-row tile. Relative 1e-6 of max|y|."""
+    """K6 against its plain version, bit for bit: the same codes and scales
+    (IEEE divisions), integer sums exact in any order and split, the same
+    f32 rescale. Rows up to 64 take the split-K body, more the tiles; 17,
+    37 and 1000 leave partial 16-row and 128-row tiles."""
     gen = torch.Generator(device=dev).manual_seed(0)
     q = quantize_linear({"w": 0.05 * torch.randn((k, n), generator=gen, device=dev)})
     w_q, w_s = q["w_q"].to(dev), q["w_s"].to(dev)
     x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+    x[0] = 0.0  # an all-zero row: scale floor 1e-6 / 127
     before = int8_matmul.launches
     got = int8_matmul(x, w_q, w_s)
     assert int8_matmul.launches == before + 1
     assert got.dtype == torch.float32 and got.shape == (m, n)
-    assert _rel(got, int8_matmul_plain(x, w_q, w_s)) <= 1e-6
+    assert torch.equal(got, int8_matmul_plain(x, w_q, w_s))
+
+
+@pytest.mark.parametrize("m", [5, 64, 200])
+def test_int8_matmul_ragged_shapes(dev, m):
+    """K not a multiple of the 128-code tile or the 32-code slice, N not of
+    16 (the byte loads), x a (B, T, K) batch: still bit for bit."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    k, n = 388, 200
+    q = quantize_linear({"w": 0.05 * torch.randn((k, n), generator=gen, device=dev)})
+    w_q, w_s = q["w_q"].to(dev), q["w_s"].to(dev)
+    x = torch.randn((1, m, k), generator=gen, device=dev).to(torch.bfloat16)
+    assert torch.equal(int8_matmul(x, w_q, w_s), int8_matmul_plain(x, w_q, w_s))
+
+
+def test_int8_activations_tokens_through_k6(dev, monkeypatch):
+    """test-tiny greedy tokens under use_int8_activations on the card: the
+    ones that run K6 equal the ones with K6 replaced by its plain version."""
+    from dataclasses import replace
+
+    from whisper_ipa_torch.decode import DecodingOptions, decode
+    from whisper_ipa_torch.models import params_to
+    from whisper_ipa_torch.ops.quant import quantize_params
+    from whisper_ipa_torch.tokenizer import get_tokenizer
+
+    cfg = replace(CONFIGS["test-tiny"], n_audio_ctx=150, n_text_ctx=48)
+    params = params_to(quantize_params(init_params(cfg, seed=0), bits=8), dev)
+    mel = torch.randn((2, 300, cfg.n_mels), generator=torch.Generator().manual_seed(0))
+    opts = DecodingOptions(language="en", without_timestamps=True,
+                           sample_len=16, kv_int8=True)
+    tok = get_tokenizer(multilingual=True, language="en")
+    layers.use_int8_activations(True)
+    try:
+        before = int8_matmul.launches
+        kernel = decode(params, cfg, mel, opts, tokenizer=tok)
+        assert int8_matmul.launches > before
+        monkeypatch.setattr(layers, "int8_matmul", int8_matmul_plain)
+        plain = decode(params, cfg, mel, opts, tokenizer=tok)
+    finally:
+        layers.use_int8_activations(False)
+    assert [r.tokens for r in kernel] == [r.tokens for r in plain]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -315,10 +359,13 @@ def test_decode_attention_int4_kernel(dev, dtype, dh, t):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bias", [False, True])
-@pytest.mark.parametrize("B,T,d,H", [(2, 150, 64, 2), (2, 1500, 768, 12)])
+@pytest.mark.parametrize("B,T,d,H", [(2, 150, 64, 2), (2, 1500, 768, 12),
+                                     (3, 1500, 384, 6)])
 def test_kv_init_kernel(dev, B, T, d, H, bias, dtype):
-    """K3 against its plain version (cuBLAS sums in another order, so a
-    bf16 rounding of the projection may fall the other way): scales within
+    """K3 against its plain version at test-tiny's d 64 (Dh 32),
+    whisper-small's 768 and whisper-tiny's 384 (Dh 64); cuBLAS sums in
+    another order, so a bf16 rounding of the projection may fall the other
+    way. Bounds: scales within
     2^-7 relative in bf16 (one ulp of the head's maximum), 2^-6 in bf16
     with a bias (one ulp of the projection, then the bias add's own
     rounding: two ulps of a sum that the bias made smaller) and 1e-5 in

@@ -162,12 +162,25 @@ def test_masks_and_prefix_match_jax(tok, jtok):
     )
 
 
+def test_best_of_at_temperature_0_is_greedy(params, jax_params, mel, tok, jtok):
+    """The reference ignores best_of unless it samples: at temperature 0 the
+    port's tokens equal the JAX package's for the same options and its own
+    tokens without best_of."""
+    kw = dict(best_of=2, temperature=0.0)
+    ref = jax_decode(jax_params, JCFG, jnp.asarray(mel), _options(JaxOptions, **kw),
+                     tokenizer=jtok)
+    ours = decode(params, CFG, mel, _options(DecodingOptions, **kw), tokenizer=tok)
+    greedy = decode(params, CFG, mel, _options(DecodingOptions), tokenizer=tok)
+    assert len(ours) == len(ref) == 4
+    assert [r.tokens for r in ours] == [r.tokens for r in ref]
+    assert [r.tokens for r in ours] == [r.tokens for r in greedy]
+
+
 @pytest.mark.parametrize(
     "kw",
     [
         dict(beam_size=2),
         dict(best_of=3, temperature=0.5),
-        dict(best_of=2),
         dict(without_timestamps=False),
     ],
 )

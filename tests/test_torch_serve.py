@@ -97,8 +97,29 @@ def test_requests_resolve_and_match_decode(service, params, tok):
         dict(medusa_params={}),
         dict(mesh=object()),
         dict(beam_size=2),
+        dict(draft_params={}, draft_cfg=CFG, draft_k=4),
+        dict(tensor_parallel=True),
     ],
 )
 def test_unported_options_raise(params, kw):
-    with pytest.raises(NotImplementedError):
+    match = r"item \[12\]" if kw.get("tensor_parallel") else None
+    with pytest.raises(NotImplementedError, match=match):
         TranscriptionService(params, CFG, device="cpu", **kw)
+
+
+def test_draft_k_alone_is_inert(params, tok):
+    """The reference's keyword: without draft_params it changes nothing, so
+    the service constructs and answers as the default one does."""
+    svc = TranscriptionService(params, CFG, device="cpu", batch_size=1,
+                               max_wait_ms=0.0, bf16=False, tokenizer=tok,
+                               draft_k=4, tensor_parallel=False)
+    try:
+        out = svc.submit(_audio(2.0, seed=3)).result(timeout=300)
+    finally:
+        svc.close()
+    assert svc.draft_k == 4 and len(out["segments"]) == 1
+    mel = log_mel_spectrogram(
+        torch.from_numpy(np.stack([np.pad(_audio(2.0, seed=3),
+                                          (0, N_SAMPLES - 2 * SAMPLE_RATE))])),
+        CFG.n_mels)
+    assert out["text"] == decode(params, CFG, mel, svc.options, tokenizer=tok)[0].text

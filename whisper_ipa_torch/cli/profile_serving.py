@@ -8,8 +8,9 @@ and prints:
     log-mel + encoder, cache build + prefix step (a sample_len=1 decode from
     the encoder output), and the token loop;
   - from one run under ``torch.profiler``: device time summed over kernels,
-    its share of that run's wall, and the kernels that take the most, with
-    their launch counts;
+    its share of that run's wall, the port's kernels (K1-K10) each with its
+    device time and kernel launches, and the kernels that take the most,
+    with their launch counts;
 and, as its last line, the same as one JSON object.
 
     python -m whisper_ipa_torch.cli.profile_serving --quant-bits 4 --kv int4
@@ -25,6 +26,36 @@ from dataclasses import replace
 
 import numpy as np
 import torch
+
+
+# the port's hand-written kernels by the names of their device functions
+# (K8 runs K4's decode_combine_kernel after its own, counted under K4)
+PORT_KERNELS = {
+    "K1": ("log_mel_power_kernel",),
+    "K2/K10": ("attention_fwd_",),
+    "K3": ("kv_init_wgmma", "kv_init_f32"),
+    "K4": ("decode_partial_kernel", "decode_combine_kernel"),
+    "K5": ("attn_bwd_",),
+    "K6": ("int8_gemm_", "quantize_rows_kernel"),
+    "K7": ("int4_matmul_kernel",),
+    "K8": ("decode_partial_int4_kernel",),
+    "K9": ("sr_quant_kernel",),
+}
+
+
+def port_kernel_times(kernels) -> dict:
+    """{K: {"device_ms", "launches"}} summed over the profiler's kernel
+    events whose names carry one of the kernel's device functions; a K with
+    several device functions (K6's row pass and product) counts each."""
+    out = {}
+    for e in kernels:
+        for k, names in PORT_KERNELS.items():
+            if any(n in e.key for n in names):
+                t = out.setdefault(k, {"device_ms": 0.0, "launches": 0})
+                t["device_ms"] += e.self_device_time_total / 1e3
+                t["launches"] += e.count
+                break
+    return out
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -118,6 +149,7 @@ def main(argv=None) -> int:
         "profiled_wall_s": prof_wall,
         "device_kernel_s": device_s,
         "device_busy_share": device_s / prof_wall,
+        "port_kernels": port_kernel_times(kernels),
         "top_kernels": [
             {"name": e.key[:90], "calls": e.count,
              "device_ms": e.self_device_time_total / 1e3}
@@ -129,6 +161,9 @@ def main(argv=None) -> int:
           f"prefix {t_prefix:.4f} s, loop {result['loop_s_per_step'] * 1e3:.3f} "
           f"ms a step; profiled run {prof_wall:.4f} s, kernels {device_s:.4f} s "
           f"on the device (busy {result['device_busy_share']:.1%})")
+    for k, t in result["port_kernels"].items():
+        print(f"  {k}: {t['device_ms']:.3f} ms of device time, {t['launches']} "
+              f"kernel launches")
     for k in result["top_kernels"]:
         print(f"  {k['device_ms']:10.3f} ms {k['calls']:7d} x  {k['name']}")
     print(json.dumps(result))

@@ -143,6 +143,26 @@ def build_parser() -> argparse.ArgumentParser:
                    help="not ported (ROADMAP queue 1 item 10)")
     p.add_argument("--medusa-weights", default=None,
                    help="not ported (ROADMAP queue 1 item 10)")
+    # the reference's options of the engine and of speculative decoding:
+    # inert alone, as there; with --continuous or --draft-model the run is
+    # refused, naming the item
+    for flag, kw in (
+        ("--draft-weights", dict(default=None)),
+        ("--draft-checkpoint", dict(default=None)),
+        ("--draft-k", dict(type=int, default=4)),
+    ):
+        p.add_argument(flag, help="with --draft-model; not ported (ROADMAP "
+                       "queue 1 item 10)", **kw)
+    for flag, kw in (
+        ("--max-new-tokens", dict(type=int, default=128)),
+        ("--steps-per-sync", dict(type=int, default=4)),
+        ("--adaptive-sync", dict(action="store_true")),
+        ("--no-join-fast-sync", dict(dest="join_fast_sync",
+                                     action="store_false", default=True)),
+        ("--max-pending", dict(type=int, default=None)),
+    ):
+        p.add_argument(flag, help="with --continuous; not ported (ROADMAP "
+                       "queue 1 item 9)", **kw)
     p.add_argument("--dp", type=int, default=1,
                    help="not ported (ROADMAP queue 1 item 12)")
     p.add_argument("--tp", type=int, default=1,

@@ -90,55 +90,15 @@ using wipa::kTileRows;
 
 constexpr int kWgThreads = 128;  // one warpgroup
 
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keep the compiler from moving accesses of these registers across the
-// asynchronous products
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// Shared-memory matrix descriptor of a swizzled (64, DH) tile (or a k-step
-// inside it): 128-byte swizzle for DH 64, 64-byte for DH 32; the stride
-// between 8-row groups is 8 rows; the leading offset is unused by these
-// layouts (one swizzle atom spans the whole row).
-template <int DH>
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr) {
-  constexpr uint64_t kLayout = DH == 64 ? 1 : 2;
-  constexpr uint64_t kSbo = (8 * Tile<DH>::kRowBytes) >> 4;
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
-         (kSbo << 32) | (kLayout << 62);
-}
+using wipa::fence_regs;
+using wipa::make_desc;
+using wipa::wgmma_commit;
+using wipa::wgmma_fence;
+using wipa::wgmma_wait_all;
 
 #define WIPA_D8(b)                                                     \
   "+f"(d[b + 0]), "+f"(d[b + 1]), "+f"(d[b + 2]), "+f"(d[b + 3]),      \
       "+f"(d[b + 4]), "+f"(d[b + 5]), "+f"(d[b + 6]), "+f"(d[b + 7])
-
-// d (64 x 64) (+)= A (64 x 16, shared, K-major) B (16 x 64, shared, K-major)
-__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da,
-                                                   uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : WIPA_D8(0), WIPA_D8(8), WIPA_D8(16), WIPA_D8(24)
-      : "l"(da), "l"(db), "r"(scale_d));
-}
 
 // d (64 x 64) += A (64 x 16, registers) B (16 x 64, shared, MN-major)
 __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
@@ -256,8 +216,8 @@ attention_fwd_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < DH / 16; ++kk) {
-      wgmma_m64n64k16_ss(s, make_desc<DH>(qs + 32 * kk),
-                         make_desc<DH>(ks + st * TB + 32 * kk), kk > 0);
+      wipa::wgmma_m64n64k16_ss<0>(s, make_desc<DH>(qs + 32 * kk),
+                                  make_desc<DH>(ks + st * TB + 32 * kk), kk > 0);
     }
     wgmma_commit();
     wgmma_wait_all();

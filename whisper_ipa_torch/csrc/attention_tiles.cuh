@@ -1,8 +1,10 @@
-// Shared device helpers of the bf16 tensor-core attention kernels
-// (attention.cu: K2/K10 forward on wgmma; attention_bwd.cu: K5 backward on
-// mma.sync): asynchronous tile loads with a zero-filled ragged tail, the
-// shared-memory swizzle both instruction families read, ldmatrix and the
-// m16n8k16 product, and bf16 packing.
+// Shared device helpers of the bf16 tensor-core kernels (attention.cu:
+// K2/K10 forward on wgmma; attention_bwd.cu: K5 backward on mma.sync;
+// kv_init.cu: K3's projection on wgmma; quant_matmul.cu: K6's int8 tiles
+// through ldmatrix): asynchronous tile loads with a zero-filled ragged
+// tail, the shared-memory swizzle both instruction families read, ldmatrix
+// and the m16n8k16 product, the wgmma descriptors and fences, and bf16
+// packing.
 //
 // Tile layout: a (64, DH) bf16 tile of rows (queries or keys) with DH
 // contiguous, DH in {32, 64}, so a row is 64 or 128 bytes. Byte offset o of
@@ -188,5 +190,79 @@ __device__ __forceinline__ uint32_t ldsm_nk(uint32_t base, int n0, int k0,
   const int c = k0 + 8 * (j & 1);
   return base + swz<DH>(r * Tile<DH>::kRowBytes + c * 2);
 }
+
+// -- wgmma (sm_90a) ----------------------------------------------------------
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keep the compiler from moving accesses of these registers across the
+// asynchronous products
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Shared-memory matrix descriptor of a swizzled (64, DH) tile (or a k-step
+// inside it): 128-byte swizzle for DH 64, 64-byte for DH 32; the stride
+// between 8-row groups is 8 rows; the leading offset is unused by these
+// layouts (one swizzle atom spans the whole row).
+template <int DH>
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr) {
+  constexpr uint64_t kLayout = DH == 64 ? 1 : 2;
+  constexpr uint64_t kSbo = (8 * Tile<DH>::kRowBytes) >> 4;
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (kSbo << 32) | (kLayout << 62);
+}
+
+#define WIPA_D8(b)                                                     \
+  "+f"(d[b + 0]), "+f"(d[b + 1]), "+f"(d[b + 2]), "+f"(d[b + 3]),      \
+      "+f"(d[b + 4]), "+f"(d[b + 5]), "+f"(d[b + 6]), "+f"(d[b + 7])
+
+// d (64 x 64) (+)= A (64 x 16, shared, K-major) B (16 x 64, shared): B is
+// K-major, or MN-major (rows k, 64 contiguous n) read with the transpose
+// bit when TRANS_B is 1
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da,
+                                                   uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, %32, %33, p, 1, 1, 0, %35;\n"
+      "}\n"
+      : WIPA_D8(0), WIPA_D8(8), WIPA_D8(16), WIPA_D8(24)
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
+}
+
+// d (64 x 32) (+)= A (64 x 16, shared, K-major) B (16 x 32, shared), B as
+// in the n64 form
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16], uint64_t da,
+                                                   uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1, 0, %19;\n"
+      "}\n"
+      : WIPA_D8(0), WIPA_D8(8)
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
+}
+
+#undef WIPA_D8
 
 }  // namespace wipa

@@ -267,8 +267,10 @@ def _check_supported(options: DecodingOptions, cfg: WhisperConfig) -> None:
     missing = []
     if options.beam_size is not None:
         missing.append("beam_size")
-    if options.best_of is not None and options.best_of > 1:
-        missing.append("best_of > 1")
+    # as in the reference, best_of draws candidates only when sampling; at
+    # temperature 0 it is ignored and the decode is greedy
+    if options.best_of is not None and options.best_of > 1 and options.temperature > 0:
+        missing.append("best_of > 1 at temperature > 0 (ROADMAP queue 1 item [5])")
     if not options.without_timestamps:
         missing.append("timestamp rules (without_timestamps=False)")
     if missing:

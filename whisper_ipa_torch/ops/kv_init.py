@@ -65,7 +65,8 @@ def fused_kv_init_int8(x, wk, bk, wv, bv, n_head: int,
     scales (B, H, T_pad) f32, T_pad the 128 round-up, code 0 and scale 0
     past T.
 
-    CUDA tensors run the kernel, CPU tensors the plain version.
+    CUDA tensors run the kernel (bf16: wgmma products; f32: the CUDA
+    cores), CPU tensors the plain version.
     """
     B, T, d_in = x.shape
     d = wk.shape[1]
@@ -78,13 +79,18 @@ def fused_kv_init_int8(x, wk, bk, wv, bv, n_head: int,
     if any(t is not None and t.device != x.device for t in (wk, bk, wv, bv)):
         raise ValueError("all operands must be on one CUDA device")
     dh = d // n_head
-    if dh not in (32, 64) or d_in % 32:
+    # the bf16 body multiplies 64-feature k-tiles, the f32 body 32-feature
+    step = 64 if out_dtype == torch.bfloat16 else 32
+    if dh not in (32, 64) or d_in % step:
         raise ValueError(f"head dim {dh} (32 or 64) and d_in {d_in} (a "
-                         f"multiple of 32) not supported")
+                         f"multiple of {step}) not supported")
     t_pad = ((T + 127) // 128) * 128
     xc = x.to(out_dtype).contiguous()
     wkc = wk.to(out_dtype).contiguous()
     wvc = wv.to(out_dtype).contiguous()
+    if out_dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (xc, wkc, wvc)):
+        raise ValueError("the bf16 kernel copies 16-byte chunks: x, wk and wv "
+                         "must be 16-byte aligned")
     bkc = _bias_f32(bk, d, out_dtype, x.device)
     bvc = _bias_f32(bv, d, out_dtype, x.device)
     codes = [torch.empty((B, n_head, dh, t_pad), dtype=torch.int8,

@@ -73,10 +73,57 @@ def _check_cuda(what: str, x, *tensors):
         raise ValueError(f"{what}: x must be f32 or bf16, got {x.dtype}")
 
 
+# Rows up to which K6 runs its one-launch split-K body (decode shapes);
+# above it the row pass and the 128 x 128 tensor-core tiles. On the H100
+# (PERF.md section 6) the bodies cross between 48 and 64 rows at (768, 768)
+# and split-K stays ahead through 64 at (3072, 768); the decode path's
+# rows are 16 a step and 48 for the prefix, both on the split-K side.
+SMALL_M_MAX = 64
+
+
+def split_k_plan(K: int):
+    """K6's small-M split of the K codes: (splits, slice), ``splits``
+    blocks of one thread-block cluster (at most 8), each over ``slice``
+    codes, a multiple of 32 and at least 128 where K allows, the last
+    slice ragged."""
+    splits = min(8, -(-K // 128))
+    per_block = -(-K // splits)
+    return splits, (per_block + 31) // 32 * 32
+
+
+def _int8_kernel(xr, wq, ws, small: bool):
+    """Launch K6 on contiguous CUDA (M, K) x and (K, N) codes: the
+    split-K body when ``small`` (M <= 64), else the row pass and the
+    tiles. Returns the (M, N) f32 product."""
+    M, K = xr.shape
+    N = wq.shape[1]
+    out = torch.empty((M, N), dtype=torch.float32, device=xr.device)
+    is_bf16 = int(xr.dtype == torch.bfloat16)
+    stream = torch.cuda.current_stream(xr.device).cuda_stream
+    if small:
+        splits, slice_k = split_k_plan(K)
+        fn = _build.entry("quant_matmul", "wipa_int8_matmul_small",
+                          [_build.P] * 4 + [_build.I] * 7 + [_build.P])
+        rc = fn(xr.data_ptr(), wq.data_ptr(), ws.data_ptr(), out.data_ptr(),
+                M, K, N, splits, slice_k, is_bf16, xr.device.index, stream)
+    else:
+        ldq = -(-K // 16) * 16  # scratch rows padded to whole 16-byte chunks
+        x_codes = torch.empty((M, ldq), dtype=torch.int8, device=xr.device)
+        x_scale = torch.empty((M,), dtype=torch.float32, device=xr.device)
+        fn = _build.entry("quant_matmul", "wipa_int8_matmul",
+                          [_build.P] * 6 + [_build.I] * 6 + [_build.P])
+        rc = fn(xr.data_ptr(), wq.data_ptr(), ws.data_ptr(), out.data_ptr(),
+                x_codes.data_ptr(), x_scale.data_ptr(), M, K, N, ldq, is_bf16,
+                xr.device.index, stream)
+    _build.check(rc, "wipa_int8_matmul")
+    return out
+
+
 def int8_matmul(x, w_q, w_scale):
     """K6 wrapper: (..., K) f32/bf16 x int8 (K, N) + f32 (N,) -> (..., N) f32.
 
-    CUDA tensors run the kernel, CPU tensors the plain version. K % 4 == 0.
+    CUDA tensors run the kernel, CPU tensors the plain version, whose
+    output it equals bit for bit. K % 4 == 0; x 16-byte aligned.
     """
     K = x.shape[-1]
     if w_q.dtype != torch.int8 or w_q.dim() != 2 or w_q.shape[0] != K:
@@ -91,17 +138,10 @@ def int8_matmul(x, w_q, w_scale):
     if K % 4:
         raise ValueError(f"int8_matmul needs K % 4 == 0, got {K}")
     xr, wq, ws = _rows(x).contiguous(), w_q.contiguous(), w_scale.contiguous()
-    M = xr.shape[0]
-    out = torch.empty((M, N), dtype=torch.float32, device=x.device)
-    x_codes = torch.empty((M, K), dtype=torch.int8, device=x.device)
-    x_scale = torch.empty((M,), dtype=torch.float32, device=x.device)
-    fn = _build.entry("quant_matmul", "wipa_int8_matmul",
-                      [_build.P] * 6 + [_build.I] * 5 + [_build.P])
-    rc = fn(xr.data_ptr(), wq.data_ptr(), ws.data_ptr(),
-            out.data_ptr(), x_codes.data_ptr(), x_scale.data_ptr(), M, K, N,
-            int(x.dtype == torch.bfloat16), x.device.index,
-            torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(rc, "wipa_int8_matmul")
+    if xr.data_ptr() % 16:
+        raise ValueError("int8_matmul reads x in 8- or 16-byte vectors: x must "
+                         "be 16-byte aligned")
+    out = _int8_kernel(xr, wq, ws, small=xr.shape[0] <= SMALL_M_MAX)
     int8_matmul.launches += 1
     return out.reshape(*x.shape[:-1], N)
 

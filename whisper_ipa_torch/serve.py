@@ -11,7 +11,9 @@ cross-KV greedy decode on the service's device, and resolves the futures.
 keeps the cross cache as nibble-packed int4 (and overrides ``kv_int8``).
 
 Not ported yet (the constructor raises ``NotImplementedError``): speculative
-decoding (draft model, Medusa heads), multi-device meshes and beam search.
+decoding (draft model, Medusa heads), multi-device meshes, tensor-parallel
+serving and beam search. ``draft_k`` is accepted and, as in the reference,
+inert without ``draft_params``.
 The HTTP front end over it is ``cli/serve.py``.
 """
 
@@ -73,9 +75,11 @@ class TranscriptionService:
         quant_bits: Optional[int] = None,
         draft_params=None,
         draft_cfg: Optional[WhisperConfig] = None,
+        draft_k: int = 4,
         medusa_params=None,
         medusa_tree=None,
         mesh=None,
+        tensor_parallel: bool = False,
         tokenizer: Optional[WhisperTokenizer] = None,
     ):
         unported = {
@@ -84,6 +88,7 @@ class TranscriptionService:
             "medusa_params/medusa_tree": medusa_params is not None
             or medusa_tree is not None,
             "mesh": mesh is not None,
+            "tensor_parallel (ROADMAP queue 1 item [12])": tensor_parallel,
             "beam_size": beam_size is not None,
         }
         missing = [name for name, used in unported.items() if used]
@@ -91,6 +96,7 @@ class TranscriptionService:
             raise NotImplementedError(
                 "not ported to the PyTorch service yet: " + ", ".join(missing)
             )
+        self.draft_k = draft_k
         self.device = resolve_device(device)
         if quant_bits is not None:
             params = quantize_params(params, bits=quant_bits)
