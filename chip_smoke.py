@@ -249,6 +249,29 @@ def check_attention(torch, dev):
     return entry
 
 
+def device_profile(torch, fn, iters: int = 50):
+    """(device ms, kernels) of one fn() call: its kernels' time and count
+    under torch.profiler over iters calls, after a warm-up. Unlike cuda_ms
+    it leaves out the host's time between launches, which dominates at
+    microsecond scale."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(e.self_device_time_total for e in events) / iters / 1e3,
+            sum(e.count for e in events) / iters)
+
+
+def device_ms(torch, fn, iters: int = 50) -> float:
+    """Device time of one fn() call in ms (``device_profile``)."""
+    return device_profile(torch, fn, iters)[0]
+
+
 def check_decode_attention(torch, dev):
     from whisper_ipa_torch.ops import decode_attention as da
 
@@ -291,18 +314,61 @@ def check_decode_attention(torch, dev):
         exact = da.decode_attention_plain(q.float(), k, ks, v, vs)
         ms = cuda_ms(lambda: da.decode_cross_attention_int8_tminor(q, k, ks, v, vs))
         plain_ms = cuda_ms(lambda: da.decode_attention_plain(q, k, ks, v, vs))
+        dev_ms, kernels = device_profile(
+            torch, lambda: da.decode_cross_attention_int8_tminor(q, k, ks, v, vs))
+        # q.k over every cached position and p.v back, 2 flops a MAC
+        b = bound(nbytes(q, k, ks, v, vs, got), 4 * B * H * Dh * T_pad, "bf16")
         log(f"[K4 decode attention] B={B} H=12 Dh=64 T_pad=1536 (scale 0 from "
             f"1500) q {str(dtype)[6:]}: max|kernel-plain| {err:.3e} "
             f"({tol}); vs f32 on the same inputs: kernel "
             f"{max_abs(got, exact):.3e}, plain {max_abs(want, exact):.3e}; "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+            f"kernel {ms:.4f} ms (device time {dev_ms:.4f} ms, {kernels:g} "
+            f"kernel a call, profiler), plain {plain_ms:.4f} ms, bound "
+            f"{b['bound_ms']:.4f} ms ({b['bound_by']}): "
+            f"{b['bound_ms'] / dev_ms:.1%} of it reached")
         require(ok, f"K4 q {dtype} within bound")
+        require(kernels == 1, f"K4 q {dtype} one kernel a call")
         if entry is None:
-            # q.k over every cached position and p.v back, 2 flops a MAC
-            flops = 4 * B * H * Dh * T_pad
-            entry = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         **bound(nbytes(q, k, ks, v, vs, got), flops, "bf16"),
-                         library_ms=None)
+            entry = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **b,
+                         library_ms=None, device_ms=dev_ms, kernels_a_call=kernels)
+        else:
+            entry["device_ms_f32"] = dev_ms
+
+    # a serving step reads twelve layers' caches in turn, so none is in the
+    # 50 MB L2 cache when its layer comes: three caches (120 MB) in turn
+    caches = [(k, ks, v, vs)] + [(codes(), scales(), codes(), scales())
+                                 for _ in range(2)]
+    q = q32.to(torch.bfloat16)
+    turn = iter(range(10 ** 9))
+
+    def rotating():
+        return da.decode_cross_attention_int8_tminor(q, *caches[next(turn) % 3])
+
+    cold_ms, _ = device_profile(torch, rotating, iters=51)
+    log(f"[K4 decode attention] bf16 q over three caches in turn (L2 cold): "
+        f"device time {cold_ms:.4f} ms, {entry['bound_ms'] / cold_ms:.1%} of "
+        f"the bound reached")
+    entry["device_ms_cold"] = cold_ms
+
+    # the split of T that k4_split_plan picks (6 x 256) against its
+    # neighbours, through the entry point (device ms, profiler)
+    from whisper_ipa_torch.ops import _build
+
+    fn = _build.entry("decode_attention", "wipa_decode_attention_int8",
+                      [_build.P] * 6 + [_build.I] * 7 + [_build.P])
+    out = torch.empty_like(q)
+    row = []
+    for splits in (4, 6, 8):
+        def call(splits=splits):
+            rc = fn(q.data_ptr(), k.data_ptr(), ks.data_ptr(), v.data_ptr(),
+                    vs.data_ptr(), out.data_ptr(), B * H, Dh, T_pad, splits,
+                    T_pad // splits, 1, dev.index,
+                    torch.cuda.current_stream(dev).cuda_stream)
+            require(rc == 0, f"K4 at {splits} splits launched")
+        row.append(f"{splits} x {T_pad // splits}: "
+                   f"{device_profile(torch, call)[0]:.4f}")
+    log(f"[K4 decode attention] splits of T_pad 1536 (plan: "
+        f"{da.k4_split_plan(T_pad)}), bf16 q, device ms: " + "; ".join(row))
     return entry
 
 
@@ -453,23 +519,6 @@ def check_kv_init(torch, dev):
     return entry
 
 
-def device_ms(torch, fn, iters: int = 50) -> float:
-    """Device time of one fn() call in ms: its kernels' time under
-    torch.profiler over iters calls, after a warm-up. Unlike cuda_ms it
-    leaves out the host's time between launches, which dominates at
-    microsecond scale."""
-    fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA)
-    return total / iters / 1e3
-
-
 def check_int8_matmul(torch, dev):
     from whisper_ipa_torch.ops import quant_matmul as qm
     from whisper_ipa_torch.ops.quant import quantize_linear
@@ -548,32 +597,57 @@ def check_int4_matmul(torch, dev):
     from whisper_ipa_torch.ops.quant import quantize_linear_int4
 
     gen = torch.Generator(device=dev).manual_seed(0)
+    weights = {}
     entry = None
-    for k, n in ((768, 3072), (3072, 768)):
-        q = quantize_linear_int4({"w": 0.05 * torch.randn((k, n), generator=gen,
-                                                          device=dev)})
-        w_q4, w_s4 = q["w_q4"].to(dev), q["w_s4"].to(dev)
-        for m in (16, 64):
-            for dtype in (torch.bfloat16, torch.float32):
-                x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
-                before = qm.int4_matmul.launches
-                got = qm.int4_matmul(x, w_q4, w_s4)
-                torch.cuda.synchronize()
-                require(qm.int4_matmul.launches == before + 1, "K7 counter rose")
-                want = qm.int4_matmul_plain(x, w_q4, w_s4)
-                err = rel_err(got, want)
-                ms = cuda_ms(lambda: qm.int4_matmul(x, w_q4, w_s4))
-                plain_ms = cuda_ms(lambda: qm.int4_matmul_plain(x, w_q4, w_s4))
-                log(f"[K7 int4 matmul] ({m}, {k}) {str(dtype)[6:]} x packed "
-                    f"({k // 2}, {n}): max|kernel-plain|/max|plain| {err:.3e} "
-                    f"(bound 1e-5); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-                require(err <= 1e-5, f"K7 ({m}, {k}, {n}) {dtype} within 1e-5")
-                if entry is None:
-                    entry = dict(max_abs_err=max_abs(got, want), ms=ms,
-                                 plain_ms=plain_ms,
-                                 **bound(nbytes(x, w_q4, w_s4, got),
-                                         2 * m * k * n, "fp32"),
-                                 library_ms=None)
+    decode_shapes = []
+    # the int4 run's decode step (16 rows: fc1, fc2 and the 768 x 768
+    # projections) and prefix step (48 rows), 64 rows (the split-K body's
+    # largest) and 65 (the warps-split body); bound 1e-5 of max|y|
+    for m, k, n in ((16, 768, 3072), (64, 768, 3072), (16, 3072, 768),
+                    (64, 3072, 768), (48, 768, 768), (16, 768, 768),
+                    (65, 3072, 768)):
+        if (k, n) not in weights:
+            q = quantize_linear_int4(
+                {"w": 0.05 * torch.randn((k, n), generator=gen, device=dev)})
+            weights[k, n] = q["w_q4"].to(dev), q["w_s4"].to(dev)
+        w_q4, w_s4 = weights[k, n]
+        decode = m in (16, 48)
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+            before = qm.int4_matmul.launches
+            got = qm.int4_matmul(x, w_q4, w_s4)
+            torch.cuda.synchronize()
+            require(qm.int4_matmul.launches == before + 1, "K7 counter rose")
+            want = qm.int4_matmul_plain(x, w_q4, w_s4)
+            err = rel_err(got, want)
+            ms = cuda_ms(lambda: qm.int4_matmul(x, w_q4, w_s4))
+            plain_ms = cuda_ms(lambda: qm.int4_matmul_plain(x, w_q4, w_s4))
+            b = bound(nbytes(x, w_q4, w_s4, got), 2 * m * k * n, "fp32")
+            body = ("split-K" if qm.int4_uses_split_k(
+                m, k, n, w_q4.shape[0] // w_s4.shape[0], x.element_size())
+                else "warps-split")
+            timing = ""
+            if decode:
+                dev_ms, kernels = device_profile(
+                    torch, lambda: qm.int4_matmul(x, w_q4, w_s4))
+                require(kernels == 1, f"K7 ({m}, {k}, {n}) one kernel a call")
+                timing = (f" (device time {dev_ms:.4f} ms, {kernels:g} kernel a "
+                          f"call, profiler), bound {b['bound_ms']:.4f} ms "
+                          f"({b['bound_by']}): {b['bound_ms'] / dev_ms:.1%} of "
+                          f"it reached")
+                decode_shapes.append(dict(shape=[m, k, n], dtype=str(dtype)[6:],
+                                          ms=ms, device_ms=dev_ms,
+                                          plain_ms=plain_ms, **b))
+            log(f"[K7 int4 matmul] ({m}, {k}) {str(dtype)[6:]} x packed "
+                f"({k // 2}, {n}), {body} body: max|kernel-plain|/max|plain| "
+                f"{err:.3e} (bound 1e-5); kernel {ms:.4f} ms{timing}, plain "
+                f"{plain_ms:.4f} ms")
+            require(err <= 1e-5, f"K7 ({m}, {k}, {n}) {dtype} within 1e-5")
+            if entry is None:
+                entry = dict(max_abs_err=max_abs(got, want), ms=ms,
+                             plain_ms=plain_ms, **b, library_ms=None,
+                             device_ms=dev_ms)
+    entry["decode_shapes"] = decode_shapes
     return entry
 
 

@@ -36,6 +36,7 @@ from whisper_ipa_torch.ops import (
     log_mel_power_plain,
 )
 from whisper_ipa_torch.ops.quant import quantize_linear, quantize_linear_int4
+from whisper_ipa_torch.ops.quant_matmul import int4_uses_split_k
 from whisper_ipa_torch.ops.attention import (
     _forward_kernel,
     attention_merged_plain,
@@ -134,6 +135,79 @@ def test_decode_attention_kernel(dev, dtype, dh, t_pad, t):
     else:
         scale = want.float().abs().max().item()
         assert (got.float() - want.float()).abs().max().item() <= 0.02 * scale
+
+
+def _device_kernels(fn, iters: int = 10) -> dict:
+    """{device kernel name: launches} over iters fn() calls, from
+    torch.profiler."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def _assert_one_kernel(fn, name: str, iters: int = 10):
+    """Every device kernel of the calls is ``name``'s, at most one a call.
+    (The profiler may miss a launch of a microsecond-scale kernel inside a
+    long test session, so the count is held to at most, not exactly, one
+    a call; chip_smoke.py reads exactly one over 50 calls.)"""
+    kernels = _device_kernels(fn, iters)
+    assert kernels and all(name in k for k in kernels), kernels
+    assert 0 < sum(kernels.values()) <= iters, kernels
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [32, 64])
+@pytest.mark.parametrize("t_pad,t", [(128, 100), (1536, 1500)])
+@pytest.mark.parametrize("B,H", [(1, 1), (1, 12), (16, 12)])
+def test_decode_attention_cluster_shapes(dev, B, H, t_pad, t, dh, dtype):
+    """K4's one-launch cluster design at B * H 1, 12 and 192, T_pad 128 (2
+    slices, the second partly padding) and 1536 (8 slices of 192), with
+    padded tails: one wrapper launch a call, f32 rtol = atol = 1e-5, bf16 q
+    2% of max|out|."""
+    gen = torch.Generator(device=dev).manual_seed(B * H + t_pad + dh)
+    k, v = (torch.randint(-127, 128, (B, H, dh, t_pad), generator=gen,
+                          device=dev).to(torch.int8) for _ in range(2))
+    ks, vs = (0.01 + 0.02 * torch.rand((B, H, t_pad), generator=gen, device=dev)
+              for _ in range(2))
+    ks[..., t:] = 0.0
+    vs[..., t:] = 0.0
+    q = (torch.randn((B, H, 1, dh), generator=gen, device=dev) * dh ** -0.5).to(dtype)
+    before = decode_cross_attention_int8_tminor.launches
+    got = decode_cross_attention_int8_tminor(q, k, ks, v, vs)
+    assert decode_cross_attention_int8_tminor.launches == before + 1
+    want = decode_attention_plain(q, k, ks, v, vs)
+    assert got.shape == want.shape and got.dtype == dtype
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        scale = want.float().abs().max().item()
+        assert (got.float() - want.float()).abs().max().item() <= 0.02 * scale
+
+
+@pytest.mark.parametrize("t_pad", [128, 1536])
+def test_decode_attention_one_kernel_a_call(dev, t_pad):
+    """K4 is one device kernel a call (no merge pass), and allocates no
+    scratch beyond its output."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    B, H, dh = 16, 12, 64
+    k, v = (torch.randint(-127, 128, (B, H, dh, t_pad), generator=gen,
+                          device=dev).to(torch.int8) for _ in range(2))
+    ks, vs = (0.01 + 0.02 * torch.rand((B, H, t_pad), generator=gen, device=dev)
+              for _ in range(2))
+    q = torch.randn((B, H, 1, dh), generator=gen, device=dev).to(torch.bfloat16)
+    call = lambda: decode_cross_attention_int8_tminor(q, k, ks, v, vs)  # noqa: E731
+    _assert_one_kernel(call, "decode_int8_cluster_kernel")
+    call()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    out = call()
+    assert torch.cuda.memory_allocated(dev) - before == out.numel() * out.element_size()
 
 
 def _grad_err_ok(got, want, tol) -> bool:
@@ -310,6 +384,55 @@ def test_int4_matmul_kernel(dev, m, k, n, dtype):
     got = int4_matmul(x, w_q4, w_s4)
     assert int4_matmul.launches == before + 1
     assert _rel(got, int4_matmul_plain(x, w_q4, w_s4)) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,n", [(128, 200), (768, 768), (768, 3072), (3072, 768),
+                                 (3072, 200)])
+@pytest.mark.parametrize("m", [1, 16, 48, 64, 65])
+def test_int4_matmul_bodies(dev, m, k, n, dtype):
+    """K7's split-K body at M 1-64 and the warps-split body at M 65, with a
+    ragged N (200: byte copies of the weights, a partial 32-column tile)
+    and K 128-3072: one wrapper launch a call, relative 1e-5 of max|y|."""
+    gen = torch.Generator(device=dev).manual_seed(m + k + n)
+    q = quantize_linear_int4(
+        {"w": 0.05 * torch.randn((k, n), generator=gen, device=dev)})
+    w_q4, w_s4 = q["w_q4"].to(dev), q["w_s4"].to(dev)
+    rows_per_group = w_q4.shape[0] // w_s4.shape[0]
+    x_bytes = 2 if dtype == torch.bfloat16 else 4
+    assert int4_uses_split_k(m, k, n, rows_per_group, x_bytes) == (m <= 64)
+    x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+    before = int4_matmul.launches
+    got = int4_matmul(x, w_q4, w_s4)
+    assert int4_matmul.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    assert _rel(got, int4_matmul_plain(x, w_q4, w_s4)) <= 1e-5
+
+
+@pytest.mark.parametrize("m,k,n", [(16, 768, 3072), (16, 3072, 768), (48, 768, 768)])
+def test_int4_matmul_one_kernel_a_call(dev, m, k, n):
+    """K7 at the decode and prefix shapes is one device kernel a call."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    q = quantize_linear_int4(
+        {"w": 0.05 * torch.randn((k, n), generator=gen, device=dev)})
+    w_q4, w_s4 = q["w_q4"].to(dev), q["w_s4"].to(dev)
+    x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    _assert_one_kernel(lambda: int4_matmul(x, w_q4, w_s4), "int4_matmul_split_k")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int4_matmul_unaligned_x(dev, dtype):
+    """x not 16-byte aligned (a view one element in): the split-K body
+    copies it element by element, with the same result."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    m, k, n = 16, 768, 768
+    q = quantize_linear_int4(
+        {"w": 0.05 * torch.randn((k, n), generator=gen, device=dev)})
+    w_q4, w_s4 = q["w_q4"].to(dev), q["w_s4"].to(dev)
+    flat = torch.randn((m * k + 1,), generator=gen, device=dev).to(dtype)
+    x = flat[1:].view(m, k)
+    assert x.data_ptr() % 16
+    assert _rel(int4_matmul(x, w_q4, w_s4), int4_matmul_plain(x, w_q4, w_s4)) <= 1e-5
 
 
 def test_quantized_linear_routes(dev):

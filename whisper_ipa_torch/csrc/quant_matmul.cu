@@ -57,12 +57,32 @@
 //   y[m, n] = sum_r x[m, 2r] * (lo * ws) + x[m, 2r+1] * (hi * ws)   (f32)
 // What bounds K7: at the decode shapes it serves (M = 16-64) the packed
 // weight bytes (K/2 * N, 0.3-1.2 MB, a few tenths of a microsecond at
-// 3.35 TB/s) and, in practice, the launch. Design: a block owns 32 output
-// columns (one per lane) and 16 rows; its 8 warps split the packed rows,
-// each lane dequantizes its column's byte once in registers and applies it
-// to all 16 rows, whose x values sit in shared memory as f32; the warps'
-// partial sums are added in shared memory at the end. The dequantized
-// weights never reach device memory.
+// 3.35 TB/s) and the f32 FMAs (2 M K N, about a microsecond at 67 TFLOP/s),
+// and, in practice, the launch and the latency of one pass over the
+// weights: the work is too small to hide a serial chain of loads.
+//
+// Small M (<= 64, decode and the prefix step): one launch that fills the
+// card. A block of 128 threads owns 32 output columns, 16 rows and one K
+// slice of whole 16-row multiples of packed rows; a thread-block cluster of
+// up to 8 blocks splits K, so (16, 3072) x (1536, 768) runs 192 blocks. A
+// block copies its slice of packed weights, the group scales that serve it
+// (each group's row once) and its x rows into shared memory with 16-byte
+// cp.async, then each thread takes four columns (one 32-bit word of packed
+// bytes: eight codes) of every 16th packed row, turns the codes into floats
+// without int-to-float conversions (code + 8 as the low mantissa byte of
+// 2^23, less 2^23 + 8: exact), dequantizes them once (code * scale in f32,
+// the plain version's product) and applies them to all 16 rows with f32
+// FMAs. The 16 threads of a column quad add their sums through shuffles
+// and shared memory; each block writes its partial sums into the shared
+// memory of the cluster's rank 0, one cluster barrier publishes them, and
+// rank 0 adds them in rank order and writes out. No scratch tensor and no
+// second launch.
+//
+// Larger M: a block owns 32 output columns (one per lane) and 16 rows; its
+// 8 warps split the packed rows, each lane dequantizes its column's byte
+// once in registers and applies it to all 16 rows, whose x values sit in
+// shared memory as f32; the warps' partial sums are added in shared memory
+// at the end. The dequantized weights never reach device memory.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -508,6 +528,238 @@ int4_matmul_kernel(const T* __restrict__ x, const int8_t* __restrict__ wp,
   }
 }
 
+// -- K7, small M: one launch, split K over a thread-block cluster ------------
+
+constexpr int kQN = 32;     // output columns a block: eight quads
+constexpr int kQRows = 16;  // output rows a block
+constexpr int kQThreads = 128;  // threads a block
+constexpr int kInt4SmemMax = 200 * 1024;  // a block's staged slice, in bytes
+
+// two consecutive x features from shared memory, as f32
+__device__ __forceinline__ float2 load_x2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load_x2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+template <typename T>
+__device__ __forceinline__ T zero_of();
+template <>
+__device__ __forceinline__ float zero_of<float>() { return 0.f; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 zero_of<__nv_bfloat16>() {
+  return __float2bfloat16(0.f);
+}
+
+// The eight 4-bit codes of a word of four packed bytes (byte b: column b,
+// its low nibble row 2r, its high row 2r + 1), sign-extended, as exact
+// floats without an int-to-float conversion (a quarter of the FMA rate):
+// code + 8 becomes the low mantissa byte of 2^23, and 2^23 + 8 is taken off.
+__device__ __forceinline__ void nibbles_f32(uint32_t w, float (&lo)[4], float (&hi)[4]) {
+  constexpr float kBias = 8388616.f;  // 2^23 + 8
+  const uint32_t l = (w & 0x0F0F0F0Fu) ^ 0x08080808u;
+  const uint32_t h = ((w >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u;
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+    lo[b] = __uint_as_float(__byte_perm(l, 0x4B000000u, 0x7540 + b)) - kBias;
+    hi[b] = __uint_as_float(__byte_perm(h, 0x4B000000u, 0x7540 + b)) - kBias;
+  }
+}
+
+// Dynamic shared memory of a block over `slice` packed rows:
+// the scales' group rows (at most n_groups), x (16 rows of 2 * slice
+// features), the packed weights (slice rows of 32 bytes); at least the
+// warps' partial sums (2 KB a warp), which reuse it.
+__host__ __device__ inline size_t int4_small_smem(int slice, int n_groups,
+                                                  int x_bytes) {
+  const size_t staged = static_cast<size_t>(n_groups) * kQN * sizeof(float) +
+                        static_cast<size_t>(kQRows) * 2 * slice * x_bytes +
+                        static_cast<size_t>(slice) * kQN;
+  const size_t red = static_cast<size_t>(kQThreads / 32) * kQRows * kQN * sizeof(float);
+  return staged > red ? staged : red;
+}
+
+// grid (splits, ceil(n / 32), ceil(m / 16)), cluster (splits, 1, 1): block
+// x owns packed rows [x * slice, min(k / 2, (x + 1) * slice)). xv, wv, sv:
+// x, the packed weights and the scales may be copied 16 bytes at a time.
+// 8 column quads x 16 groups of packed rows.
+template <typename T>
+__global__ void __launch_bounds__(kQThreads)
+int4_matmul_split_k(const T* __restrict__ x, const int8_t* __restrict__ wp,
+                    const float* __restrict__ ws, float* __restrict__ out,
+                    int m, int k, int n, int rows_per_group, int slice,
+                    int n_groups_max, int xv, int wv, int sv) {
+  namespace cg = cooperative_groups;
+  extern __shared__ __align__(16) uint8_t smem[];
+  // rank 0's: every block's partial sums, published by one cluster barrier
+  __shared__ __align__(16) float gather[kMaxSplit][kQRows * kQN];
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int splits = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x;
+  const int n_half = k / 2;
+  const int r_lo = min(n_half, rank * slice);
+  const int rows = min(n_half, r_lo + slice) - r_lo;
+  const int n0 = blockIdx.y * kQN;
+  const int m0 = blockIdx.z * kQRows;
+  const int g_lo = r_lo / rows_per_group;
+  const int n_groups = rows ? (r_lo + rows - 1) / rows_per_group - g_lo + 1 : 0;
+  const int xw = 2 * slice;  // x features a staged row
+  constexpr int NT = kQThreads;
+  constexpr int kGroups = NT / (kQN / 4);  // packed rows r, r + kGroups, ...
+
+  float* sc_s = reinterpret_cast<float*>(smem);
+  T* x_s = reinterpret_cast<T*>(sc_s + n_groups_max * kQN);
+  uint8_t* w_s = reinterpret_cast<uint8_t*>(x_s + kQRows * xw);
+
+  // 1. the slice into shared memory: scales, x rows, packed weights
+  if (sv) {
+    for (int i = tid; i < n_groups * (kQN / 4); i += NT) {
+      const int g = i >> 3, c = n0 + 4 * (i & 7);
+      const bool in = c < n;
+      wipa::cp_async16(wipa::smem_addr(sc_s + 4 * i),
+                       ws + (in ? static_cast<size_t>(g_lo + g) * n + c : 0), in ? 16 : 0);
+    }
+  } else {
+    for (int i = tid; i < n_groups * kQN; i += NT) {
+      const int g = i / kQN, c = n0 + i % kQN;
+      sc_s[i] = c < n ? ws[static_cast<size_t>(g_lo + g) * n + c] : 0.f;
+    }
+  }
+  constexpr int kPerChunk = 16 / sizeof(T);  // x features a 16-byte copy
+  if (xv) {
+    const int per_row = xw / kPerChunk;
+    for (int i = tid; i < kQRows * per_row; i += NT) {
+      const int r = i / per_row, f = (i - r * per_row) * kPerChunk;
+      const int valid = m0 + r < m ? max(0, min(kPerChunk, 2 * rows - f)) : 0;
+      const T* src = valid ? x + static_cast<size_t>(m0 + r) * k + 2 * r_lo + f : x;
+      wipa::cp_async16(wipa::smem_addr(x_s + r * xw + f), src,
+                       valid * static_cast<int>(sizeof(T)));
+    }
+  } else {
+    for (int i = tid; i < kQRows * 2 * rows; i += NT) {
+      const int r = i / (2 * rows), f = i - r * 2 * rows;
+      x_s[r * xw + f] = m0 + r < m ? x[static_cast<size_t>(m0 + r) * k + 2 * r_lo + f]
+                                   : zero_of<T>();
+    }
+  }
+  if (wv) {
+    for (int i = tid; i < rows * 2; i += NT) {
+      const int r = i >> 1, c = n0 + 16 * (i & 1);
+      const bool in = c < n;
+      wipa::cp_async16(wipa::smem_addr(w_s + 16 * i),
+                       wp + (in ? static_cast<size_t>(r_lo + r) * n + c : 0), in ? 16 : 0);
+    }
+  } else {
+    for (int i = tid; i < rows * kQN; i += NT) {
+      const int r = i / kQN, c = n0 + i % kQN;
+      w_s[i] = c < n ? static_cast<uint8_t>(wp[static_cast<size_t>(r_lo + r) * n + c]) : 0;
+    }
+  }
+  wipa::cp_async_commit();
+  wipa::cp_async_wait<0>();
+  __syncthreads();
+
+  // 2. thread (quad q, group j): columns 4q..4q+3 of packed rows j, j + kGroups, ...
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int qd = lane & 7;
+  const int j = (lane >> 3) + 4 * warp;
+  float acc[kQRows][4];
+#pragma unroll
+  for (int i = 0; i < kQRows; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
+  for (int r = j; r < rows; r += kGroups) {
+    const uint32_t word = *reinterpret_cast<const uint32_t*>(w_s + r * kQN + 4 * qd);
+    const int g = (r_lo + r) / rows_per_group - g_lo;
+    const float4 s = *reinterpret_cast<const float4*>(sc_s + g * kQN + 4 * qd);
+    float lo[4], hi[4];
+    nibbles_f32(word, lo, hi);
+    const float sc[4] = {s.x, s.y, s.z, s.w};
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {  // code * scale in f32, as the plain version
+      lo[c] *= sc[c];
+      hi[c] *= sc[c];
+    }
+#pragma unroll
+    for (int i = 0; i < kQRows; ++i) {
+      const float2 xe = load_x2(x_s + i * xw + 2 * r);  // features 2r, 2r + 1
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        acc[i][c] = fmaf(xe.x, lo[c], acc[i][c]);
+        acc[i][c] = fmaf(xe.y, hi[c], acc[i][c]);
+      }
+    }
+  }
+
+  // 3. the block's sum: over a warp's four groups by shuffles, then over
+  // the four warps in shared memory (the staging area, no longer read)
+#pragma unroll
+  for (int i = 0; i < kQRows; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      acc[i][c] += __shfl_xor_sync(0xffffffffu, acc[i][c], 8);
+      acc[i][c] += __shfl_xor_sync(0xffffffffu, acc[i][c], 16);
+    }
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(smem);  // [warp][row][column]
+  if (lane < 8) {
+#pragma unroll
+    for (int i = 0; i < kQRows; ++i) {
+      reinterpret_cast<float4*>(red + (warp * kQRows + i) * kQN)[qd] =
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    }
+  }
+  __syncthreads();
+  // the block's sum into rank 0's shared memory, four floats a store
+  float4* slot = reinterpret_cast<float4*>(
+      cluster.map_shared_rank(&gather[0][0], 0) + rank * kQRows * kQN);
+  for (int e = tid; e < kQRows * kQN / 4; e += NT) {
+    float4 v = reinterpret_cast<const float4*>(red)[e];
+#pragma unroll
+    for (int w = 1; w < NT / 32; ++w) {
+      const float4 u = reinterpret_cast<const float4*>(red + w * kQRows * kQN)[e];
+      v.x += u.x;
+      v.y += u.y;
+      v.z += u.z;
+      v.w += u.w;
+    }
+    slot[e] = v;
+  }
+
+  // 4. the cluster's sum in rank 0, in rank order; the other blocks leave,
+  // as nothing reads their shared memory
+  cluster.sync();
+  if (rank == 0) {
+    for (int e = tid; e < kQRows * kQN; e += NT) {
+      const int i = e / kQN, col = n0 + e % kQN;
+      float v = gather[0][e];
+      for (int q = 1; q < splits; ++q) v += gather[q][e];
+      if (m0 + i < m && col < n) out[static_cast<size_t>(m0 + i) * n + col] = v;
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_int4_small(cudaLaunchConfig_t& cfg, const void* x,
+                              const int8_t* wp, const float* ws, float* out, int m,
+                              int k, int n, int rows_per_group, int slice,
+                              int n_groups_max, int xv, int wv, int sv) {
+  auto kernel = int4_matmul_split_k<T>;
+  static bool attr_set = false;  // once for each instance
+  if (!attr_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kInt4SmemMax);
+    if (err != cudaSuccess) return err;
+    attr_set = true;
+  }
+  return cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(x), wp, ws, out, m, k, n,
+                            rows_per_group, slice, n_groups_max, xv, wv, sv);
+}
+
 }  // namespace
 
 // K6, large M. x: (m, k) f32 or bf16 (is_bf16), 16-byte aligned; w_codes:
@@ -593,8 +845,8 @@ extern "C" int wipa_int8_matmul_small(const void* x, const void* w_codes,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K7. x: (m, k) f32 or bf16 (is_bf16); w_packed: (k/2, n) int8; w_scale:
-// (k/2 / rows_per_group, n) f32; out: (m, n) f32. k even, (k/2) %
+// K7, larger M. x: (m, k) f32 or bf16 (is_bf16); w_packed: (k/2, n) int8;
+// w_scale: (k/2 / rows_per_group, n) f32; out: (m, n) f32. k even, (k/2) %
 // rows_per_group == 0. Returns cudaGetLastError().
 extern "C" int wipa_int4_matmul(const void* x, const void* w_packed,
                                 const void* w_scale, void* out, int m, int k,
@@ -620,5 +872,57 @@ extern "C" int wipa_int4_matmul(const void* x, const void* w_packed,
         static_cast<const float*>(w_scale), static_cast<float*>(out), m, k, n,
         rows_per_group);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K7, small M: as above with m <= 64, in one launch of `splits` (1..8) K
+// slices of `slice` packed rows each (a multiple of 16, splits * slice >=
+// k / 2 > (splits - 1) * slice). Returns cudaGetLastError().
+extern "C" int wipa_int4_matmul_small(const void* x, const void* w_packed,
+                                      const void* w_scale, void* out, int m,
+                                      int k, int n, int rows_per_group,
+                                      int splits, int slice, int is_bf16,
+                                      int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_half = k / 2;
+  if (m <= 0 || m > 4 * kQRows || n <= 0 || k <= 0 || k % 2 ||
+      rows_per_group <= 0 || n_half % rows_per_group || splits < 1 ||
+      splits > kMaxSplit || slice <= 0 || slice % 16 ||
+      static_cast<long long>(splits) * slice < n_half ||
+      static_cast<long long>(splits - 1) * slice >= n_half) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int x_bytes = is_bf16 ? 2 : 4;
+  const int groups = n_half / rows_per_group;
+  const int n_groups_max = (slice - 1) / rows_per_group + 2 < groups
+                               ? (slice - 1) / rows_per_group + 2 : groups;
+  const size_t smem = int4_small_smem(slice, n_groups_max, x_bytes);
+  if (smem > kInt4SmemMax) return static_cast<int>(cudaErrorInvalidValue);
+  auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  const int xv = aligned(x) && (static_cast<long long>(k) * x_bytes) % 16 == 0;
+  const int wv = aligned(w_packed) && n % 16 == 0;
+  const int sv = aligned(w_scale) && n % 4 == 0;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(splits, (n + kQN - 1) / kQN, (m + kQRows - 1) / kQRows);
+  cfg.blockDim = dim3(kQThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const int8_t* wc = static_cast<const int8_t*>(w_packed);
+  const float* wsc = static_cast<const float*>(w_scale);
+  float* o = static_cast<float*>(out);
+  err = is_bf16 ? launch_int4_small<__nv_bfloat16>(cfg, x, wc, wsc, o, m, k, n,
+                                                   rows_per_group, slice, n_groups_max,
+                                                   xv, wv, sv)
+                : launch_int4_small<float>(cfg, x, wc, wsc, o, m, k, n, rows_per_group,
+                                           slice, n_groups_max, xv, wv, sv);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -14,12 +14,14 @@ step with a quantized cache on CUDA
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import _build
 from .quant import unpack_nibbles
 
-_MAX_CHUNK = 8 * 1024  # positions per block: 32 KB of f32 logits
+_MAX_CHUNK = 8 * 1024  # K8: positions per block, 32 KB of f32 logits
 
 
 def decode_attention_plain(q, k_i8, k_scale, v_i8, v_scale):
@@ -61,8 +63,31 @@ def decode_attention_int4_plain(q, k_p4, k_scale, v_p4, v_scale):
             + torch.matmul(w_odd, v_hi.transpose(-1, -2)))
 
 
+K4_MAX_SPLIT = 8     # blocks a thread-block cluster (the portable maximum)
+K4_MAX_SLICE = 1024  # positions a block: its codes fill shared memory
+
+
+@functools.lru_cache(maxsize=None)
+def k4_split_plan(t_pad: int):
+    """K4's split of T: (splits, slice), a thread-block cluster of
+    ``splits`` blocks (at most 8) for each (b, h), each over ``slice``
+    positions, so ``splits * slice == t_pad`` and every position is one
+    block's. A slice is a multiple of 16 positions (16-byte copies of the
+    int8 codes, four of the f32 scales) and aims at 256 positions (6
+    slices at T_pad 1536; ``chip_smoke.py`` times 4, 6 and 8); a short
+    T_pad is one block's."""
+    if t_pad <= 0 or t_pad % 128:
+        raise ValueError(f"T_pad={t_pad} must be a positive multiple of 128")
+    target = max(1, min(K4_MAX_SPLIT, t_pad // 256))
+    splits = max(s for s in range(1, target + 1) if (t_pad // 16) % s == 0)
+    slice_t = t_pad // splits
+    if slice_t > K4_MAX_SLICE:
+        raise ValueError(f"T_pad={t_pad} above K4's {K4_MAX_SPLIT * K4_MAX_SLICE}")
+    return splits, slice_t
+
+
 def _split(bh: int, t_pad: int, device: torch.device):
-    """Blocks along T: enough (split, b*h) blocks for two per SM."""
+    """K8's blocks along T: enough (split, b*h) blocks for two per SM."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     n_split = max(1, min(t_pad // 128, -(-2 * sms // bh)))
     chunk = -(-t_pad // n_split)
@@ -94,26 +119,50 @@ def _check(q, k, k_scale, v, v_scale, t_codes: int, name: str):
         raise ValueError(f"T={T} must be padded to a multiple of 128")
 
 
-def _launch(symbol: str, q, k, k_scale, v, v_scale):
-    """Run a decode kernel of ``csrc/decode_attention.cu`` on CUDA tensors."""
-    B, H, _, Dh = q.shape
-    T = k_scale.shape[-1]
+def _check_cuda(q, k, k_scale, v, v_scale):
     tensors = (q, k, k_scale, v, v_scale)
     if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
         raise ValueError("all operands must be on one CUDA device")
-    if Dh not in (32, 64):
-        raise ValueError(f"head dim {Dh} not supported (32 or 64)")
+    if q.shape[-1] not in (32, 64):
+        raise ValueError(f"head dim {q.shape[-1]} not supported (32 or 64)")
     for t in tensors:
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("operands must be contiguous and 16-byte aligned")
 
+
+def _launch_int8(q, k, k_scale, v, v_scale):
+    """Run K4 on CUDA tensors: one launch, no scratch."""
+    _check_cuda(q, k, k_scale, v, v_scale)
+    B, H, _, Dh = q.shape
+    T = k_scale.shape[-1]
+    splits, slice_t = k4_split_plan(T)
+    out = torch.empty_like(q)
+    fn = _build.entry(
+        "decode_attention", "wipa_decode_attention_int8",
+        [_build.P] * 6 + [_build.I] * 7 + [_build.P],
+    )
+    rc = fn(
+        q.data_ptr(), k.data_ptr(), k_scale.data_ptr(), v.data_ptr(),
+        v_scale.data_ptr(), out.data_ptr(), B * H, Dh, T, splits, slice_t,
+        int(q.dtype == torch.bfloat16), q.device.index,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(rc, "wipa_decode_attention_int8")
+    return out
+
+
+def _launch_int4(q, k, k_scale, v, v_scale):
+    """Run K8 on CUDA tensors: the partial pass, then the merge."""
+    _check_cuda(q, k, k_scale, v, v_scale)
+    B, H, _, Dh = q.shape
+    T = k_scale.shape[-1]
     n_split, chunk = _split(B * H, T, q.device)
     out = torch.empty_like(q)
     part = torch.empty(
         (B * H, n_split, Dh + 2), dtype=torch.float32, device=q.device
     )
     fn = _build.entry(
-        "decode_attention", symbol,
+        "decode_attention", "wipa_decode_attention_int4",
         [_build.P] * 7 + [_build.I] * 6 + [_build.I, _build.P],
     )
     rc = fn(
@@ -122,7 +171,7 @@ def _launch(symbol: str, q, k, k_scale, v, v_scale):
         B * H, Dh, T, n_split, chunk, int(q.dtype == torch.bfloat16),
         q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _build.check(rc, symbol)
+    _build.check(rc, "wipa_decode_attention_int4")
     return out
 
 
@@ -137,7 +186,7 @@ def decode_cross_attention_int8_tminor(q, k_i8, k_scale, v_i8, v_scale):
            "decode_cross_attention_int8_tminor")
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_i8, k_scale, v_i8, v_scale)
-    out = _launch("wipa_decode_attention_int8", q, k_i8, k_scale, v_i8, v_scale)
+    out = _launch_int8(q, k_i8, k_scale, v_i8, v_scale)
     decode_cross_attention_int8_tminor.launches += 1
     return out
 
@@ -157,7 +206,7 @@ def decode_cross_attention_int4_tminor(q, k_p4, k_scale, v_p4, v_scale):
            "decode_cross_attention_int4_tminor")
     if q.device.type == "cpu":
         return decode_attention_int4_plain(q, k_p4, k_scale, v_p4, v_scale)
-    out = _launch("wipa_decode_attention_int4", q, k_p4, k_scale, v_p4, v_scale)
+    out = _launch_int4(q, k_p4, k_scale, v_p4, v_scale)
     decode_cross_attention_int4_tminor.launches += 1
     return out
 

@@ -15,6 +15,8 @@ dequantized (K/2, N) half-weights per call.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import _build
@@ -149,11 +151,74 @@ def int8_matmul(x, w_q, w_scale):
 int8_matmul.launches = 0
 
 
+# Rows up to which K7 runs its one-launch split-K body (decode and the
+# prefix step: 16 and 48 rows); above it the warps-split body, which
+# ``layers._int4_matmul_eligible`` still routes up to 2M elements of x.
+INT4_SMALL_M_MAX = 64
+INT4_TILE_N = 32      # output columns a block of the split-K body
+INT4_TILE_M = 16      # output rows a block
+INT4_MAX_SPLIT = 8    # K slices: blocks of one thread-block cluster
+INT4_MAX_SLICE = 512  # packed rows a block: 64 KB of f32 x at most
+INT4_SMEM_MAX = 200 * 1024  # a block's staged slice, in bytes
+INT4_THREADS = 128    # threads a block
+
+
+def int4_split_plan(M: int, K: int, N: int, sms: int = 132):
+    """K7's small-M split of the K/2 packed rows: (splits, slice), at most
+    8 blocks of one cluster, each over ``slice`` packed rows, a multiple of
+    16 (32 input features: whole 16-byte copies of x in f32 or bf16), the
+    last slice ragged. Enough splits for about two blocks an SM of the
+    (N/32) x (M/16) output tiles, and for slices of at most 512 rows."""
+    n_half = K // 2
+    tiles = -(-N // INT4_TILE_N) * -(-M // INT4_TILE_M)
+    want = max(-(-2 * sms // tiles), -(-n_half // INT4_MAX_SLICE))
+    splits = max(1, min(INT4_MAX_SPLIT, want, -(-n_half // 16)))
+    slice_r = -(-(-(-n_half // splits)) // 16) * 16
+    return -(-n_half // slice_r), slice_r
+
+
+def int4_small_smem(slice_r: int, rows_per_group: int, n_half: int,
+                    x_bytes: int) -> int:
+    """Shared memory of a split-K block (``int4_small_smem`` in the
+    source): its scales' group rows, 16 rows of x, the packed weights; at
+    least the warps' partial sums, 2 KB a warp."""
+    groups = min(n_half // rows_per_group, (slice_r - 1) // rows_per_group + 2)
+    staged = (groups * INT4_TILE_N * 4 + INT4_TILE_M * 2 * slice_r * x_bytes
+              + slice_r * INT4_TILE_N)
+    return max(staged, INT4_THREADS // 32 * INT4_TILE_M * INT4_TILE_N * 4)
+
+
+def int4_uses_split_k(M: int, K: int, N: int, rows_per_group: int,
+                      x_bytes: int, sms: int = 132) -> bool:
+    """Whether K7 takes its split-K body: M <= 64 and the slice's staging
+    fits a block's shared memory."""
+    if M > INT4_SMALL_M_MAX:
+        return False
+    _, slice_r = int4_split_plan(M, K, N, sms)
+    return int4_small_smem(slice_r, rows_per_group, K // 2, x_bytes) <= INT4_SMEM_MAX
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=1024)
+def _int4_launch(M: int, K: int, N: int, rows_per_group: int, x_bytes: int,
+                 sms: int):
+    """(splits, slice) of the split-K body, or None for the warps-split
+    body; cached, as the decode loop asks for the same few shapes."""
+    if int4_uses_split_k(M, K, N, rows_per_group, x_bytes, sms):
+        return int4_split_plan(M, K, N, sms)
+    return None
+
+
 def int4_matmul(x, w_q4, w_s4):
     """K7 wrapper: (..., K) f32/bf16 x packed int4 (K/2, N) + group scales
     (K/G, N) f32 -> (..., N) f32.
 
-    CUDA tensors run the kernel, CPU tensors the plain version.
+    CUDA tensors run the kernel (one launch: the split-K body for up to
+    64 rows, else the warps-split body), CPU tensors the plain version.
     """
     K = x.shape[-1]
     if w_q4.dtype != torch.int8 or w_q4.dim() != 2 or 2 * w_q4.shape[0] != K:
@@ -169,12 +234,24 @@ def int4_matmul(x, w_q4, w_s4):
     _check_cuda("int4_matmul", x, w_q4, w_s4)
     xr, wq, ws = _rows(x).contiguous(), w_q4.contiguous(), w_s4.contiguous()
     M = xr.shape[0]
+    rows_per_group = n_half // groups
+    is_bf16 = int(x.dtype == torch.bfloat16)
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
-    fn = _build.entry("quant_matmul", "wipa_int4_matmul",
-                      [_build.P] * 4 + [_build.I] * 6 + [_build.P])
-    rc = fn(xr.data_ptr(), wq.data_ptr(), ws.data_ptr(), out.data_ptr(), M, K, N,
-            n_half // groups, int(x.dtype == torch.bfloat16), x.device.index,
-            torch.cuda.current_stream(x.device).cuda_stream)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    plan = _int4_launch(M, K, N, rows_per_group, 2 if is_bf16 else 4,
+                        _sm_count(x.device.index))
+    if plan is not None:
+        splits, slice_r = plan
+        fn = _build.entry("quant_matmul", "wipa_int4_matmul_small",
+                          [_build.P] * 4 + [_build.I] * 8 + [_build.P])
+        rc = fn(xr.data_ptr(), wq.data_ptr(), ws.data_ptr(), out.data_ptr(), M,
+                K, N, rows_per_group, splits, slice_r, is_bf16, x.device.index,
+                stream)
+    else:
+        fn = _build.entry("quant_matmul", "wipa_int4_matmul",
+                          [_build.P] * 4 + [_build.I] * 6 + [_build.P])
+        rc = fn(xr.data_ptr(), wq.data_ptr(), ws.data_ptr(), out.data_ptr(), M,
+                K, N, rows_per_group, is_bf16, x.device.index, stream)
     _build.check(rc, "wipa_int4_matmul")
     int4_matmul.launches += 1
     return out.reshape(*x.shape[:-1], N)
