@@ -157,6 +157,30 @@ def phase_build():
         + ", ".join(p.name for p in paths.values()))
 
 
+def mel_function_flops(n_mels_nonzero: int) -> float:
+    """fp32 operations a frame of the log-mel function needs (an FMA is
+    two): the window (400 products), a 400-point real-input FFT at the
+    usual count of 2.5 N log2 N (half a complex FFT's 5 N log2 N), |X|^2
+    (3 a bin of 201) and one FMA per filterbank nonzero."""
+    return 400 + 2.5 * 400 * np.log2(400) + 3 * 201 + 2 * n_mels_nonzero
+
+
+def mel_factorized_flops(n_mels_nonzero: int) -> int:
+    """fp32 operations a frame of K1's own algorithm does (an FMA is two):
+    the window (400 products); stage 1, a 20-point DFT of each of 20
+    columns at 11 outputs (2 FMAs a term); the twiddles (one product and
+    one FMA a part, 220 outputs); stage 2, 201 bins of a 20-term complex
+    sum (4 FMAs a term; 2 for bins 0, 20, .., 200 from a real input);
+    |X|^2 (3 a bin); one FMA per filterbank nonzero."""
+    from whisper_ipa_torch.ops.mel_kernel import FFT_HALF, FFT_RADIX
+
+    r = FFT_RADIX
+    stage1 = 2 * 2 * r * r * FFT_HALF
+    twiddle = 6 * r * FFT_HALF
+    stage2 = 2 * r * (4 * 190 + 2 * 11)
+    return 400 + stage1 + twiddle + stage2 + 3 * 201 + 2 * n_mels_nonzero
+
+
 def check_mel(torch, dev):
     from whisper_ipa_torch.audio import log_mel_spectrogram as numpy_log_mel
     from whisper_ipa_torch.ops import mel_kernel as mk
@@ -180,21 +204,49 @@ def check_mel(torch, dev):
                               - numpy_log_mel(audio[0], n_mels=n_mels)).max())
         ms = cuda_ms(lambda: mk.log_mel_power(padded, n_mels))
         plain_ms = cuda_ms(lambda: mk.log_mel_power_plain(padded, n_mels))
+        dev_ms, kernels = device_profile(
+            torch, lambda: mk.log_mel_power(padded, n_mels), iters=20)
+        require(kernels == 1,
+                f"K1 n_mels={n_mels} one kernel a call (profiler: {kernels:g})")
+        ops = mk._operators(n_mels, dev)
+        frames = got.shape[0] * got.shape[1]
+        nonzero = int((ops.mel_range[:, 1] - ops.mel_range[:, 0]).sum())
+        # the bound: the bytes, or the operations the function needs, the
+        # larger; beside it the counts of K1's factorized DFT and of the
+        # direct DFT (the earlier design's: two (400 x 201) products, the
+        # power spectrum and the dense mel product)
+        io = nbytes(padded, got)
+        b = bound(io, frames * mel_function_flops(nonzero), "fp32")
+        fact = bound(io + nbytes(ops.window, ops.w20, ops.twiddle, ops.mel_t,
+                                 ops.mel_range),
+                     frames * mel_factorized_flops(nonzero), "fp32")
+        dft = bound(io + nbytes(ops.cos_b, ops.sin_b, ops.mel_t),
+                    frames * (2 * 2 * 400 * 201 + 3 * 201 + 2 * 201 * n_mels),
+                    "fp32")
         log(f"[K1 mel] n_mels={n_mels} audio ({MAIN_BATCH}, 480000): "
             f"max|kernel-plain| "
             f"{err:.3e}, max|kernel-numpy| row 0 {err_np:.3e} (bound 5e-4); "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+            f"kernel {ms:.4f} ms (device time {dev_ms:.4f} ms, {kernels:g} "
+            f"kernel a call), plain {plain_ms:.4f} ms; bound {b['bound_ms']:.4f} "
+            f"ms ({b['bound_by']}; a real FFT, window, power and {nonzero} "
+            f"filterbank nonzeros): {b['bound_ms'] / dev_ms:.1%} of it "
+            f"reached; factorized_bound_ms {fact['bound_ms']:.4f} (K1's own "
+            f"operations): {fact['bound_ms'] / dev_ms:.1%}; "
+            f"dft_product_bound_ms {dft['bound_ms']:.4f} (the direct DFT): "
+            f"{dft['bound_ms'] / dev_ms:.1%}")
         require(err < 5e-4 and err_np < 5e-4, f"K1 n_mels={n_mels} within 5e-4")
         if n_mels == 80:
-            cos_b, sin_b, mel_t = mk._operators(n_mels, dev)
-            frames = got.shape[0] * got.shape[1]
-            # the kernel's DFT as two (400 x 201) products, the power
-            # spectrum, the (201 x n_mels) mel product, per frame, in fp32
-            flops = frames * (2 * 2 * 400 * 201 + 3 * 201 + 2 * 201 * n_mels)
-            entry = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         **bound(nbytes(padded, cos_b, sin_b, mel_t, got),
-                                 flops, "fp32"),
-                         library_ms=None)
+            # a yardstick for the DFT part alone: cuFFT's STFT (Hann,
+            # center=False) of the same padded frames, no mel, no log
+            window = torch.hann_window(400, periodic=True, device=dev)
+            stft_ms = cuda_ms(lambda: torch.stft(
+                padded, 400, 160, window=window, center=False,
+                return_complex=True))
+            log(f"[K1 mel] torch.stft (cuFFT) on the same padded frames: "
+                f"{stft_ms:.4f} ms (the DFT alone; no single PyTorch call "
+                f"computes the log-mel)")
+            entry = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **b,
+                         library_ms=None, device_ms=dev_ms)
     return entry
 
 
@@ -249,22 +301,46 @@ def check_attention(torch, dev):
     return entry
 
 
-def device_profile(torch, fn, iters: int = 50):
+def device_profile(torch, fn, iters: int = 50, attempts: int = 5):
     """(device ms, kernels) of one fn() call: its kernels' time and count
     under torch.profiler over iters calls, after a warm-up. Unlike cuda_ms
     it leaves out the host's time between launches, which dominates at
-    microsecond scale."""
+    microsecond scale. Every fn() here launches the same kernels on every
+    call, so a window whose record count is not a whole number a call lost
+    (or gained) records: the profiler sometimes drops the records of a
+    microsecond kernel, or of a whole window. Such a window is logged with
+    its records by name and profiled again; after ``attempts`` windows the
+    last one's numbers are returned as they are (a caller's kernel-count
+    check then fails), and a fn() that shows no kernel in any window
+    raises."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    return (sum(e.self_device_time_total for e in events) / iters / 1e3,
-            sum(e.count for e in events) / iters)
+    last = None
+    for attempt in range(attempts):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if not events:
+            log(f"[profiler] window {attempt + 1}/{attempts} of {iters} calls "
+                f"recorded no device kernel; profiled again")
+            continue
+        count = sum(e.count for e in events)
+        last = (sum(e.self_device_time_total for e in events) / iters / 1e3,
+                count / iters)
+        if count % iters == 0:
+            return last
+        log(f"[profiler] window {attempt + 1}/{attempts} of {iters} calls "
+            f"recorded {count} kernels, not a whole number a call ("
+            + "; ".join(f"{e.key}: {e.count}" for e in events)
+            + "); profiled again")
+    if last is None:
+        raise RuntimeError(f"torch.profiler recorded no device kernel in "
+                           f"{attempts} windows of {iters} calls")
+    return last
 
 
 def device_ms(torch, fn, iters: int = 50) -> float:
@@ -327,7 +403,8 @@ def check_decode_attention(torch, dev):
             f"{b['bound_ms']:.4f} ms ({b['bound_by']}): "
             f"{b['bound_ms'] / dev_ms:.1%} of it reached")
         require(ok, f"K4 q {dtype} within bound")
-        require(kernels == 1, f"K4 q {dtype} one kernel a call")
+        require(kernels == 1,
+                f"K4 q {dtype} one kernel a call (profiler: {kernels:g})")
         if entry is None:
             entry = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **b,
                          library_ms=None, device_ms=dev_ms, kernels_a_call=kernels)
@@ -352,19 +429,10 @@ def check_decode_attention(torch, dev):
 
     # the split of T that k4_split_plan picks (6 x 256) against its
     # neighbours, through the entry point (device ms, profiler)
-    from whisper_ipa_torch.ops import _build
-
-    fn = _build.entry("decode_attention", "wipa_decode_attention_int8",
-                      [_build.P] * 6 + [_build.I] * 7 + [_build.P])
-    out = torch.empty_like(q)
     row = []
     for splits in (4, 6, 8):
-        def call(splits=splits):
-            rc = fn(q.data_ptr(), k.data_ptr(), ks.data_ptr(), v.data_ptr(),
-                    vs.data_ptr(), out.data_ptr(), B * H, Dh, T_pad, splits,
-                    T_pad // splits, 1, dev.index,
-                    torch.cuda.current_stream(dev).cuda_stream)
-            require(rc == 0, f"K4 at {splits} splits launched")
+        call = lambda splits=splits: da.launch_cluster(  # noqa: E731
+            "int8", q, k, ks, v, vs, splits, T_pad // splits)
         row.append(f"{splits} x {T_pad // splits}: "
                    f"{device_profile(torch, call)[0]:.4f}")
     log(f"[K4 decode attention] splits of T_pad 1536 (plan: "
@@ -592,6 +660,34 @@ def check_int8_matmul(torch, dev):
     return entry
 
 
+def int4pack_library(torch, x, w_q4, w_s4):
+    """PyTorch's int4-weight product (``torch._weight_int4pack_mm``, the
+    tinygemm kernel) on K7's codes and scales: the codes offset by 8 and
+    repacked by ``torch._convert_weight_to_int4pack``, group 64, zeros 0,
+    the scales in bf16 as that call requires. Returns (ms, device ms,
+    error relative to max|plain|) on bf16 x, or None where this torch
+    lacks the call."""
+    from whisper_ipa_torch.ops import quant_matmul as qm
+    from whisper_ipa_torch.ops.quant import unpack_nibbles
+
+    if not (hasattr(torch, "_weight_int4pack_mm")
+            and hasattr(torch, "_convert_weight_to_int4pack")):
+        return None
+    n_half, n = w_q4.shape
+    group = 2 * n_half // w_s4.shape[0]
+    lo, hi = unpack_nibbles(w_q4, torch.int32)
+    codes = torch.stack([lo, hi], dim=1).reshape(2 * n_half, n).t() + 8
+    packed = ((codes[:, 0::2] << 4) | codes[:, 1::2]).to(torch.uint8).contiguous()
+    w = torch._convert_weight_to_int4pack(packed, 8)
+    sz = torch.stack([w_s4, torch.zeros_like(w_s4)], dim=-1).to(torch.bfloat16)
+    sz = sz.contiguous()
+    xb = x.to(torch.bfloat16)
+    y = torch._weight_int4pack_mm(xb, w, group, sz)
+    err = rel_err(y, qm.int4_matmul_plain(xb, w_q4, w_s4))
+    call = lambda: torch._weight_int4pack_mm(xb, w, group, sz)  # noqa: E731
+    return cuda_ms(call), device_profile(torch, call)[0], err
+
+
 def check_int4_matmul(torch, dev):
     from whisper_ipa_torch.ops import quant_matmul as qm
     from whisper_ipa_torch.ops.quant import quantize_linear_int4
@@ -630,14 +726,24 @@ def check_int4_matmul(torch, dev):
             if decode:
                 dev_ms, kernels = device_profile(
                     torch, lambda: qm.int4_matmul(x, w_q4, w_s4))
-                require(kernels == 1, f"K7 ({m}, {k}, {n}) one kernel a call")
+                require(kernels == 1,
+                        f"K7 ({m}, {k}, {n}) one kernel a call (profiler: {kernels:g})")
                 timing = (f" (device time {dev_ms:.4f} ms, {kernels:g} kernel a "
                           f"call, profiler), bound {b['bound_ms']:.4f} ms "
                           f"({b['bound_by']}): {b['bound_ms'] / dev_ms:.1%} of "
                           f"it reached")
-                decode_shapes.append(dict(shape=[m, k, n], dtype=str(dtype)[6:],
-                                          ms=ms, device_ms=dev_ms,
-                                          plain_ms=plain_ms, **b))
+                lib = (int4pack_library(torch, x, w_q4, w_s4)
+                       if dtype == torch.bfloat16 else None)
+                if lib is not None:
+                    timing += (f"; torch._weight_int4pack_mm {lib[0]:.4f} ms "
+                               f"(device time {lib[1]:.4f} ms), error "
+                               f"{lib[2]:.3e} of max|plain| (bf16 scales)")
+                decode_shapes.append(dict(
+                    shape=[m, k, n], dtype=str(dtype)[6:], ms=ms,
+                    device_ms=dev_ms, plain_ms=plain_ms, **b,
+                    library_ms=None if lib is None else lib[0],
+                    library_device_ms=None if lib is None else lib[1],
+                    library_err=None if lib is None else lib[2]))
             log(f"[K7 int4 matmul] ({m}, {k}) {str(dtype)[6:]} x packed "
                 f"({k // 2}, {n}), {body} body: max|kernel-plain|/max|plain| "
                 f"{err:.3e} (bound 1e-5); kernel {ms:.4f} ms{timing}, plain "
@@ -645,7 +751,10 @@ def check_int4_matmul(torch, dev):
             require(err <= 1e-5, f"K7 ({m}, {k}, {n}) {dtype} within 1e-5")
             if entry is None:
                 entry = dict(max_abs_err=max_abs(got, want), ms=ms,
-                             plain_ms=plain_ms, **b, library_ms=None,
+                             plain_ms=plain_ms, **b,
+                             library_ms=decode_shapes[-1]["library_ms"],
+                             library_device_ms=decode_shapes[-1]["library_device_ms"],
+                             library_err=decode_shapes[-1]["library_err"],
                              device_ms=dev_ms)
     entry["decode_shapes"] = decode_shapes
     return entry
@@ -656,6 +765,7 @@ def check_decode_attention_int4(torch, dev):
 
     gen = torch.Generator(device=dev).manual_seed(0)
     B, H, T, T_pad = MAIN_BATCH, 12, 1500, 1536
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     entry = None
     # bounds: f32 q 1e-5 of max|out|; bf16 q 1e-2: the plain version rounds
     # its logits and weighted probabilities to bf16
@@ -683,21 +793,53 @@ def check_decode_attention_int4(torch, dev):
             require(got.shape == (B, H, 1, dh) and got.dtype == dtype,
                     "K8 shape/dtype")
             err = rel_err(got, want)
-            ms = cuda_ms(lambda: da.decode_cross_attention_int4_tminor(q, k, ks, v, vs))
+            exact = da.decode_attention_int4_plain(q.float(), k, ks, v, vs)
+            call = lambda: da.decode_cross_attention_int4_tminor(q, k, ks, v, vs)  # noqa: E731
+            ms = cuda_ms(call)
             plain_ms = cuda_ms(lambda: da.decode_attention_int4_plain(q, k, ks, v, vs))
+            dev_ms, kernels = device_profile(torch, call)
+            # q.k over every cached position and p.v back, 2 flops a MAC,
+            # f32 on the CUDA cores
+            b = bound(nbytes(q, k, ks, v, vs, got), 4 * B * H * dh * T_pad, "fp32")
             log(f"[K8 int4 decode attention] B={B} H={H} Dh={dh} T_pad={T_pad} "
-                f"(scale 0 from {T}) q {str(dtype)[6:]}: max|kernel-plain|/"
-                f"max|plain| {err:.3e} (bound {tol:g}); kernel {ms:.4f} ms, "
-                f"plain {plain_ms:.4f} ms")
+                f"(scale 0 from {T}) q {str(dtype)[6:]}, plan "
+                f"{da.k8_split_plan(T_pad, B * H, sms)}: "
+                f"max|kernel-plain|/max|plain| "
+                f"{err:.3e} (bound {tol:g}); vs f32 on the same inputs: "
+                f"kernel {rel_err(got, exact):.3e}, plain {rel_err(want, exact):.3e}; "
+                f"kernel {ms:.4f} ms (device time {dev_ms:.4f} ms, {kernels:g} "
+                f"kernel a call, profiler), plain {plain_ms:.4f} ms, bound "
+                f"{b['bound_ms']:.4f} ms ({b['bound_by']}): "
+                f"{b['bound_ms'] / dev_ms:.1%} of it reached")
             require(err <= tol, f"K8 Dh {dh} q {dtype} within {tol}")
+            require(kernels == 1,
+                    f"K8 Dh {dh} q {dtype} one kernel a call (profiler: {kernels:g})")
             if entry is None:
-                # q.k over every cached position and p.v back, 2 flops a
-                # MAC, f32 on the CUDA cores
                 entry = dict(max_abs_err=max_abs(got, want), ms=ms,
-                             plain_ms=plain_ms,
-                             **bound(nbytes(q, k, ks, v, vs, got),
-                                     4 * B * H * dh * T_pad, "fp32"),
-                             library_ms=None)
+                             plain_ms=plain_ms, **b, library_ms=None,
+                             device_ms=dev_ms, kernels_a_call=kernels)
+            elif dh == 64:
+                entry["device_ms_f32"] = dev_ms
+        if dh == 64:
+            # the splits of T_pad 1536 against the plan's, through the entry
+            # point (device ms, profiler), bf16 q, at the main path's B*H,
+            # the int4 service's (batch 4) and one request's
+            q = q32.to(torch.bfloat16)
+            sweep = {}
+            for b in (B, 4, 1):
+                row = []
+                for splits in (2, 3, 4, 6, 8):
+                    slice_t = -(-T_pad // (32 * splits)) * 32
+                    call = lambda b=b, splits=splits, slice_t=slice_t: (  # noqa: E731
+                        da.launch_cluster("int4", q[:b], k[:b], ks[:b], v[:b],
+                                          vs[:b], splits, slice_t))
+                    row.append(f"{splits} x {slice_t}: "
+                               f"{device_profile(torch, call)[0]:.4f}")
+                log(f"[K8 int4 decode attention] B*H {b * H}: splits of T_pad "
+                    f"1536 (plan: {da.k8_split_plan(T_pad, b * H, sms)}), bf16 "
+                    f"q, device ms: " + "; ".join(row))
+                sweep[f"bh{b * H}"] = row
+            entry["split_device_ms"] = sweep
     return entry
 
 

@@ -60,15 +60,22 @@ def dev():
 
 
 @pytest.mark.parametrize("n_mels", [80, 128])
-def test_mel_kernel(dev, n_mels):
+@pytest.mark.parametrize(
+    "batch, samples",
+    [(2, 48_000 + 37), (1, 16_000), (16, 16_000), (1, 480_000), (16, 480_000)],
+)
+def test_mel_kernel(dev, batch, samples, n_mels):
+    """K1 within 5e-4 of its plain version after normalize, one launch: a
+    length that is not a whole frame, and batch 1 and 16 at 1 s (100
+    frames, a ragged last frame tile) and 30 s, at 80 and 128 mels."""
     gen = torch.Generator(device=dev).manual_seed(0)
-    audio = 0.1 * torch.randn((2, 48_000 + 37), generator=gen, device=dev)
+    audio = 0.1 * torch.randn((batch, samples), generator=gen, device=dev)
     padded = reflect_pad(audio).contiguous()
     before = log_mel_power.launches
     got = normalize(log_mel_power(padded, n_mels))
     assert log_mel_power.launches == before + 1
     want = normalize(log_mel_power_plain(padded, n_mels))
-    assert got.shape == (2, 300, n_mels)
+    assert got.shape == (batch, samples // 160, n_mels)
     assert (got - want).abs().max().item() < 5e-4
 
 
@@ -478,6 +485,89 @@ def test_decode_attention_int4_kernel(dev, dtype, dh, t):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     else:
         assert _rel(got, want) <= 1e-2
+
+
+def _int4_cache(dev, B, H, dh, t, seed):
+    """A cross cache as serving builds it: (B, t, H * dh) values through
+    the int4 quantizer, padded to T_pad (scale 0 past t)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    kf, vf = (torch.randn((B, t, H * dh), generator=gen, device=dev)
+              for _ in range(2))
+    k, ks = _quantize_kv_heads4(kf, H)
+    v, vs = _quantize_kv_heads4(vf, H)
+    q = torch.randn((B, H, 1, dh), generator=gen, device=dev) * dh ** -0.5
+    return q, k, ks, v, vs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [32, 64])
+@pytest.mark.parametrize("t_pad,t", [(128, 100), (1536, 1500)])
+@pytest.mark.parametrize("B,H", [(1, 1), (1, 12), (16, 12)])
+def test_decode_attention_int4_cluster_shapes(dev, B, H, t_pad, t, dh, dtype):
+    """K8's one-launch cluster design at B * H 1, 12 and 192, T_pad 128 (one
+    slice, partly padding) and 1536 (the plan's slices), with padded
+    tails: one wrapper launch a call, f32 rtol = atol = 1e-5. bf16 q: the
+    kernel works in f32 and rounds its output once, so it is held to the
+    f32 reference on q's bf16 values within 2^-8 of max|out| (one bf16
+    ulp at the largest output, twice its rounding); and to the bf16 plain
+    version within 2% of max|out|, K4's bound: the plain version rounds
+    logits and probabilities to bf16, which alone moves it up to 1.3% from
+    the f32 reference at B * H 192."""
+    q, k, ks, v, vs = _int4_cache(dev, B, H, dh, t, seed=B * H + t_pad + dh)
+    assert ks.shape[-1] == t_pad
+    q = q.to(dtype)
+    before = decode_cross_attention_int4_tminor.launches
+    got = decode_cross_attention_int4_tminor(q, k, ks, v, vs)
+    assert decode_cross_attention_int4_tminor.launches == before + 1
+    want = decode_attention_int4_plain(q, k, ks, v, vs)
+    assert got.shape == want.shape and got.dtype == dtype
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        exact = decode_attention_int4_plain(q.float(), k, ks, v, vs)
+        assert _rel(got, exact) <= 2.0 ** -8
+        assert _rel(got, want) <= 2e-2
+
+
+@pytest.mark.parametrize("t_pad,t", [(128, 100), (1536, 1500)])
+def test_decode_attention_int4_one_kernel_a_call(dev, t_pad, t):
+    """K8 is one device kernel a call (no merge pass), and allocates no
+    scratch beyond its output."""
+    q, k, ks, v, vs = _int4_cache(dev, 16, 12, 64, t, seed=1)
+    q = q.to(torch.bfloat16)
+    call = lambda: decode_cross_attention_int4_tminor(q, k, ks, v, vs)  # noqa: E731
+    _assert_one_kernel(call, "decode_int4_cluster_kernel")
+    call()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    out = call()
+    assert torch.cuda.memory_allocated(dev) - before == out.numel() * out.element_size()
+
+
+@pytest.mark.parametrize("operand", ["q", "codes", "scales"])
+def test_decode_attention_int4_misaligned_operand_raises(dev, operand):
+    """K8 copies 16-byte chunks: an operand at an offset that is not 16
+    bytes (contiguous, so ``.contiguous()`` keeps it) raises, and nothing
+    is launched."""
+    q, k, ks, v, vs = _int4_cache(dev, 1, 2, 32, 100, seed=2)
+
+    def shifted(t):
+        buf = torch.empty((t.numel() + 1,), dtype=t.dtype, device=dev)
+        bad = buf[1:].view(t.shape)
+        bad.copy_(t)
+        assert bad.is_contiguous() and bad.data_ptr() % 16
+        return bad
+
+    if operand == "q":
+        q = shifted(q)
+    elif operand == "codes":
+        v = shifted(v)
+    else:
+        ks = shifted(ks)
+    before = decode_cross_attention_int4_tminor.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        decode_cross_attention_int4_tminor(q, k, ks, v, vs)
+    assert decode_cross_attention_int4_tminor.launches == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -30,14 +30,14 @@ import torch
 
 # the port's hand-written kernels by the names of their device functions
 PORT_KERNELS = {
-    "K1": ("log_mel_power_kernel",),
+    "K1": ("log_mel_fft_kernel",),
     "K2/K10": ("attention_fwd_",),
     "K3": ("kv_init_wgmma", "kv_init_f32"),
     "K4": ("decode_int8_cluster_kernel",),
     "K5": ("attn_bwd_",),
     "K6": ("int8_gemm_", "quantize_rows_kernel"),
     "K7": ("int4_matmul_",),
-    "K8": ("decode_partial_int4_kernel", "decode_combine_kernel"),
+    "K8": ("decode_int4_cluster_kernel",),
     "K9": ("sr_quant_kernel",),
 }
 

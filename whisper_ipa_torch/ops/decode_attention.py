@@ -20,8 +20,7 @@ import torch
 
 from . import _build
 from .quant import unpack_nibbles
-
-_MAX_CHUNK = 8 * 1024  # K8: positions per block, 32 KB of f32 logits
+from .quant_matmul import _sm_count
 
 
 def decode_attention_plain(q, k_i8, k_scale, v_i8, v_scale):
@@ -86,15 +85,31 @@ def k4_split_plan(t_pad: int):
     return splits, slice_t
 
 
-def _split(bh: int, t_pad: int, device: torch.device):
-    """K8's blocks along T: enough (split, b*h) blocks for two per SM."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    n_split = max(1, min(t_pad // 128, -(-2 * sms // bh)))
-    chunk = -(-t_pad // n_split)
-    chunk = -(-chunk // 128) * 128
-    while chunk > _MAX_CHUNK:
-        chunk = -(-(chunk // 2) // 128) * 128
-    return -(-t_pad // chunk), chunk
+K8_MAX_SLICE = 2048  # positions a block: its packed codes fill shared memory
+K8_SLICE = 768       # positions a block aims at when the grid fills the card
+K8_SLICE_FEW = 256   # ... and when it would leave over half the SMs idle
+
+
+@functools.lru_cache(maxsize=None)
+def k8_split_plan(t_pad: int, bh: int, sms: int = 132):
+    """K8's split of T for ``bh`` (b, h) rows on ``sms`` SMs: (splits,
+    slice), a thread-block cluster of ``splits`` blocks (at most 8) for
+    each (b, h), block r over positions [r * slice, min((r + 1) * slice,
+    T_pad)), so every position is one block's and no block is empty. A
+    slice is a multiple of 32 positions (16-byte copies of the packed
+    codes), the last one possibly shorter. It aims at ``K8_SLICE``
+    positions, or at ``K8_SLICE_FEW`` where B*H blocks of 768 would fill
+    fewer than half the SMs. On the H100 at T_pad 1536 (PERF.md section 6)
+    that takes 2 x 768 at B*H 192 and 48 and 6 x 256 at B*H 12, the
+    fastest or within 2% of it there."""
+    if t_pad <= 0 or t_pad % 128:
+        raise ValueError(f"T_pad={t_pad} must be a positive multiple of 128")
+    target = K8_SLICE if 2 * bh * -(-t_pad // K8_SLICE) >= sms else K8_SLICE_FEW
+    splits = min(K4_MAX_SPLIT, -(-t_pad // target))
+    slice_t = -(-t_pad // (32 * splits)) * 32
+    if slice_t > K8_MAX_SLICE:
+        raise ValueError(f"T_pad={t_pad} above K8's {K4_MAX_SPLIT * K8_MAX_SLICE}")
+    return -(-t_pad // slice_t), slice_t
 
 
 def _check(q, k, k_scale, v, v_scale, t_codes: int, name: str):
@@ -130,48 +145,26 @@ def _check_cuda(q, k, k_scale, v, v_scale):
             raise ValueError("operands must be contiguous and 16-byte aligned")
 
 
-def _launch_int8(q, k, k_scale, v, v_scale):
-    """Run K4 on CUDA tensors: one launch, no scratch."""
+def launch_cluster(kind: str, q, k, k_scale, v, v_scale, splits: int,
+                   slice_t: int):
+    """Launch K4 (``kind`` "int8") or K8 ("int4") once on CUDA tensors, as
+    a cluster of ``splits`` blocks of ``slice_t`` positions for each (b, h)
+    (the plans above, or another split to time) -> (B, H, 1, Dh); no
+    scratch. Raises if the kernel does not build or launch."""
     _check_cuda(q, k, k_scale, v, v_scale)
     B, H, _, Dh = q.shape
-    T = k_scale.shape[-1]
-    splits, slice_t = k4_split_plan(T)
+    symbol = f"wipa_decode_attention_{kind}"
     out = torch.empty_like(q)
     fn = _build.entry(
-        "decode_attention", "wipa_decode_attention_int8",
-        [_build.P] * 6 + [_build.I] * 7 + [_build.P],
+        "decode_attention", symbol, [_build.P] * 6 + [_build.I] * 7 + [_build.P]
     )
     rc = fn(
         q.data_ptr(), k.data_ptr(), k_scale.data_ptr(), v.data_ptr(),
-        v_scale.data_ptr(), out.data_ptr(), B * H, Dh, T, splits, slice_t,
-        int(q.dtype == torch.bfloat16), q.device.index,
+        v_scale.data_ptr(), out.data_ptr(), B * H, Dh, k_scale.shape[-1],
+        splits, slice_t, int(q.dtype == torch.bfloat16), q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _build.check(rc, "wipa_decode_attention_int8")
-    return out
-
-
-def _launch_int4(q, k, k_scale, v, v_scale):
-    """Run K8 on CUDA tensors: the partial pass, then the merge."""
-    _check_cuda(q, k, k_scale, v, v_scale)
-    B, H, _, Dh = q.shape
-    T = k_scale.shape[-1]
-    n_split, chunk = _split(B * H, T, q.device)
-    out = torch.empty_like(q)
-    part = torch.empty(
-        (B * H, n_split, Dh + 2), dtype=torch.float32, device=q.device
-    )
-    fn = _build.entry(
-        "decode_attention", "wipa_decode_attention_int4",
-        [_build.P] * 7 + [_build.I] * 6 + [_build.I, _build.P],
-    )
-    rc = fn(
-        q.data_ptr(), k.data_ptr(), k_scale.data_ptr(), v.data_ptr(),
-        v_scale.data_ptr(), out.data_ptr(), part.data_ptr(),
-        B * H, Dh, T, n_split, chunk, int(q.dtype == torch.bfloat16),
-        q.device.index, torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    _build.check(rc, "wipa_decode_attention_int4")
+    _build.check(rc, symbol)
     return out
 
 
@@ -186,7 +179,8 @@ def decode_cross_attention_int8_tminor(q, k_i8, k_scale, v_i8, v_scale):
            "decode_cross_attention_int8_tminor")
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_i8, k_scale, v_i8, v_scale)
-    out = _launch_int8(q, k_i8, k_scale, v_i8, v_scale)
+    out = launch_cluster("int8", q, k_i8, k_scale, v_i8, v_scale,
+                         *k4_split_plan(k_scale.shape[-1]))
     decode_cross_attention_int8_tminor.launches += 1
     return out
 
@@ -206,7 +200,9 @@ def decode_cross_attention_int4_tminor(q, k_p4, k_scale, v_p4, v_scale):
            "decode_cross_attention_int4_tminor")
     if q.device.type == "cpu":
         return decode_attention_int4_plain(q, k_p4, k_scale, v_p4, v_scale)
-    out = _launch_int4(q, k_p4, k_scale, v_p4, v_scale)
+    plan = k8_split_plan(k_scale.shape[-1], q.shape[0] * q.shape[1],
+                         _sm_count(q.device.index))
+    out = launch_cluster("int4", q, k_p4, k_scale, v_p4, v_scale, *plan)
     decode_cross_attention_int4_tminor.launches += 1
     return out
 
