@@ -19,8 +19,9 @@ weights from seed 0:
   quantized serving, the same batch three more ways: the int8 cross cache
             built by the fused kernel (K3); int8 weights with int8
             activations (K6), the weights quantized on the host and again
-            on the card (K9, stochastic rounding); int4 weights (K7) with
-            the int4 cross cache (K8); test-tiny CUDA against the CPU for
+            on the card (K9, stochastic rounding, one launch for the
+            tree); int4 weights (K7) with the int4 cross cache (K8);
+            test-tiny CUDA against the CPU for
             int8 and int4; the service with int4 weights and cache
   training  train() on a seeded synthetic set, batch 12, bf16
             activations: decoder-only (encoder frozen, K2 forward only)
@@ -843,20 +844,32 @@ def check_decode_attention_int4(torch, dev):
     return entry
 
 
+def sr_quant_flops(rows: int, cols: int) -> float:
+    """Integer and fp32 operations K9's function needs for a weight (an
+    op each, at the CUDA cores' fp32 rate: the table has no int32 rate):
+    a Philox4x32-10 block a 4 elements (10 rounds of two 32 x 32 -> 64-bit
+    products, hi and lo, and 4 xors, and 9 key bumps of 2 adds: 98), u from
+    the bits (shift, or, subtract: 3), the division, add, floor, 2 clamps
+    and the conversion (6), and |w| and the column max (2): 35.5 an
+    element."""
+    return (98 / 4 + 3 + 6 + 2) * rows * cols
+
+
 def check_sr_quant(torch, dev):
     from whisper_ipa_torch.ops import sr_quant as sr
 
     gen = torch.Generator(device=dev).manual_seed(0)
     entry = None
-    # the shapes of whisper-small's block weights; the kernel and the plain
-    # version compute the same Philox bits and IEEE divisions: equal codes
-    # and scales; each code the floor or the ceiling of the IEEE quotient
+    # the shapes of whisper-small's block weights, one weight a launch; the
+    # kernel and the plain version compute the same Philox bits and IEEE
+    # divisions: equal codes and scales; each code the floor or the ceiling
+    # of the IEEE quotient
     for rows, cols in ((768, 3072), (3072, 768), (768, 768)):
         w = 0.05 * torch.randn((rows, cols), generator=gen, device=dev)
-        before = sr.stochastic_quantize_int8.launches
+        before = sr.stochastic_quantize_int8_many.launches
         q, s = sr.stochastic_quantize_int8(w, seed=7)
         torch.cuda.synchronize()
-        require(sr.stochastic_quantize_int8.launches == before + 1,
+        require(sr.stochastic_quantize_int8_many.launches == before + 1,
                 "K9 counter rose")
         pq, ps = sr.stochastic_quantize_int8_plain(w, seed=7)
         exact = torch.equal(q, pq) and torch.equal(s, ps)
@@ -866,24 +879,27 @@ def check_sr_quant(torch, dev):
         qf = q.float()
         bracket = bool(((qf == lo) | (qf == hi)).all())
         step_err = float(((qf * s - w).abs() / s).max())
-        ms = cuda_ms(lambda: sr.stochastic_quantize_int8(w, seed=7))
+        call = lambda: sr.stochastic_quantize_int8(w, seed=7)  # noqa: E731
+        ms = cuda_ms(call)
+        dev_ms, kernels = device_profile(torch, call)
         plain_ms = cuda_ms(lambda: sr.stochastic_quantize_int8_plain(w, seed=7))
+        # bytes: w read, codes and scales written
+        b = bound(nbytes(w, q, s), sr_quant_flops(rows, cols), "fp32")
         log(f"[K9 sr quant] w ({rows}, {cols}) f32: codes and scales equal the "
             f"plain version's {exact}; every code floor or ceil of the IEEE "
             f"quotient {bracket}; max error {step_err:.4f} steps (bound 1); "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+            f"kernel {ms:.4f} ms (device time {dev_ms:.4f} ms, {kernels:g} "
+            f"kernel a call, profiler), plain {plain_ms:.4f} ms, bound "
+            f"{b['bound_ms']:.4f} ms ({b['bound_by']}): "
+            f"{b['bound_ms'] / dev_ms:.1%} of it reached")
         require(exact and bracket and step_err <= 1.0,
                 f"K9 ({rows}, {cols}) exact, bracketed, within one step")
+        require(kernels == 1, f"K9 ({rows}, {cols}) one kernel a call "
+                f"(profiler: {kernels:g})")
         if entry is None:
-            # bytes: w read, codes and scales written. Operations a weight:
-            # 10 Philox rounds of 2 mul.hi, 2 mul.lo, 4 xor and 2 key adds
-            # (98 with 9 key bumps), 3 to build u, the division, add, floor,
-            # 2 clamps, convert, and |w| and max in the first pass: 109, at
-            # the CUDA cores' fp32 rate (the table has no int32 rate; int32
-            # multiplies run at half of it)
             entry = dict(max_abs_err=max_abs(q, pq), ms=ms, plain_ms=plain_ms,
-                         **bound(nbytes(w, q, s), 109 * rows * cols, "fp32"),
-                         library_ms=None)
+                         **b, library_ms=None, device_ms=dev_ms,
+                         kernels_a_call=kernels)
     w2 = torch.full((4096, 8), 0.25, device=dev)
     w2[0] = 127.0  # scale 1.0: codes 0 or 1 with P(1) = 0.25
     q2, s2 = sr.stochastic_quantize_int8(w2, seed=11)
@@ -972,7 +988,7 @@ def counters():
         "K6": quant_matmul.int8_matmul,
         "K7": quant_matmul.int4_matmul,
         "K8": decode_attention.decode_cross_attention_int4_tminor,
-        "K9": sr_quant.stochastic_quantize_int8,
+        "K9": sr_quant.stochastic_quantize_int8_many,
         "K10": attention.fused_attention_merged,
     }
 
@@ -1069,43 +1085,121 @@ def phase_merged_path(torch, dev, cfg, params, tok, by_path, default_results):
             "merged serving tokens equal the default's")
 
 
+WITNESS = 10  # launches of K9's witness window (phase_device_quantize)
+
+
 def phase_device_quantize(torch, dev, cfg, params, q8_host, by_path):
-    """quantize_params_device (K9) on the card-resident params, held
-    against the host quantizer's tree; returns the quantized tree."""
+    """quantize_params_device (K9) on the card-resident params: one launch
+    for the tree, each weight equal to its plain version, held against the
+    host quantizer's tree and timed; returns the quantized tree and the
+    tree's numbers for K9's entry."""
     from whisper_ipa_torch.models import flatten_params
-    from whisper_ipa_torch.ops.sr_quant import quantize_params_device
+    from whisper_ipa_torch.ops import sr_quant as sr
 
     for fn in counters().values():
         fn.launches = 0
     torch.cuda.synchronize()
     t0 = time.time()
-    d8 = quantize_params_device(params)
+    d8 = sr.quantize_params_device(params)
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = {k: fn.launches for k, fn in counters().items()}
     by_path["device quantize int8"] = launches
+    require({k: c for k, c in launches.items() if c} == {"K9": 1},
+            f"K9 launched once for the tree, got {launches}")
     n_weights = 6 * (cfg.n_audio_layer + cfg.n_text_layer) + 4 * cfg.n_text_layer
-    require({k: c for k, c in launches.items() if c} == {"K9": n_weights},
-            f"K9 launched once a block weight ({n_weights}), got {launches}")
-    dev_flat, host_flat = flatten_params(d8), flatten_params(q8_host)
+    src, dev_flat = flatten_params(params), flatten_params(d8)
+    host_flat = flatten_params(q8_host)
     require(sorted(dev_flat) == sorted(host_flat), "the host quantizer's layout")
     scales = [n for n in dev_flat if n.endswith(".w_s")]
+    require(len(scales) == n_weights, f"{n_weights} quantized weights")
     require(all(dev_flat[n].device == dev for n in dev_flat), "stays on the card")
     scales_equal = all(torch.equal(dev_flat[n], host_flat[n]) for n in scales)
     code_diff = max(int((dev_flat[n[:-1] + "q"].int()
                          - host_flat[n[:-1] + "q"].int()).abs().max())
                     for n in scales)
+    # each weight against its plain version, seeds in the reference's visit
+    # order (decoder blocks, then encoder blocks)
+    order = [n[:-2] for side in ("decoder", "encoder") for n, t in src.items()
+             if n.startswith(side + ".blocks.") and n.endswith(".w")
+             and t.dim() == 2]
+    exact = all(
+        all(torch.equal(a, b) for a, b in zip(
+            (dev_flat[n + ".w_q"], dev_flat[n + ".w_s"]),
+            sr.stochastic_quantize_int8_plain(src[n + ".w"], 1 + i)))
+        for i, n in enumerate(order))
+    call = lambda: sr.quantize_params_device(params)  # noqa: E731
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        call()
+        torch.cuda.synchronize()
+        walls.append(time.time() - t0)
+    # the call launches nothing but K9 (its table is the kernel's
+    # parameter; no copy, no fill), so the profile's time a recorded
+    # kernel is the tree's device time. On an H100 the profiler recorded 8
+    # of 10 launches in some windows of this phase, so the count is held to
+    # at most one a call, and a witness shows that every launch runs: the
+    # tree's launch WITNESS times in turn, each into codes and scales of
+    # its own filled with sentinels (-128, which the kernel never writes,
+    # and NaN), profiled as one window; every set must then hold the
+    # tree's codes and scales
+    window_ms, kernels = device_profile(torch, call, iters=10)
+    dev_ms = window_ms / kernels if kernels else float("nan")
+    ws = [src[n + ".w"].to(torch.float32).contiguous() for n in order]
+    seeds = [1 + i for i in range(len(ws))]
+    sets = [sr._outputs([tuple(w.shape) for w in ws], dev)
+            for _ in range(WITNESS)]
+    for qs, ss in sets:
+        for q, s in zip(qs, ss):
+            q.fill_(-128)
+            s.fill_(float("nan"))
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for qs, ss in sets:
+            sr._launch(ws, qs, ss, seeds, dev)
+        torch.cuda.synchronize()
+    k9 = [e for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and "sr_quant_kernel" in e.key]
+    witness_recorded = sum(e.count for e in k9)
+    witness_ms = (sum(e.self_device_time_total for e in k9) / 1e3
+                  / max(witness_recorded, 1))
+    written = sum(all(torch.equal(q, dev_flat[n + ".w_q"])
+                      and torch.equal(s, dev_flat[n + ".w_s"])
+                      for n, q, s in zip(order, qs, ss)) for qs, ss in sets)
+    del sets
+    w_bytes = sum(src[n + ".w"].numel() * 4 for n in order)
+    elems = w_bytes // 4
+    b = bound(w_bytes + elems + sum(dev_flat[n + ".w_s"].numel() * 4
+                                    for n in order),
+              sum(sr_quant_flops(*src[n + ".w"].shape) for n in order), "fp32")
     log(f"[device quantize] whisper-small int8 on the card (K9, {n_weights} "
-        f"weights) in {wall:.4f} s (host clock, synchronised); scales equal "
-        f"the host quantizer's {scales_equal}; codes within {code_diff} of "
-        f"its round-to-nearest codes (bound 1)")
+        f"weights, {elems} elements, one launch) in {wall:.4f} s (host "
+        f"clock, synchronised; then {[round(x, 4) for x in walls]}); device "
+        f"time {dev_ms:.4f} ms a launch ({kernels:g} kernels recorded a call, "
+        f"profiler; witness: {written} of {WITNESS} launches wrote every "
+        f"code and scale over sentinels, {witness_recorded} kernels "
+        f"recorded, {witness_ms:.4f} ms a recorded kernel), bound "
+        f"{b['bound_ms']:.4f} ms ({b['bound_by']}): {b['bound_ms'] / dev_ms:.1%} "
+        f"of it reached; every weight equal to its plain version {exact}; "
+        f"scales equal the host quantizer's {scales_equal}; codes within "
+        f"{code_diff} of its round-to-nearest codes (bound 1)")
+    require(exact, "K9 tree equal to the plain version weight by weight")
+    require(written == WITNESS, f"K9 witness: every launch wrote the tree "
+            f"({written} of {WITNESS})")
+    require(0 < kernels <= 1,
+            f"K9 tree at most one kernel a call (profiler: {kernels:g})")
     require(scales_equal and code_diff <= 1, "K9 tree against the host's")
-    return d8
+    return d8, dict(tree_device_ms=dev_ms, tree_wall_s=wall, tree_walls_s=walls)
 
 
 def phase_quantized_paths(torch, dev, cfg, params, tok, by_path, default_results):
     """The three quantized serving runs of the main path's batch, and the
-    int8 run again with the weights quantized on the card (K9)."""
+    int8 run again with the weights quantized on the card (K9); returns
+    the card quantizer's numbers for K9's entry."""
     from whisper_ipa_torch.models import (params_to, use_fused_kv_init,
                                           use_int8_activations)
     from whisper_ipa_torch.ops.quant import quantize_params
@@ -1129,7 +1223,7 @@ def phase_quantized_paths(torch, dev, cfg, params, tok, by_path, default_results
     t0 = time.time()
     q8 = params_to(quantize_params(params, bits=8), dev)
     log(f"[quantize] whisper-small int8 on the host in {time.time() - t0:.4f} s")
-    d8 = phase_device_quantize(torch, dev, cfg, params, q8, by_path)
+    d8, k9_tree = phase_device_quantize(torch, dev, cfg, params, q8, by_path)
     # every int8 linear: 6 an encoder layer, the 2 cross projections a
     # decoder layer in init_cache, 8 a decoder layer a step
     int8_expect = {"K1": 1, "K2": n_enc, "K6": 6 * n_enc + 2 * n_dec
@@ -1156,6 +1250,7 @@ def phase_quantized_paths(torch, dev, cfg, params, tok, by_path, default_results
          "K6": 0, "K8": steps * n_dec, "K4": 0}, kv_int4=True)
     del q4
     torch.cuda.empty_cache()
+    return k9_tree
 
 
 def phase_parity(torch, dev, tok):
@@ -1643,7 +1738,7 @@ def main() -> int:
         ("K8 decode_cross_attention_int4_tminor", check_decode_attention_int4,
          "whisper_ipa_torch/csrc/decode_attention.cu",
          "whisper_ipa_tpu/ops/decode_attention.py:236"),
-        ("K9 stochastic_quantize_int8", check_sr_quant,
+        ("K9 stochastic_quantize_int8_many", check_sr_quant,
          "whisper_ipa_torch/csrc/sr_quant.cu",
          "whisper_ipa_tpu/ops/sr_quant.py:94"),
         ("K10 fused_attention_merged", check_merged_attention,
@@ -1664,7 +1759,8 @@ def main() -> int:
         {"K1": 1, "K2": cfg.n_audio_layer,
          "K4": (MAIN_SAMPLE_LEN - 1) * cfg.n_text_layer}, kv_int8=True)
     phase_merged_path(torch, dev, cfg, params, tok, by_path, default_results)
-    phase_quantized_paths(torch, dev, cfg, params, tok, by_path, default_results)
+    k9_tree = phase_quantized_paths(torch, dev, cfg, params, tok, by_path,
+                                    default_results)
     phase_parity(torch, dev, tok)
     phase_service(torch, dev, cfg, params, tok)
     phase_service(torch, dev, cfg, params, tok, quant_bits=4, kv_int4=True)
@@ -1686,6 +1782,8 @@ def main() -> int:
     # beside it
     for k in kernels:
         key = k["name"].split()[0]
+        if key == "K9":
+            k.update(k9_tree)
         k["launches_by_path"] = {p: c[key] for p, c in by_path.items() if c[key]}
         k["launches"] = sum(k["launches_by_path"].values())
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",

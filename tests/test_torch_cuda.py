@@ -9,6 +9,8 @@ which builds the kernels with nvcc on first use. ``chip_smoke.py`` runs the
 same comparisons at the main path's full shapes.
 """
 
+import ctypes
+
 import pytest
 import torch
 
@@ -18,6 +20,7 @@ from whisper_ipa_torch.models.convert import flatten_params
 from whisper_ipa_torch.models import layers
 from whisper_ipa_torch.models.whisper import _quantize_kv_heads4
 from whisper_ipa_torch.ops import (
+    _build,
     attention_backward,
     attention_backward_plain,
     attention_plain,
@@ -34,6 +37,7 @@ from whisper_ipa_torch.ops import (
     int8_matmul_plain,
     log_mel_power,
     log_mel_power_plain,
+    sr_quant,
 )
 from whisper_ipa_torch.ops.quant import quantize_linear, quantize_linear_int4
 from whisper_ipa_torch.ops.quant_matmul import int4_uses_split_k
@@ -43,7 +47,9 @@ from whisper_ipa_torch.ops.attention import (
     fused_attention_merged,
 )
 from whisper_ipa_torch.ops.sr_quant import (
+    quantize_params_device,
     stochastic_quantize_int8,
+    stochastic_quantize_int8_many,
     stochastic_quantize_int8_plain,
 )
 from whisper_ipa_torch.ops.mel_kernel import normalize, reflect_pad
@@ -605,17 +611,19 @@ def test_kv_init_kernel(dev, B, T, d, H, bias, dtype):
         assert (got[i][..., T:] == 0).all() and (got[i][..., :T] > 0).all()
 
 
-@pytest.mark.parametrize("rows,cols", [(256, 64), (300, 70), (768, 3072), (3072, 768)])
+@pytest.mark.parametrize("rows,cols", [(256, 64), (300, 70), (768, 3072), (3072, 768),
+                                       (6153, 40)])
 def test_sr_quant_kernel(dev, rows, cols):
-    """K9 equals its plain version bit for bit (the same Philox bits and
-    IEEE divisions), its scales equal the host quantizer's, and the codes
-    stay on the card."""
+    """K9 on one weight (the library's table of one) equals its plain
+    version bit for bit (the same Philox bits and IEEE divisions), also
+    where the slice exceeds the shared-memory stage and is read twice; its
+    scales equal the host quantizer's, and the codes stay on the card."""
     gen = torch.Generator(device=dev).manual_seed(0)
     w = 0.05 * torch.randn((rows, cols), generator=gen, device=dev)
     w[:, 0] = 0.0  # an all-zero column: scale 1e-8 / 127, codes 0
-    before = stochastic_quantize_int8.launches
+    before = stochastic_quantize_int8_many.launches
     q, s = stochastic_quantize_int8(w, seed=17)
-    assert stochastic_quantize_int8.launches == before + 1
+    assert stochastic_quantize_int8_many.launches == before + 1
     assert q.device == w.device and q.dtype == torch.int8 and s.shape == (cols,)
     pq, ps = stochastic_quantize_int8_plain(w, seed=17)
     assert torch.equal(q, pq) and torch.equal(s, ps)
@@ -623,6 +631,77 @@ def test_sr_quant_kernel(dev, rows, cols):
     assert torch.equal(s[1:].cpu(), host["w_s"][1:])
     assert (q[:, 0] == 0).all()
     assert (q.int().cpu() - host["w_q"].int()).abs().max().item() <= 1
+    q2, s2 = stochastic_quantize_int8_many([w], [17])[0]
+    assert torch.equal(q2, q) and torch.equal(s2, s)
+    _assert_one_kernel(lambda: stochastic_quantize_int8(w, seed=17),
+                       "sr_quant_kernel")
+
+
+def test_sr_quant_geometry(dev):
+    """The library's launch geometry is the wrapper's (ops/sr_quant's
+    CLUSTER, STRIPS[0], MAX_STAGE, MAX_ENTRIES)."""
+    out = (ctypes.c_int * 4)()
+    _build.entry("sr_quant", "wipa_sr_quant_geometry", [_build.P])(out)
+    assert tuple(out) == (sr_quant.CLUSTER, sr_quant.STRIPS[0],
+                          sr_quant.MAX_STAGE, sr_quant.MAX_ENTRIES)
+
+
+SR_MANY_SHAPES = [(256, 64), (300, 70), (768, 3072), (3072, 768), (5120, 1280),
+                  (6153, 40)]
+
+
+def test_sr_quant_many_kernel(dev):
+    """One launch of the grouped K9 over a mixed list (ragged rows and
+    columns, whisper-small's and large-v3's tallest shapes, and a weight
+    whose slices exceed the shared-memory stage, so it is read twice)
+    equals the plain version of each weight bit for bit; the scales equal
+    the host quantizer's; an all-zero column gets codes 0; a weight that is
+    not 16-byte aligned takes the 4-byte path, as (300, 70) does."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    ws = [0.05 * torch.randn(shape, generator=gen, device=dev)
+          for shape in SR_MANY_SHAPES]
+    ws[1][:, 3] = 0.0
+    # contiguous, 4 bytes past a 16-byte boundary
+    ws.append(torch.randn((97 * 32 + 1,), generator=gen, device=dev)[1:]
+              .view(97, 32))
+    seeds = [100 + k for k in range(len(ws))]
+    before = stochastic_quantize_int8_many.launches
+    out = stochastic_quantize_int8_many(ws, seeds)
+    torch.cuda.synchronize()
+    assert stochastic_quantize_int8_many.launches == before + 1
+    for w, seed, (q, s) in zip(ws, seeds, out):
+        pq, ps = stochastic_quantize_int8_plain(w, seed)
+        assert torch.equal(q, pq) and torch.equal(s, ps), tuple(w.shape)
+        host = quantize_linear({"w": w.cpu()})
+        nonzero = (w != 0).any(dim=0).cpu()
+        assert torch.equal(s.cpu()[nonzero], host["w_s"][nonzero])
+        assert (q.int().cpu() - host["w_q"].int()).abs().max().item() <= 1
+    assert (out[1][0][:, 3] == 0).all()
+    _assert_one_kernel(lambda: stochastic_quantize_int8_many(ws, seeds),
+                       "sr_quant_kernel")
+
+
+def test_quantize_params_device_one_launch(dev):
+    """quantize_params_device on a test-tiny tree is one K9 launch, and
+    each weight's codes equal its plain version with its seed."""
+    params = init_params(CONFIGS["test-tiny"], seed=0, device=dev)
+    before = stochastic_quantize_int8_many.launches
+    qp = quantize_params_device(params, seed=7)
+    torch.cuda.synchronize()
+    assert stochastic_quantize_int8_many.launches == before + 1
+    src, dst = flatten_params(params), flatten_params(qp)
+    # the reference's visit order: decoder blocks, then encoder blocks
+    names = [n[:-2] for side in ("decoder", "encoder") for n, t in src.items()
+             if n.startswith(side + ".blocks.") and n.endswith(".w")
+             and t.dim() == 2]
+    cfg = CONFIGS["test-tiny"]
+    assert len(names) == 6 * (cfg.n_audio_layer + cfg.n_text_layer) + (
+        4 * cfg.n_text_layer)
+    for i, name in enumerate(names):
+        q, s = dst[name + ".w_q"], dst[name + ".w_s"]
+        assert q.device == dev and q.dtype == torch.int8 and name + ".w" not in dst
+        pq, ps = stochastic_quantize_int8_plain(src[name + ".w"], 8 + i)
+        assert torch.equal(q, pq) and torch.equal(s, ps), name
 
 
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5), (torch.bfloat16, 5e-3)])

@@ -12,7 +12,7 @@
   attention         K10 head-merged attention fwd   csrc/attention.cu
 
 ``quant`` quantizes the weights on the host (no kernel); ``sr_quant``
-quantizes them where they lie.
+quantizes them where they lie, a whole tree in one launch.
 
 Importing builds nothing: a kernel is compiled on its first CUDA launch
 (or by ``_build.build_all()``).
@@ -45,6 +45,7 @@ from .quant_matmul import (
 from .sr_quant import (
     quantize_params_device,
     stochastic_quantize_int8,
+    stochastic_quantize_int8_many,
     stochastic_quantize_int8_plain,
 )
 
@@ -73,5 +74,6 @@ __all__ = [
     "quantize_params_device",
     "quantized_bytes",
     "stochastic_quantize_int8",
+    "stochastic_quantize_int8_many",
     "stochastic_quantize_int8_plain",
 ]
