@@ -31,7 +31,17 @@ weights from seed 0:
   entry points, on the decoder-only run's checkpoint: the checkpoint
             loader, cli.evaluate_model, cli.transcribe_single, and the
             HTTP server of cli.serve (merged attention on: K10 in the
-            service) with its texts against decode()
+            service) with its texts against decode(); then
+            cli.evaluate_model --beam-size 5, cli.transcribe --bf16 --json
+            and cli.serve --beam-size 2
+  decoding, at whisper-small bf16: decode() on the default
+            DecodingOptions (the timestamp grammar, checked on the host)
+            with the int8 (K4) and the int4 (K8) cross cache, best-of-3
+            sampling; beam 5 at batch 4, timestamps off and on, int8 and
+            float cache (the beam loop's J queries take the plain path, as
+            in the reference: no K4); transcribe() of 75 s, batched and
+            sequential-timestamps, with phone timestamps; test-tiny beam
+            tokens on CUDA against the CPU
 
 Each path's kernel launch counts are set to 0 just before it and read just
 after. Any failure raises and exits non-zero; there is no CPU fallback.
@@ -993,6 +1003,21 @@ def counters():
     }
 
 
+def reset_counts(torch):
+    torch.cuda.synchronize()
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counts(torch) -> dict:
+    torch.cuda.synchronize()
+    return {k: fn.launches for k, fn in counters().items()}
+
+
+def nonzero(counts: dict) -> dict:
+    return {k: c for k, c in counts.items() if c}
+
+
 def synthetic_audio(batch: int, seconds: float, seed: int) -> np.ndarray:
     rng = np.random.default_rng(seed)
     return (rng.standard_normal((batch, int(seconds * SAMPLE_RATE))) * 0.1
@@ -1029,15 +1054,13 @@ def phase_serving_path(torch, dev, cfg, params, tok, name, expect, **opts):
 
     walls, per_run, peaks = [], [], []
     for _ in range(SERVING_RUNS):
-        for fn in counters().values():
-            fn.launches = 0
-        torch.cuda.synchronize()
+        reset_counts(torch)
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.time()
         mel, results = run()
         torch.cuda.synchronize()
         walls.append(time.time() - t0)
-        per_run.append({k: fn.launches for k, fn in counters().items()})
+        per_run.append(read_counts(torch))
         peaks.append(torch.cuda.max_memory_allocated(dev) / 1e9)
 
     require(bool(torch.isfinite(mel).all()), "log-mel finite")
@@ -1096,15 +1119,11 @@ def phase_device_quantize(torch, dev, cfg, params, q8_host, by_path):
     from whisper_ipa_torch.models import flatten_params
     from whisper_ipa_torch.ops import sr_quant as sr
 
-    for fn in counters().values():
-        fn.launches = 0
-    torch.cuda.synchronize()
+    reset_counts(torch)
     t0 = time.time()
     d8 = sr.quantize_params_device(params)
-    torch.cuda.synchronize()
+    launches = by_path["device quantize int8"] = read_counts(torch)
     wall = time.time() - t0
-    launches = {k: fn.launches for k, fn in counters().items()}
-    by_path["device quantize int8"] = launches
     require({k: c for k, c in launches.items() if c} == {"K9": 1},
             f"K9 launched once for the tree, got {launches}")
     n_weights = 6 * (cfg.n_audio_layer + cfg.n_text_layer) + 4 * cfg.n_text_layer
@@ -1277,6 +1296,24 @@ def phase_parity(torch, dev, tok):
         f"CPU tokens per row {same}")
     require(all(same), "test-tiny greedy tokens identical on CUDA and CPU")
 
+    # beam search (the reorder-free loop), timestamps off and on, with
+    # hypotheses finishing into the pool (every id but 0-5 suppressed)
+    for ts in (False, True):
+        opts = DecodingOptions(language="en", without_timestamps=not ts,
+                               sample_len=8, beam_size=3, length_penalty=1.0,
+                               suppress_tokens=list(range(6, tok.eot)),
+                               suppress_blank=False, kv_int8=True)
+        gpu = decode(gpu_params, cfg, mel, opts, tokenizer=tok)
+        cpu = decode(cpu_params, cfg, mel, opts, tokenizer=tok)
+        same = [a.tokens == b.tokens for a, b in zip(gpu, cpu)]
+        lp = max(abs(a.avg_logprob - b.avg_logprob) for a, b in zip(gpu, cpu))
+        log(f"[parity] test-tiny f32 beam 3, timestamps {ts}, int8 cross-KV, "
+            f"2 rows x 8 tokens: CUDA == CPU tokens per row {same} "
+            f"({[a.tokens for a in gpu]}); max |avg_logprob diff| {lp:.2e} "
+            f"(bound 1e-4)")
+        require(all(same) and lp < 1e-4,
+                "test-tiny beam tokens identical on CUDA and CPU")
+
     # quantized weights: int8 with the int8 cache (weight-only on both
     # sides), int4 with the int4 cache (K7 and K8 on CUDA, the half-weight
     # and plane paths on the CPU)
@@ -1358,6 +1395,196 @@ def phase_service(torch, dev, cfg, params, tok, **svc_kw):
         f"latencies s {lat}; stats {stats}")
 
 
+def grammar_ok(tokens, tb: int) -> bool:
+    """Whisper's timestamp grammar on the host: the first token a timestamp
+    within the initial 1 s, the timestamps never decreasing."""
+    ts = [t for t in tokens if t >= tb]
+    return bool(tokens) and tb <= tokens[0] <= tb + 50 and ts == sorted(ts)
+
+
+def timed_decode(torch, dev, cfg, params, tok, audio, options):
+    """waveform -> log-mel (K1) -> decode(); returns (wall s, launches,
+    results), the launches counted from 0."""
+    from whisper_ipa_torch.decode import decode
+    from whisper_ipa_torch.ops import log_mel_spectrogram
+
+    reset_counts(torch)
+    t0 = time.time()
+    with torch.inference_mode():
+        mel = log_mel_spectrogram(audio, n_mels=cfg.n_mels)
+    results = decode(params, cfg, mel, options, tokenizer=tok)
+    torch.cuda.synchronize()
+    return time.time() - t0, read_counts(torch), results
+
+
+def phase_timestamps(torch, dev, cfg, params, tok, by_path):
+    """decode() on the default DecodingOptions (timestamp rules, language
+    detection) in the serving setting, with the int8 and the int4 cross
+    cache, and best-of-3 sampling."""
+    from whisper_ipa_torch.decode import DecodingOptions
+
+    tb = tok.timestamp_begin
+    audio = torch.from_numpy(synthetic_audio(MAIN_BATCH, 30.0, seed=1)).to(dev)
+    for name, cache, kernel in (("timestamps", dict(kv_int8=True), "K4"),
+                                ("timestamps int4", dict(kv_int4=True), "K8")):
+        options = DecodingOptions(fp16=True, sample_len=MAIN_SAMPLE_LEN, **cache)
+        walls = []
+        for _ in range(2):  # the first counted, both timed
+            wall, launches, results = timed_decode(torch, dev, cfg, params,
+                                                   tok, audio, options)
+            walls.append(wall)
+            if len(walls) == 1:
+                by_path[name] = launches
+        ok = [grammar_ok(r.tokens, tb) for r in results]
+        lengths = [len(r.tokens) for r in results]
+        log(f"[{name}] default DecodingOptions + fp16, {cache}, sample_len "
+            f"{MAIN_SAMPLE_LEN}, batch {MAIN_BATCH} x 30 s: walls "
+            f"{[round(w, 4) for w in walls]} s; tokens a row {lengths}; "
+            f"languages {sorted(set(r.language for r in results))}; grammar "
+            f"holds on every row {all(ok)}; launches {nonzero(by_path[name])}")
+        require(len(results) == MAIN_BATCH and all(ok),
+                f"{name}: every row obeys the timestamp grammar")
+        require(by_path[name]["K1"] == 1 and
+                by_path[name]["K2"] == cfg.n_audio_layer and
+                by_path[name][kernel] > 0,
+                f"{name}: K1 1, K2 {cfg.n_audio_layer}, {kernel} > 0")
+
+    options = DecodingOptions(language="en", fp16=True, kv_int8=True,
+                              sample_len=MAIN_SAMPLE_LEN, temperature=0.5,
+                              best_of=3)
+    wall, launches, results = timed_decode(torch, dev, cfg, params, tok,
+                                           audio[:4], options)
+    by_path["best-of 3"] = launches
+    log(f"[best-of 3] temperature 0.5, batch 4 (12 candidates): wall "
+        f"{wall:.4f} s; {len(results)} results, avg_logprob "
+        f"{[round(r.avg_logprob, 3) for r in results]}; launches "
+        f"{nonzero(launches)}")
+    require(len(results) == 4 and all(np.isfinite(r.avg_logprob)
+                                      and grammar_ok(r.tokens, tb)
+                                      for r in results),
+            "best-of 3: four finite results that obey the grammar")
+
+
+BEAM_BATCH = 4
+BEAM_SIZE = 5
+
+
+def phase_beam(torch, dev, cfg, params, tok, by_path):
+    """Beam search at batch 4 x beam 5, 64 tokens (EOT suppressed, so every
+    run takes the same 63 beam steps), timestamps off and on, with the int8
+    and the float cross cache. The beam loop's cross-attention has J = 5
+    queries, so it takes the plain path, as the reference's einsum does:
+    K4 runs in no beam run. The time a step is (wall at 64 tokens - wall
+    at 1 token) / (the steps between them)."""
+    import whisper_ipa_torch.decode.beam as beam
+    from whisper_ipa_torch.decode import DecodingOptions
+
+    audio = torch.from_numpy(synthetic_audio(BEAM_BATCH, 30.0, seed=3)).to(dev)
+    real_step = beam.decode_step_beam
+    steps = [0]
+
+    def counted_step(*args, **kwargs):
+        steps[0] += 1
+        return real_step(*args, **kwargs)
+
+    beam.decode_step_beam = counted_step
+    try:
+        # warm-up: the beam loop's first shapes (sorts, gathers, einsums)
+        timed_decode(torch, dev, cfg, params, tok, audio, DecodingOptions(
+            language="en", beam_size=BEAM_SIZE, fp16=True, sample_len=2,
+            kv_int8=True))
+        for cache in ("int8", "float"):
+            for ts in (False, True):
+                name = f"beam {cache}" + (" timestamps" if ts else "")
+                walls = {}
+                for sample_len in (1, MAIN_SAMPLE_LEN):
+                    options = DecodingOptions(
+                        language="en", beam_size=BEAM_SIZE, fp16=True,
+                        sample_len=sample_len, without_timestamps=not ts,
+                        suppress_tokens=[-1, tok.eot],
+                        kv_int8=cache == "int8")
+                    steps[0] = 0
+                    walls[sample_len], launches, results = timed_decode(
+                        torch, dev, cfg, params, tok, audio, options)
+                    walls[sample_len] = (walls[sample_len], steps[0])
+                by_path[name] = launches
+                (w1, s1), (w64, s64) = walls[1], walls[MAIN_SAMPLE_LEN]
+                per_step = (w64 - w1) / (s64 - s1)
+                ok = all(len(r.tokens) == MAIN_SAMPLE_LEN
+                         and np.isfinite(r.avg_logprob) for r in results)
+                grammar = all(grammar_ok(r.tokens, tok.timestamp_begin)
+                              for r in results) if ts else None
+                log(f"[{name}] whisper-small bf16, batch {BEAM_BATCH} x beam "
+                    f"{BEAM_SIZE}, 64 tokens: wall {w64:.4f} s ({s64} beam "
+                    f"steps; at 1 token {w1:.4f} s, {s1} step); "
+                    f"{per_step * 1e3:.2f} ms a step; rows of 64 finite "
+                    f"tokens {ok}; grammar {grammar}; launches "
+                    f"{nonzero(launches)}")
+                require(ok and grammar is not False,
+                        f"{name}: 64 finite tokens a row")
+                require(launches["K1"] == 1
+                        and launches["K2"] == cfg.n_audio_layer
+                        and launches["K4"] == 0 and launches["K8"] == 0,
+                        f"{name}: K1 1, K2 {cfg.n_audio_layer}, no K4/K8 "
+                        f"(S = J runs plain)")
+    finally:
+        beam.decode_step_beam = real_step
+
+
+TRANSCRIBE_SECONDS = 75.0
+
+
+def phase_transcribe(torch, dev, cfg, params, tok, by_path):
+    """transcribe() on 75 s of seeded audio (3 windows), batched and
+    sequential-timestamps, with phone timestamps, temperatures (0.0, 0.2).
+    The decoder's token embeddings past the 256 byte tokens are zeroed,
+    EOT's and the timestamps' excepted (as tests/test_torch_cli.py does for
+    the text tokens): the random decoder then emits byte tokens between its
+    timestamps, which this tokenizer decodes to text, so segments carry
+    phones."""
+    from whisper_ipa_torch.decode import transcribe
+
+    audio = synthetic_audio(1, TRANSCRIBE_SECONDS, seed=4)[0]
+    emb = params["decoder"]["token_embedding"].clone()
+    emb[256:tok.eot] = 0.0
+    emb[tok.eot + 1:tok.timestamp_begin] = 0.0
+    params = {**params, "decoder": {**params["decoder"], "token_embedding": emb}}
+    for mode in ("batched", "sequential"):
+        reset_counts(torch)
+        t0 = time.time()
+        out = transcribe(params, cfg, audio, language="en",
+                         temperature=(0.0, 0.2), word_timestamps=True,
+                         sequential_timestamps=mode == "sequential",
+                         tokenizer=tok, fp16=True, kv_int8=True,
+                         sample_len=MAIN_SAMPLE_LEN)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = by_path[f"transcribe {mode}"] = read_counts(torch)
+        segs = out["segments"]
+        phones = [p for s in segs for p in s.get("phones", [])]
+        bounds_ok = all(0.0 <= s["start"] <= s["end"] <= TRANSCRIBE_SECONDS
+                        for s in segs) and all(
+            a["start"] <= b["start"] for a, b in zip(segs, segs[1:]))
+        phones_ok = all(
+            0.0 <= p["start"] <= p["end"] <= TRANSCRIBE_SECONDS
+            for p in phones) and all(
+            all(a["start"] <= b["start"] for a, b in zip(s["phones"],
+                                                          s["phones"][1:]))
+            for s in segs if "phones" in s)
+        log(f"[transcribe {mode}] whisper-small bf16 int8 cross-KV, "
+            f"{TRANSCRIBE_SECONDS:.0f} s of audio, temperatures (0.0, 0.2), "
+            f"64 tokens a window: wall {wall:.4f} s; {len(segs)} segments "
+            f"(temperatures {[s['temperature'] for s in segs]}), "
+            f"{len(phones)} phones; bounds within the audio and monotone "
+            f"{bounds_ok}, phones {phones_ok}; launches {nonzero(launches)}")
+        require(bounds_ok and phones_ok, f"transcribe {mode}: bounds")
+        require(launches["K1"] > 0 and launches["K2"] > 0
+                and launches["K4"] > 0, f"transcribe {mode}: K1, K2, K4 ran")
+        if mode == "batched":
+            require(out["text"] and len(segs) <= 3 and phones,
+                    "batched: text, at most one segment a window, phones")
+
+
 TRAIN_IPAS = ["kæt", "bʌtn̩", "ə̥tʃ", "aːm", "ɡɯɣ", "n̩æp", "t͡ʃiːz", "ŋ̊ʷa",
               "ðɪs ɪz", "wɔːtɚ", "ʃɪp", "θɹiː"]
 
@@ -1409,9 +1636,7 @@ def run_train(torch, dev, data: str, out: str, freeze: bool, steps: int,
     (loss, step time s) from the log, launches, peak GB, wall s)."""
     from whisper_ipa_torch.train import train
 
-    for fn in counters().values():
-        fn.launches = 0
-    torch.cuda.synchronize()
+    reset_counts(torch)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.time()
     train(model_name="small", train_data_path=data, test_data_path=data,
@@ -1421,9 +1646,8 @@ def run_train(torch, dev, data: str, out: str, freeze: bool, steps: int,
                                                     "mels"),
           compute_dtype="bfloat16", freeze_encoder=freeze,
           final_validate=False, device="cuda")
-    torch.cuda.synchronize()
+    launches = read_counts(torch)
     wall = time.time() - t0
-    launches = {name: fn.launches for name, fn in counters().items()}
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     return read_train_log(out), launches, peak_gb, wall
 
@@ -1508,8 +1732,7 @@ def phase_entry_points(torch, dev, cfg, data: str, run_dir: str, ckpt_flat,
             "--port", "0"])
         url = f"http://127.0.0.1:{server.server_address[1]}"
         thread = threading.Thread(target=server.serve_forever, daemon=True)
-        for fn in counters().values():
-            fn.launches = 0
+        reset_counts(torch)
         thread.start()
         try:
             health = _http(f"{url}/healthz")
@@ -1521,9 +1744,7 @@ def phase_entry_points(torch, dev, cfg, data: str, run_dir: str, ckpt_flat,
             server.server_close()
             service.close()
             thread.join(timeout=30)
-        torch.cuda.synchronize()
-        launches = {k: fn.launches for k, fn in counters().items()}
-        by_path["HTTP service merged"] = launches
+        launches = by_path["HTTP service merged"] = read_counts(torch)
         require(not thread.is_alive() and not service._thread.is_alive(),
                 "server and service threads stopped")
 
@@ -1558,6 +1779,97 @@ def phase_entry_points(torch, dev, cfg, data: str, run_dir: str, ckpt_flat,
     require(launches["K10"] == 2 * cfg.n_audio_layer and launches["K2"] == 0,
             "K10 ran the service's encoder (once a layer a batch), K2 not")
     log(f"[entry points] phase passed in {time.time() - t_phase:.1f} s")
+
+
+def phase_decoding_entry_points(torch, dev, cfg, data: str, run_dir: str,
+                                by_path):
+    """The entry points this slice opened, on the decoder-only checkpoint:
+    cli.evaluate_model --beam-size 5, cli.transcribe --bf16 --json on three
+    of the set's WAVs, and one HTTP request to cli.serve --beam-size 2."""
+    import contextlib
+    import io
+    import threading
+
+    from whisper_ipa_torch.audio import N_SAMPLES, load_audio, pad_or_trim
+    from whisper_ipa_torch.cli import evaluate_model
+    from whisper_ipa_torch.cli import serve as serve_cli
+    from whisper_ipa_torch.cli import transcribe as transcribe_cli
+    from whisper_ipa_torch.decode import decode
+    from whisper_ipa_torch.ops import log_mel_spectrogram
+
+    t_phase = time.time()
+    ckpt = os.path.join(run_dir, f"checkpoint-{TRAIN_STEPS}")
+    with open(data) as f:
+        wavs = [e["audio_path"] for e in json.load(f)]
+
+    reset_counts(torch)
+    t0 = time.time()
+    results = evaluate_model.main([
+        "--skip-base", "--base-model", "small", "--checkpoint", ckpt,
+        "--test-data", data, "--num-samples", "0", "--beam-size", "5"])
+    by_path["entry evaluate_model beam 5"] = read_counts(torch)
+    log(f"[entry evaluate_model --beam-size 5] {len(results['hypotheses'])} "
+        f"samples, f32, batch 8, in {time.time() - t0:.1f} s: PER "
+        f"{results['per']:.2f}%, PFER {results['pfer']:.2f}%; launches "
+        f"{nonzero(by_path['entry evaluate_model beam 5'])}")
+    require(len(results["hypotheses"]) == TRAIN_BATCH
+            and np.isfinite(results["per"]) and np.isfinite(results["pfer"]),
+            "beam evaluation scored every sample")
+
+    reset_counts(torch)
+    t0 = time.time()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        transcribe_cli.main(["--model", "small", "--checkpoint", ckpt,
+                             "--bf16", "--json", *wavs[:3]])
+    launches = by_path["entry transcribe"] = read_counts(torch)
+    lines = [json.loads(ln) for ln in buf.getvalue().splitlines()
+             if ln.startswith("{")]
+    seconds = [len(load_audio(w)) / SAMPLE_RATE for w in wavs[:3]]
+    ok = [ln["file"] == w and all(0.0 <= s["start"] <= s["end"] <= sec
+                                  for s in ln["segments"])
+          for ln, w, sec in zip(lines, wavs, seconds)]
+    log(f"[entry transcribe --bf16 --json] {len(lines)} files in "
+        f"{time.time() - t0:.1f} s: texts {[ln['text'] for ln in lines]}; "
+        f"segments within their audio {ok}; launches {nonzero(launches)}")
+    require(len(lines) == 3 and all(ok), "cli.transcribe: one JSON line a file")
+    require(launches["K1"] == 3 and launches["K2"] == 3 * cfg.n_audio_layer,
+            "cli.transcribe: K1 and K2 once a window")
+
+    server, service = serve_cli.build_server([
+        "--model", "small", "--checkpoint", ckpt, "--batch-size", "4",
+        "--port", "0", "--beam-size", "2"])
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    reset_counts(torch)
+    thread.start()
+    try:
+        t0 = time.time()
+        got = _http(f"{url}/transcribe", json.dumps({"path": wavs[4]}).encode(),
+                    "application/json")[0]
+        wall = time.time() - t0
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.close()
+        thread.join(timeout=30)
+    launches = by_path["HTTP service beam 2"] = read_counts(torch)
+    require(not thread.is_alive() and not service._thread.is_alive(),
+            "server and service threads stopped")
+    group = [pad_or_trim(load_audio(wavs[4]))] + [np.zeros(N_SAMPLES,
+                                                           np.float32)] * 3
+    with torch.inference_mode():
+        mel = log_mel_spectrogram(torch.from_numpy(np.stack(group)).to(dev),
+                                  n_mels=cfg.n_mels)
+    want = decode(service.params, cfg, mel, service.options,
+                  tokenizer=service.tokenizer)[0].text
+    log(f"[entry serve --beam-size 2] one /transcribe in {wall:.3f} s: "
+        f"{got['text']!r}, equal to decode()'s {got['text'] == want}; "
+        f"launches {nonzero(launches)}")
+    require(got["text"] == want, "the beam server's text equals decode()'s")
+    require(launches["K1"] == 1 and launches["K2"] == cfg.n_audio_layer
+            and launches["K4"] == 0, "beam server: K1 1, K2 12, no K4")
+    log(f"[entry points, decoding] phase passed in {time.time() - t_phase:.1f} s")
 
 
 def phase_train(torch, dev, tok, root: str, by_path):
@@ -1617,6 +1929,7 @@ def phase_train(torch, dev, tok, root: str, by_path):
             require(np.isfinite(metrics["per"]) and np.isfinite(metrics["pfer"]),
                     "validation metrics finite")
             phase_entry_points(torch, dev, cfg, data, out, final, by_path)
+            phase_decoding_entry_points(torch, dev, cfg, data, out, by_path)
         else:
             require(launches["K5"] == 12 * TRAIN_STEPS,
                     f"unfrozen: K5 launched 12 x steps, got {launches['K5']}")
@@ -1761,6 +2074,10 @@ def main() -> int:
     phase_merged_path(torch, dev, cfg, params, tok, by_path, default_results)
     k9_tree = phase_quantized_paths(torch, dev, cfg, params, tok, by_path,
                                     default_results)
+    for phase in (phase_timestamps, phase_beam, phase_transcribe):
+        t0 = time.time()
+        phase(torch, dev, cfg, params, tok, by_path)
+        log(f"[{phase.__name__}] phase wall {time.time() - t0:.1f} s")
     phase_parity(torch, dev, tok)
     phase_service(torch, dev, cfg, params, tok)
     phase_service(torch, dev, cfg, params, tok, quant_bits=4, kv_int4=True)

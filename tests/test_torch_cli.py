@@ -9,7 +9,9 @@ JAX CLI's hypotheses, PER and PFER; ``transcribe_single`` its text;
 ``evaluate_ipa`` its stdout; ``convert_weights`` round-trips; the HTTP
 server over a CPU service answers /healthz, /stats, /transcribe and
 /transcribe_stream with ``decode()``'s texts; every unported flag exits
-with its message.
+with its message. With ``--beam-size``, ``evaluate_model`` gives the JAX
+CLI's report and the server ``decode()``'s beam texts; ``cli.transcribe
+--json`` prints the JAX CLI's JSON lines.
 """
 
 import io
@@ -30,6 +32,7 @@ import whisper_ipa_tpu.config as jax_config
 import whisper_ipa_torch.config as port_config
 from whisper_ipa_tpu.cli import evaluate_ipa as jax_evaluate_ipa
 from whisper_ipa_tpu.cli import evaluate_model as jax_evaluate_model
+from whisper_ipa_tpu.cli import transcribe as jax_transcribe_cli
 from whisper_ipa_tpu.cli import transcribe_single as jax_transcribe_single
 from whisper_ipa_tpu.models import flatten_params as jax_flatten_params
 from whisper_ipa_tpu.models import init_params as jax_init_params
@@ -40,6 +43,7 @@ from whisper_ipa_tpu.models.convert import save_safetensors as jax_save
 from whisper_ipa_torch.audio import N_SAMPLES, SAMPLE_RATE, pad_or_trim, write_wav
 from whisper_ipa_torch.cli import convert_weights, evaluate_ipa, evaluate_model
 from whisper_ipa_torch.cli import serve as serve_cli
+from whisper_ipa_torch.cli import transcribe as transcribe_cli
 from whisper_ipa_torch.cli import transcribe_single
 from whisper_ipa_torch.decode import decode
 from whisper_ipa_torch.ops import log_mel_spectrogram
@@ -123,6 +127,45 @@ def test_evaluate_model_matches_jax(setup):
     hyps = [ln.split("Hypothesis:")[1].strip() for ln in jax_out.splitlines()
             if "Hypothesis:" in ln]
     assert results["hypotheses"] == hyps
+
+
+def test_evaluate_model_beam_matches_jax(setup):
+    """--beam-size 3: the JAX CLI's hypotheses, PER and PFER."""
+    argv = ["--skip-base", "--base-model", MODEL, "--weights", setup["weights"],
+            "--checkpoint", setup["ckpt"], "--test-data", setup["split"],
+            "--num-samples", "0", "--batch-size", "2", "--beam-size", "3"]
+    jax_out, _ = _stdout(jax_evaluate_model.main, argv)
+    assert "Error transcribing" not in jax_out
+    out, results = _stdout(evaluate_model.main, argv + ["--device", "cpu"])
+    assert _report(out) == _report(jax_out)
+    assert len(results["hypotheses"]) == len(IPAS) and all(results["hypotheses"])
+
+
+def test_transcribe_cli_matches_jax(setup):
+    """cli.transcribe --json prints the JAX CLI's lines, one a file (a 70 s
+    file: three windows)."""
+    long_path = os.path.join(setup["root"], "long70.wav")
+    rng = np.random.default_rng(5)
+    t = np.arange(70 * SAMPLE_RATE) / SAMPLE_RATE
+    write_wav(long_path, (0.3 * np.sin(2 * np.pi * 200.0 * t)
+                          + 0.05 * rng.standard_normal(t.shape)).astype(np.float32))
+    argv = ["--model", MODEL, "--weights", setup["weights"], "--checkpoint",
+            setup["ckpt"], "--json", setup["wavs"][0], long_path]
+    jax_out, _ = _stdout(jax_transcribe_cli.main, argv)
+    out, _ = _stdout(transcribe_cli.main, argv + ["--device", "cpu"])
+    want = [json.loads(ln) for ln in jax_out.splitlines() if ln.startswith("{")]
+    got = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+    assert len(got) == len(want) == 2
+    assert [len(g["segments"]) for g in got] == [1, 3]
+    for g, w in zip(got, want):
+        assert g.keys() == w.keys() and g["text"] == w["text"] and g["text"]
+        for a, b in zip(g["segments"], w["segments"]):
+            assert a.keys() == b.keys()
+            for k in a:
+                if isinstance(a[k], float):
+                    assert a[k] == pytest.approx(b[k], abs=1e-4), k
+                else:
+                    assert a[k] == b[k], k
 
 
 def test_transcribe_single_matches_jax(setup):
@@ -256,6 +299,34 @@ def test_http_server(setup):
     assert not thread.is_alive() and not service._thread.is_alive()
 
 
+def test_http_server_beam(setup):
+    """cli.serve --beam-size 2 answers a request with decode()'s beam text."""
+    server, service = serve_cli.build_server(
+        ["--model", MODEL, "--weights", setup["weights"], "--checkpoint",
+         setup["ckpt"], "--device", "cpu", "--port", "0", "--batch-size", "2",
+         "--max-wait-ms", "10", "--beam-size", "2"])
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        req = urllib.request.Request(
+            f"{url}/transcribe",
+            data=json.dumps({"path": setup["wavs"][2]}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            got = json.loads(r.read())
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.close()
+        thread.join(timeout=30)
+    from whisper_ipa_torch.audio import load_audio
+
+    assert service.options.beam_size == 2
+    assert got["text"] and got["text"] == _expected_texts(
+        service, [load_audio(setup["wavs"][2])])[0]
+
+
 @pytest.mark.parametrize("argv,item", [
     (["--continuous"], "item 9"),
     (["--draft-model", "tiny"], "item 10"),
@@ -263,7 +334,7 @@ def test_http_server(setup):
     (["--medusa-weights", "heads.safetensors"], "item 10"),
     (["--dp", "2"], "item 12"),
     (["--tp", "2"], "item 12"),
-    (["--beam-size", "5"], "item 6"),
+    (["--beam-size", "2", "--draft-model", "tiny"], "item 10"),
 ])
 def test_serve_unported_flags_exit(argv, item):
     with pytest.raises(SystemExit) as e:
@@ -303,7 +374,6 @@ def test_serve_engine_flags_parse(argv, dest, value, item):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--beam-size", "5"], "item 6"),
     (["--data-parallel"], "item 12"),
 ])
 def test_evaluate_unported_flags_exit(argv, item):

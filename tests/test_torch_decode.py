@@ -2,7 +2,9 @@
 
 Same weights (numpy bridge), same mel, same options: in f32 the port's
 greedy tokens must be identical to ``whisper_ipa_tpu.decode.decode`` at the
-shapes of tests/test_decode.py, with the float and the int8 cross cache.
+shapes of tests/test_decode.py, with the float and the int8 cross cache;
+beam search and the timestamp rules too (their full parity tests are
+tests/test_torch_beam.py and tests/test_torch_decode_timestamps.py).
 In bf16 the two frameworks round at other places, so near-tie argmax flips
 are expected; the test asks for an agreement rate instead.
 """
@@ -184,7 +186,17 @@ def test_best_of_at_temperature_0_is_greedy(params, jax_params, mel, tok, jtok):
         dict(without_timestamps=False),
     ],
 )
-def test_unported_options_raise(params, mel, tok, kw):
-    opts = replace(_options(DecodingOptions), **kw)
-    with pytest.raises(NotImplementedError):
-        decode(params, CFG, mel[:1], opts, tokenizer=tok)
+def test_formerly_refused_options_run(params, jax_params, mel, tok, jtok, kw):
+    """Beam search, best-of sampling and the timestamp rules decode: the
+    deterministic ones give JAX's tokens; best-of (torch cannot draw
+    jax.random's numbers) one finite result an input, as JAX does."""
+    ref = jax_decode(jax_params, JCFG, jnp.asarray(mel),
+                     replace(_options(JaxOptions), **kw), tokenizer=jtok)
+    ours = decode(params, CFG, mel, replace(_options(DecodingOptions), **kw),
+                  tokenizer=tok)
+    assert len(ours) == len(ref) == 4
+    for a, b in zip(ours, ref):
+        assert np.isfinite(a.avg_logprob) and a.tokens
+        if kw.get("temperature", 0.0) == 0.0:
+            assert a.tokens == b.tokens
+            assert a.no_speech_prob == pytest.approx(b.no_speech_prob, abs=1e-6)

@@ -2,7 +2,7 @@
 
 Requests of any length resolve, and each window's text equals ``decode()``
 on the same batch of windows (tail padded with silence, as the service
-pads it).
+pads it), greedy and with beam search.
 """
 
 from dataclasses import replace
@@ -96,15 +96,36 @@ def test_requests_resolve_and_match_decode(service, params, tok):
         dict(draft_params={}, draft_cfg=CFG),
         dict(medusa_params={}),
         dict(mesh=object()),
-        dict(beam_size=2),
+        dict(draft_params={}, draft_cfg=CFG, beam_size=2),
         dict(draft_params={}, draft_cfg=CFG, draft_k=4),
         dict(tensor_parallel=True),
     ],
 )
 def test_unported_options_raise(params, kw):
-    match = r"item \[12\]" if kw.get("tensor_parallel") else None
-    with pytest.raises(NotImplementedError, match=match):
+    item = "12" if kw.get("tensor_parallel") or "mesh" in kw else "10"
+    with pytest.raises(NotImplementedError, match=rf"item \[{item}\]"):
         TranscriptionService(params, CFG, device="cpu", **kw)
+
+
+def test_beam_service_matches_decode(params, tok):
+    """beam_size reaches the service's decode: each window's result equals
+    decode() with the service's options (beam 2) on the same batch."""
+    svc = TranscriptionService(params, CFG, device="cpu", batch_size=2,
+                               max_wait_ms=0.0, bf16=False, tokenizer=tok,
+                               beam_size=2)
+    clip = _audio(3.0, seed=4)
+    try:
+        out = svc.submit(clip).result(timeout=300)
+    finally:
+        svc.close()
+    assert svc.options.beam_size == 2
+    group = np.zeros((2, N_SAMPLES), np.float32)
+    group[0, :len(clip)] = clip
+    mel = log_mel_spectrogram(torch.from_numpy(group), CFG.n_mels)
+    ref = decode(params, CFG, mel, svc.options, tokenizer=tok)[0]
+    assert out["text"] == ref.text
+    assert out["segments"][0]["avg_logprob"] == pytest.approx(ref.avg_logprob,
+                                                              abs=1e-6)
 
 
 def test_draft_k_alone_is_inert(params, tok):

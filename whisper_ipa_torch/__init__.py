@@ -13,7 +13,9 @@ Layout:
   models/     Whisper encoder/decoder over a parameter dict tree, int8
               cross-KV cache, the numpy bridge to the canonical names, and
               the checkpoint loader
-  decode/     DecodingOptions / decode(): greedy and temperature sampling
+  decode/     DecodingOptions / decode(): greedy, temperature sampling,
+              best-of, timestamp rules and beam search; transcribe() for
+              long-form audio; phone timestamps by DTW
   train/      single-device fine-tuning
   cli/        the command-line entry points
   serve.py    micro-batching TranscriptionService

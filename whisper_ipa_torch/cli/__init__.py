@@ -4,6 +4,7 @@
   train_whisper_ipa   fine-tuning loop
   evaluate_model      checkpoint evaluation (PER/PFER), base-model comparison
   transcribe_single   one file -> IPA with a checkpoint
+  transcribe          audio files of any length -> text or JSON (30 s windows)
   evaluate_ipa        metric self-test (host only)
   serve               HTTP server over the micro-batching service
   convert_weights     HF / MLX safetensors -> the checkpoint format

@@ -2,14 +2,15 @@
 
 Counterpart of ``whisper_ipa_tpu/cli/evaluate_model.py`` (the reference's
 scripts/evaluate_model.py:271-346), on one device, with the same printed
-report. Decoding is batched greedy; unlike the reference, a decode error is
-not swallowed into empty hypotheses but raised.
+report. Decoding is batched greedy, or beam search with ``--beam-size``;
+unlike the reference, a decode error is not swallowed into empty
+hypotheses but raised.
 
   python -m whisper_ipa_torch.cli.evaluate_model --base-model small \\
       --checkpoint run/checkpoint-1000 --test-data test.json --skip-base
 
-Not ported: ``--beam-size`` (ROADMAP queue 1 item 6) and
-``--data-parallel`` (item 12); each exits with a message.
+Not ported: ``--data-parallel`` (ROADMAP queue 1 item 12); it exits with a
+message.
 """
 
 import argparse
@@ -41,10 +42,12 @@ def evaluate_model(
     model_name: str = "Model",
     batch_size: int = 8,
     language: str = "en",
+    beam_size: Optional[int] = None,
 ) -> Dict:
-    """Greedy-decode the split in batches on the parameters' device and
-    score it; returns ``evaluate_batch``'s metrics plus the "references"
-    and "hypotheses" it scored."""
+    """Decode the split in batches on the parameters' device (greedy, or
+    beam search of width ``beam_size``) and score it; returns
+    ``evaluate_batch``'s metrics plus the "references" and "hypotheses" it
+    scored."""
     print("=" * 70)
     print(f"Evaluating {model_name}")
     print("=" * 70)
@@ -60,7 +63,9 @@ def evaluate_model(
     n = len(dataset) if not num_samples else min(num_samples, len(dataset))
     print(f"Evaluating on {n} samples (batch {batch_size})")
 
-    options = DecodingOptions(language=language, without_timestamps=True)
+    options = DecodingOptions(
+        language=language, without_timestamps=True, beam_size=beam_size
+    )
     references: List[str] = []
     hypotheses: List[str] = []
     for start in range(0, n, batch_size):
@@ -147,17 +152,16 @@ def main(argv=None) -> Dict:
     p.add_argument("--skip-base", action="store_true")
     p.add_argument("--n-mels", type=int, default=None, help="(derived from model)")
     p.add_argument("--batch-size", type=int, default=8)
-    p.add_argument("--beam-size", type=int, default=None,
-                   help="not ported (ROADMAP queue 1 item 6)")
+    p.add_argument(
+        "--beam-size", type=int, default=None,
+        help="beam-search decoding width (default: greedy)",
+    )
     p.add_argument("--weights", type=str, default=None)
     p.add_argument("--data-parallel", action="store_true",
                    help="not ported (ROADMAP queue 1 item 12)")
     add_overlay_flags(p)
     add_device_flag(p)
     args = p.parse_args(argv)
-    if args.beam_size is not None:
-        raise SystemExit("--beam-size: beam search is not ported to the "
-                         "PyTorch package yet (ROADMAP queue 1 item 6)")
     if args.data_parallel:
         raise SystemExit("--data-parallel: multi-device evaluation is not "
                          "ported to the PyTorch package yet (ROADMAP queue 1 "
@@ -174,6 +178,7 @@ def main(argv=None) -> Dict:
         base_results = evaluate_model(
             base_params, cfg, args.test_data, num_samples,
             model_name="Base Whisper Model", batch_size=args.batch_size,
+            beam_size=args.beam_size,
         )
 
     if os.path.isdir(args.checkpoint):
@@ -189,6 +194,7 @@ def main(argv=None) -> Dict:
     trained_results = evaluate_model(
         trained_params, cfg, args.test_data, num_samples,
         model_name="Trained Checkpoint", batch_size=args.batch_size,
+        beam_size=args.beam_size,
     )
 
     if base_results:

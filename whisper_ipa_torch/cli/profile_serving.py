@@ -1,9 +1,10 @@
 """CLI: where the serving path's time goes, on one CUDA card.
 
-Drives waveform -> log-mel -> encoder -> greedy decode at a model's full
-width with random weights from seed 0, in any of the serving variants
-(weight bits, cross-cache type, the fused cache build, int8 activations),
-and prints:
+Drives waveform -> log-mel -> encoder -> greedy decode (or beam search
+with ``--beam-size``; the timestamp grammar with ``--timestamps``) at a
+model's full width with random weights from seed 0, in any of the serving
+variants (weight bits, cross-cache type, the fused cache build, int8
+activations), and prints:
   - host-clock walls (device synchronised) of the whole run and its stages:
     log-mel + encoder, cache build + prefix step (a sample_len=1 decode from
     the encoder output), and the token loop;
@@ -14,6 +15,7 @@ and prints:
 and, as its last line, the same as one JSON object.
 
     python -m whisper_ipa_torch.cli.profile_serving --quant-bits 4 --kv int4
+    python -m whisper_ipa_torch.cli.profile_serving --batch 4 --beam-size 5
 """
 
 from __future__ import annotations
@@ -66,6 +68,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--kv", choices=("float", "int8", "int4"), default="int8")
     p.add_argument("--fused-kv-init", action="store_true")
     p.add_argument("--int8-activations", action="store_true")
+    p.add_argument("--beam-size", type=int, default=None)
+    p.add_argument("--timestamps", action="store_true",
+                   help="decode with the timestamp grammar")
     return p
 
 
@@ -101,7 +106,8 @@ def main(argv=None) -> int:
     tok = get_tokenizer(multilingual=cfg.multilingual,
                         num_languages=cfg.num_languages, language="en")
     options = DecodingOptions(
-        language="en", without_timestamps=True, sample_len=args.sample_len,
+        language="en", without_timestamps=not args.timestamps,
+        sample_len=args.sample_len, beam_size=args.beam_size,
         suppress_tokens=[-1, tok.eot],  # every row decodes sample_len tokens
         fp16=True, kv_int8=args.kv == "int8", kv_int4=args.kv == "int4",
     )

@@ -15,8 +15,11 @@ prefix, as the reference does.
 The cross cache is float, int8 (``kv_int8``) or nibble-packed int4
 (``kv_int4``, which wins over ``kv_int8`` as in the reference).
 
-Not ported yet (``decode`` raises ``NotImplementedError``): beam search,
-best-of-N sampling and the timestamp rules.
+With ``without_timestamps=False`` (the default, as in the reference) the
+loop applies Whisper's timestamp grammar (``apply_timestamp_rules``) after
+the suppress and blank masks. At temperature > 0, ``best_of=N`` samples N
+candidates for each input and keeps the best by ``sequence_score``
+(``rank_candidates``); ``beam_size`` hands the batch to ``beam.py``.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from ..config import WhisperConfig
 from ..models.whisper import cast_decoder_blocks, decode_step, encode, init_cache
 from ..ops.precision import full_fp32
 from ..tokenizer import LANGUAGES, LANGUAGES_V3, WhisperTokenizer, get_tokenizer
+from ..tokenizer.whisper_tokenizer import N_TIMESTAMPS
 
 FINISHED_CHECK_EVERY = 8
 
@@ -193,6 +197,91 @@ def sequence_score(
     return sum_logprob / penalty
 
 
+def rank_candidates(
+    tokens: np.ndarray,
+    sum_logprobs: np.ndarray,
+    n_candidates: int,
+    n_prefix: int,
+    eot: int,
+    length_penalty: Optional[float],
+) -> List[int]:
+    """Best-of-N: for each input, the row of its highest-scoring candidate.
+
+    tokens: (B * n_candidates, n_prefix + sample_len), the candidates of
+    input b in rows b * n_candidates ... (b + 1) * n_candidates - 1;
+    sum_logprobs: (B * n_candidates,). A candidate's length runs to its
+    first EOT; the first best wins a tie, as in the reference.
+    """
+    keep = []
+    for b in range(tokens.shape[0] // n_candidates):
+        best_row, best_score = b * n_candidates, -np.inf
+        for row in range(b * n_candidates, (b + 1) * n_candidates):
+            seq = tokens[row, n_prefix:]
+            eot_pos = np.nonzero(seq == eot)[0]
+            end = int(eot_pos[0]) if len(eot_pos) else len(seq)
+            score = sequence_score(float(sum_logprobs[row]), end, length_penalty)
+            if score > best_score:
+                best_row, best_score = row, score
+        keep.append(best_row)
+    return keep
+
+
+# -- timestamp grammar (shared by the greedy and beam loops) --------------
+
+def apply_timestamp_rules(
+    logits: torch.Tensor,
+    vocab_idx: torch.Tensor,
+    step: int,
+    prev_tok: torch.Tensor,
+    prev2_tok: torch.Tensor,
+    last_ts: torch.Tensor,
+    *,
+    eot: int,
+    timestamp_begin: int,
+    max_initial_ts_index: int,
+) -> torch.Tensor:
+    """Whisper's ApplyTimestampRules, batched over any leading dims.
+
+    ``logits``: (..., V); ``prev_tok``/``prev2_tok``/``last_ts``: (...,);
+    ``step``: the sampled position (0 = the first). The reference's rules:
+
+    - timestamps come in pairs (except directly before EOT): after a lone
+      timestamp only timestamps or EOT may follow; after a pair only text
+    - timestamps are strictly increasing, except that the token closing a
+      lone (segment-opening) timestamp may equal it
+    - the first sampled token is a timestamp, at most max_initial_ts_index
+    - when the total timestamp probability beats every text token, a
+      timestamp must be sampled
+
+    ``last_ts`` starts at ``timestamp_begin - 1``: no timestamp emitted
+    yet, so no monotonicity constraint applies.
+    """
+    neg_inf = float("-inf")
+    is_ts = vocab_idx >= timestamp_begin  # (V,)
+    last_was_ts = prev_tok >= timestamp_begin
+    pen_was_ts = prev2_tok >= timestamp_begin
+    lone = last_was_ts & ~pen_was_ts
+
+    suppress_ts = (last_was_ts & pen_was_ts)[..., None] & is_ts
+    force_ts = lone[..., None] & ~(is_ts | (vocab_idx == eot))
+    logits = logits.masked_fill(suppress_ts | force_ts, neg_inf)
+
+    min_allowed = torch.where(lone, last_ts, last_ts + 1)
+    logits = logits.masked_fill(
+        is_ts & (vocab_idx < min_allowed[..., None]), neg_inf
+    )
+
+    if step == 0:
+        first_allowed = is_ts & (vocab_idx <= timestamp_begin + max_initial_ts_index)
+        logits = logits.masked_fill(~first_allowed, neg_inf)
+
+    lp = torch.log_softmax(logits, dim=-1)
+    ts_mass = torch.logsumexp(lp.masked_fill(~is_ts, neg_inf), dim=-1)
+    max_text = lp.masked_fill(is_ts, neg_inf).amax(dim=-1)
+    dominate = (ts_mass > max_text)[..., None]
+    return logits.masked_fill(dominate & ~is_ts, neg_inf)
+
+
 # -- greedy / sampling loop -----------------------------------------------
 
 def _greedy_decode(
@@ -210,9 +299,18 @@ def _greedy_decode(
     sot_index: int,
     cross_kv_int8: bool,
     cross_kv_int4: bool,
+    *,
+    timestamp_rules: bool,
+    timestamp_begin: int,
+    max_initial_ts_index: int,
 ):
     """Batched greedy/temperature decode; returns (tokens (B, n_prefix +
-    sample_len), sum_logprobs (B,), sot_logits (B, n_vocab))."""
+    sample_len), sum_logprobs (B,), sot_logits (B, n_vocab)).
+
+    With ``timestamp_rules`` the grammar state follows the reference's
+    loop: the last two tokens start at the prefix's last two, the last
+    timestamp at ``timestamp_begin - 1``, and it moves only on a
+    timestamp token."""
     # one cast before the loop, as the reference does outside its loop
     params = cast_decoder_blocks(params, dtype)
     B, n_prefix = prefix_tokens.shape
@@ -232,6 +330,11 @@ def _greedy_decode(
     tokens[:, :n_prefix] = prefix_tokens
     finished = torch.zeros(B, dtype=torch.bool, device=device)
     sum_logprobs = torch.zeros(B, dtype=torch.float32, device=device)
+    vocab_idx = torch.arange(suppress_mask.shape[0], device=device)
+    prev_tok = prefix_tokens[:, -1]
+    prev2_tok = prefix_tokens[:, -2] if n_prefix >= 2 else prefix_tokens[:, -1]
+    last_ts = torch.full((B,), timestamp_begin - 1, dtype=torch.long,
+                         device=device)
 
     for step in range(sample_len):
         if step and step % FINISHED_CHECK_EVERY == 0 and bool(finished.all()):
@@ -239,6 +342,12 @@ def _greedy_decode(
         filtered = logits + suppress_mask
         if step == 0:
             filtered = filtered + blank_mask
+        if timestamp_rules:
+            filtered = apply_timestamp_rules(
+                filtered, vocab_idx, step, prev_tok, prev2_tok, last_ts,
+                eot=eot, timestamp_begin=timestamp_begin,
+                max_initial_ts_index=max_initial_ts_index,
+            )
         if temperature == 0.0:
             next_tok = filtered.argmax(dim=-1)
         else:
@@ -250,6 +359,8 @@ def _greedy_decode(
         next_tok = torch.where(finished, eot, next_tok)
         sum_logprobs = sum_logprobs + torch.where(finished, 0.0, tok_logprob)
         finished = finished | (next_tok == eot)
+        prev2_tok, prev_tok = prev_tok, next_tok
+        last_ts = torch.where(next_tok >= timestamp_begin, next_tok, last_ts)
 
         pos = n_prefix + step
         tokens[:, pos] = next_tok
@@ -262,22 +373,6 @@ def _greedy_decode(
 
 
 # -- public API -----------------------------------------------------------
-
-def _check_supported(options: DecodingOptions, cfg: WhisperConfig) -> None:
-    missing = []
-    if options.beam_size is not None:
-        missing.append("beam_size")
-    # as in the reference, best_of draws candidates only when sampling; at
-    # temperature 0 it is ignored and the decode is greedy
-    if options.best_of is not None and options.best_of > 1 and options.temperature > 0:
-        missing.append("best_of > 1 at temperature > 0 (ROADMAP queue 1 item [5])")
-    if not options.without_timestamps:
-        missing.append("timestamp rules (without_timestamps=False)")
-    if missing:
-        raise NotImplementedError(
-            "not ported to the PyTorch package yet: " + ", ".join(missing)
-        )
-
 
 def _device_of(params) -> torch.device:
     return params["decoder"]["token_embedding"].device
@@ -296,7 +391,6 @@ def decode(
     encoder output, a tensor or array; it is moved to the parameters'
     device. Returns one DecodingResult per batch element.
     """
-    _check_supported(options, cfg)
     if tokenizer is None:
         tokenizer = get_tokenizer(
             multilingual=cfg.multilingual,
@@ -346,6 +440,33 @@ def decode(
             if options.suppress_blank
             else torch.zeros(cfg.n_vocab)
         ).to(device)
+        max_initial_ts_index = (
+            int(options.max_initial_timestamp / 0.02)
+            if options.max_initial_timestamp is not None
+            else N_TIMESTAMPS - 1
+        )
+
+        if options.beam_size is not None:
+            from .beam import beam_decode
+
+            return beam_decode(
+                params, cfg, audio_features, prefix, options, tokenizer,
+                suppress_mask, blank_mask, prefix_tokens=prefix_tokens,
+                sot_index=sot_index, max_initial_ts_index=max_initial_ts_index,
+                detected_langs=detected_langs,
+            )
+
+        # best_of: at temperature > 0, n candidates an input, tiled in the
+        # order of the reference's jnp.repeat, the best of each kept
+        n_candidates = (
+            int(options.best_of)
+            if options.best_of and options.temperature > 0
+            else 1
+        )
+        if n_candidates > 1:
+            audio_features = audio_features.repeat_interleave(n_candidates, 0)
+            prefix_tokens = prefix_tokens.repeat_interleave(n_candidates, 0)
+
         generator = None
         if options.temperature > 0.0:
             generator = torch.Generator(device=device).manual_seed(options.seed)
@@ -355,11 +476,21 @@ def decode(
             blank_mask, tokenizer.eot, int(sample_len),
             float(options.temperature), generator, dtype, sot_index,
             options.kv_int8, options.kv_int4,
+            timestamp_rules=not options.without_timestamps,
+            timestamp_begin=tokenizer.timestamp_begin,
+            max_initial_ts_index=max_initial_ts_index,
         )
         no_speech_probs = torch.softmax(sot_logits, dim=-1)[:, tokenizer.no_speech]
         tokens_np = tokens.cpu().numpy()
         sum_logprobs_np = sum_logprobs.cpu().numpy()
         no_speech_np = no_speech_probs.float().cpu().numpy()
+
+    if n_candidates > 1:
+        keep = rank_candidates(tokens_np, sum_logprobs_np, n_candidates,
+                               n_prefix, tokenizer.eot, options.length_penalty)
+        tokens_np = tokens_np[keep]
+        sum_logprobs_np = sum_logprobs_np[keep]
+        no_speech_np = no_speech_np[keep]
 
     results = []
     for b in range(B):

@@ -250,6 +250,42 @@ def multi_head_attention_two_part(
     return merge_heads(out)
 
 
+def multi_head_attention_beam_cache(
+    q, k_cache, v_cache, k_new, v_new, n_head: int, sel_mask
+):
+    """Beam self-attention over the unreordered per-row self cache.
+
+    Physical row k keeps the K/V its beam slot wrote; an ancestry table
+    says which row holds beam j's history at each position, and the
+    additive select-mask (0 where that row and position are beam j's and
+    live, -inf elsewhere) picks one row a position inside the softmax, so
+    the cache is never copied to follow the beams.
+
+    q/k_new/v_new: (B, J, d), one query and one new K/V a beam;
+    k_cache/v_cache: (B, K, n_ctx, d) physical rows (K == J); sel_mask:
+    additive (B, J, K, n_ctx). The new token attends itself with no mask.
+    """
+    B, J, d = q.shape
+    K, n_ctx = k_cache.shape[1], k_cache.shape[2]
+    d_head = d // n_head
+    scale = d_head ** -0.25
+    qh = q.reshape(B, J, n_head, d_head) * scale
+    kc = k_cache.reshape(B, K, n_ctx, n_head, d_head) * scale
+    kn = k_new.reshape(B, J, n_head, d_head) * scale
+
+    lc = torch.einsum("bjhd,bkphd->bhjkp", qh, kc).float()
+    lc = lc + sel_mask[:, None]  # (B, H, J, K, n_ctx)
+    ln = torch.einsum("bjhd,bjhd->bhj", qh, kn).float()
+    flat = torch.cat([lc.reshape(B, n_head, J, K * n_ctx), ln[..., None]], -1)
+    w = torch.softmax(flat, dim=-1).to(v_cache.dtype)
+    wc = w[..., :-1].reshape(B, n_head, J, K, n_ctx)
+    vc = v_cache.reshape(B, K, n_ctx, n_head, d_head)
+    out = torch.einsum("bhjkp,bkphd->bjhd", wc, vc)
+    out = out + w[..., -1].transpose(1, 2)[..., None] * v_new.reshape(
+        B, J, n_head, d_head)
+    return out.reshape(B, J, d)
+
+
 def multi_head_attention_int8kv(q, k_i8, k_scale, v_i8, v_scale, n_head: int):
     """Unmasked attention over the quantized T-minor cross cache.
 

@@ -33,10 +33,13 @@ from .layers import (
     layer_norm,
     linear,
     mlp_block,
+    merge_heads,
     multi_head_attention,
+    multi_head_attention_beam_cache,
     multi_head_attention_int8kv,
     multi_head_attention_two_part,
     sinusoids,
+    split_heads,
 )
 
 Params = Dict[str, Any]
@@ -210,6 +213,42 @@ def decoder_logits(params: Params, cfg: WhisperConfig, tokens, audio_features,
             return (x.to(torch.bfloat16).float()
                     @ emb.to(torch.bfloat16).float().T)
         return x.float() @ emb.float().T
+
+
+def decoder_cross_attentions(params: Params, cfg: WhisperConfig, tokens,
+                             audio_features, dtype=torch.float32):
+    """Teacher-forced forward that also returns the cross-attention weights.
+
+    Returns (logits (B, T, V) f32, weights (L, B, H, T, T_a) f32): the
+    alignment signal of the phone timestamps (``decode/word_timestamps``).
+    Plain PyTorch, as the reference's einsums.
+    """
+    dec = params["decoder"]
+    T = tokens.shape[1]
+    H = cfg.n_text_head
+    scale = cfg.n_text_head_dim ** -0.25
+    weights = []
+    with full_fp32():
+        x = dec["token_embedding"][tokens].to(dtype)
+        x = x + dec["positional_embedding"][:T].to(dtype)
+        mask = causal_mask(T, device=x.device)
+        audio_features = audio_features.to(dtype)
+        for block in dec["blocks"]:
+            h, _ = attention_block(layer_norm(x, block["attn_ln"]),
+                                   block["attn"], H, mask=mask)
+            x = x + h
+            xn = layer_norm(x, block["cross_attn_ln"])
+            cross = block["cross_attn"]
+            q = split_heads(linear(xn, cross["query"]), H) * scale
+            k = split_heads(linear(audio_features, cross["key"]), H) * scale
+            v = split_heads(linear(audio_features, cross["value"]), H)
+            w = torch.softmax(torch.matmul(q, k.transpose(-1, -2)).float(), -1)
+            out = torch.matmul(w.to(v.dtype), v)
+            x = x + linear(merge_heads(out), cross["out"])
+            x = x + mlp_block(layer_norm(x, block["mlp_ln"]), block)
+            weights.append(w)
+        logits = _final_logits(dec, x)
+    return logits, torch.stack(weights)
 
 
 # -- decoder (incremental, KV-cached) -------------------------------------
@@ -461,6 +500,67 @@ def decode_step(
             cache.self_v[i, :, pos:pos + S] = v_new
         step_logits = _final_logits(dec, x)
     return step_logits, cache
+
+
+def decode_step_beam(
+    params: Params,
+    cfg: WhisperConfig,
+    tokens,
+    cache: DecoderCache,
+    pos: int,
+    anc,
+    dtype=torch.float32,
+) -> Tuple[torch.Tensor, DecoderCache]:
+    """One beam step over the unreordered self cache: tokens (B, J), one new
+    token a beam at position ``pos``; anc (B, J, n_ctx), the physical row
+    holding beam j's K/V at each position.
+
+    cache.self_k/self_v: (L, B*J, n_ctx, d); the new K/V land in place at
+    physical row j (``anc[b, j, pos]`` must be j). The cross cache stays at
+    batch B: the J beam queries ride its query axis, so it is read once a
+    step, not J times. At S = J queries the quantized cross-attention takes
+    the plain path (``multi_head_attention_int8kv``), as the reference's
+    einsum does; K4 and K8 are single-query.
+    Returns (logits (B, J, n_vocab) f32, cache).
+    """
+    dec = params["decoder"]
+    B, J = tokens.shape
+    n_ctx = cache.self_k.shape[2]
+    device = tokens.device
+    H = cfg.n_text_head
+    with full_fp32():
+        x = dec["token_embedding"][tokens.reshape(B * J)].to(dtype)
+        x = (x + dec["positional_embedding"][pos].to(dtype)).reshape(B * J, 1, -1)
+        # row anc[b, j, p] at position p < pos is beam j's history
+        rows = torch.arange(J, device=device)[None, None, :, None]
+        live = torch.arange(n_ctx, device=device) < pos
+        sel_mask = torch.where(
+            (anc[:, :, None, :] == rows) & live,
+            torch.zeros((), device=device),
+            torch.full((), float("-inf"), device=device),
+        )  # (B, J, J, n_ctx)
+
+        def self_attn(q, k_cache, v_cache, k_new, v_new):
+            return multi_head_attention_beam_cache(
+                q.reshape(B, J, -1), k_cache.reshape(B, J, n_ctx, -1),
+                v_cache.reshape(B, J, n_ctx, -1), k_new.reshape(B, J, -1),
+                v_new.reshape(B, J, -1), H, sel_mask,
+            ).reshape(B * J, 1, -1)
+
+        def cross_attn(qc, xk, xv, k_scale, v_scale):
+            qc = qc.reshape(B, J, -1)
+            if k_scale is not None:
+                hc = multi_head_attention_int8kv(qc, xk, k_scale, xv, v_scale, H)
+            else:
+                hc = multi_head_attention(qc, xk, xv, H)
+            return hc.reshape(B * J, 1, -1)
+
+        x, news = _run_decoder_layers(dec, cfg, x, cache, self_attn, cross_attn)
+        for i, (k_new, v_new) in enumerate(news):
+            cache.self_k[i, :, pos] = k_new[:, 0]
+            cache.self_v[i, :, pos] = v_new[:, 0]
+        step_logits = _final_logits(dec, x)
+    return step_logits.reshape(B, J, -1), cache
 
 
 # -- parameter utilities --------------------------------------------------

@@ -1,19 +1,21 @@
 """Micro-batching inference service: request queue -> fixed device batches.
 
-Counterpart of ``whisper_ipa_tpu/serve.py`` (greedy branch). Callers submit
-audio of any length and get futures; a scheduler thread coalesces pending
-requests into fixed-size batches of 30 s windows (the tail padded with
-silence), runs waveform -> log-mel (K1 on CUDA) -> encoder -> int8
-cross-KV greedy decode on the service's device, and resolves the futures.
+Counterpart of ``whisper_ipa_tpu/serve.py`` (its greedy and beam
+branches). Callers submit audio of any length and get futures; a scheduler
+thread coalesces pending requests into fixed-size batches of 30 s windows
+(the tail padded with silence), runs waveform -> log-mel (K1 on CUDA) ->
+encoder -> int8 cross-KV greedy decode, or beam search with ``beam_size``,
+on the service's device, and resolves the futures.
 
 ``quant_bits`` (8 or 4) quantizes the block weights at startup
 (``ops/quant.quantize_params``) before they move to the device; ``kv_int4``
 keeps the cross cache as nibble-packed int4 (and overrides ``kv_int8``).
 
-Not ported yet (the constructor raises ``NotImplementedError``): speculative
-decoding (draft model, Medusa heads), multi-device meshes, tensor-parallel
-serving and beam search. ``draft_k`` is accepted and, as in the reference,
-inert without ``draft_params``.
+Not ported yet (the constructor raises ``NotImplementedError`` naming the
+ROADMAP item): speculative decoding (draft model, Medusa heads; with or
+without ``beam_size``, which the reference refuses beside them), multi-
+device meshes and tensor-parallel serving. ``draft_k`` is accepted and, as
+in the reference, inert without ``draft_params``.
 The HTTP front end over it is ``cli/serve.py``.
 """
 
@@ -83,13 +85,12 @@ class TranscriptionService:
         tokenizer: Optional[WhisperTokenizer] = None,
     ):
         unported = {
-            "draft_params/draft_cfg": draft_params is not None
-            or draft_cfg is not None,
-            "medusa_params/medusa_tree": medusa_params is not None
-            or medusa_tree is not None,
-            "mesh": mesh is not None,
+            "draft_params/draft_cfg (ROADMAP queue 1 item [10])":
+            draft_params is not None or draft_cfg is not None,
+            "medusa_params/medusa_tree (ROADMAP queue 1 item [10])":
+            medusa_params is not None or medusa_tree is not None,
+            "mesh (ROADMAP queue 1 item [12])": mesh is not None,
             "tensor_parallel (ROADMAP queue 1 item [12])": tensor_parallel,
-            "beam_size": beam_size is not None,
         }
         missing = [name for name, used in unported.items() if used]
         if missing:
@@ -112,6 +113,7 @@ class TranscriptionService:
         self.options = DecodingOptions(
             language=language,
             without_timestamps=True,
+            beam_size=beam_size,
             fp16=bf16,
             kv_int8=kv_int8 and not kv_int4,
             kv_int4=kv_int4,
