@@ -77,26 +77,46 @@ def test_init_is_seeded():
     assert not np.array_equal(a[name], c[name])
 
 
+# modules the learning slice added; the scan must reach each of them
+LEARNING_SLICE_MODULES = [
+    "whisper_ipa_torch.data.synth",
+    "whisper_ipa_torch.metrics.native",
+    "whisper_ipa_torch.audio.native",
+    "whisper_ipa_torch.metrics.analysis",
+    "whisper_ipa_torch.cli.error_analysis",
+    "whisper_ipa_torch.utils",
+    "whisper_ipa_torch.utils.timing",
+    "whisper_ipa_torch.utils.trees",
+]
+
+
 def test_port_never_imports_jax():
     """Importing every module of the port loads neither jax nor any module
-    of the JAX package (not even one that holds no JAX)."""
+    of the JAX package (not even one that holds no JAX). The two ctypes
+    modules raise on import, by design, where native/libwipa_native.so is
+    not built; they are imported whenever it is."""
     code = (
-        "import importlib, pkgutil, sys\n"
+        "import importlib, os, pkgutil, sys\n"
         "import whisper_ipa_torch\n"
         "names = [m.name for m in pkgutil.walk_packages("
         "whisper_ipa_torch.__path__, 'whisper_ipa_torch.')]\n"
-        "for n in names: importlib.import_module(n)\n"
+        "built = os.path.isfile(os.path.join('native', 'libwipa_native.so'))\n"
+        "for n in names:\n"
+        "    if built or not n.endswith('.native'):\n"
+        "        importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith(('jax.', 'jaxlib', 'whisper_ipa_tpu')))\n"
         "assert not bad, bad\n"
-        "print(len(names))\n"
+        "print('\\n'.join(names))\n"
     )
     out = subprocess.run(
         [sys.executable, "-c", code], capture_output=True, text=True,
         timeout=120, cwd=REPO_ROOT,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 30  # every module was imported
+    names = out.stdout.split()
+    assert len(names) >= 30  # every module was imported
+    assert set(LEARNING_SLICE_MODULES) <= set(names)
 
 
 def _imported_modules(path):

@@ -11,7 +11,9 @@ server over a CPU service answers /healthz, /stats, /transcribe and
 /transcribe_stream with ``decode()``'s texts; every unported flag exits
 with its message. With ``--beam-size``, ``evaluate_model`` gives the JAX
 CLI's report and the server ``decode()``'s beam texts; ``cli.transcribe
---json`` prints the JAX CLI's JSON lines.
+--json`` prints the JAX CLI's JSON lines. ``error_analysis`` prints and
+writes the JAX CLI's report, from saved predictions and from the
+checkpoint.
 """
 
 import io
@@ -30,6 +32,7 @@ import jax.numpy as jnp
 
 import whisper_ipa_tpu.config as jax_config
 import whisper_ipa_torch.config as port_config
+from whisper_ipa_tpu.cli import error_analysis as jax_error_analysis
 from whisper_ipa_tpu.cli import evaluate_ipa as jax_evaluate_ipa
 from whisper_ipa_tpu.cli import evaluate_model as jax_evaluate_model
 from whisper_ipa_tpu.cli import transcribe as jax_transcribe_cli
@@ -41,7 +44,12 @@ from whisper_ipa_tpu.models.convert import (
 )
 from whisper_ipa_tpu.models.convert import save_safetensors as jax_save
 from whisper_ipa_torch.audio import N_SAMPLES, SAMPLE_RATE, pad_or_trim, write_wav
-from whisper_ipa_torch.cli import convert_weights, evaluate_ipa, evaluate_model
+from whisper_ipa_torch.cli import (
+    convert_weights,
+    error_analysis,
+    evaluate_ipa,
+    evaluate_model,
+)
 from whisper_ipa_torch.cli import serve as serve_cli
 from whisper_ipa_torch.cli import transcribe as transcribe_cli
 from whisper_ipa_torch.cli import transcribe_single
@@ -396,3 +404,56 @@ def test_cuda_is_the_default_device():
     for main in (evaluate_model.main, transcribe_single.main):
         with pytest.raises(RuntimeError, match="is_available"):
             main(["--base-model", "test-tiny"])
+
+
+ANALYSIS_PAIRS = [
+    {"reference": "kæt", "hypothesis": "kɛt"},
+    {"reference": "mus", "hypothesis": "muːst"},
+    {"reference": "tasa", "hypothesis": "ta"},
+    {"reference": "", "hypothesis": ""},
+    {"reference": "ami", "hypothesis": ""},
+    {"reference": "ðɪs ɪz", "hypothesis": "dɪs iz"},
+]
+
+
+def _analysis(fn, argv, out_path):
+    """(stdout without the report path, the report JSON written)."""
+    text, _ = _stdout(fn, argv + ["--output", out_path])
+    with open(out_path, encoding="utf-8") as f:
+        written = json.load(f)
+    return text.replace(out_path, "<out>"), written
+
+
+def test_error_analysis_predictions_matches_jax(tmp_path):
+    preds = str(tmp_path / "preds.json")
+    with open(preds, "w", encoding="utf-8") as f:
+        json.dump(ANALYSIS_PAIRS, f, ensure_ascii=False)
+    argv = ["--predictions", preds]
+    jax_text, jax_report = _analysis(jax_error_analysis.main, argv,
+                                     str(tmp_path / "jax.json"))
+    text, report = _analysis(error_analysis.main, argv,
+                             str(tmp_path / "port.json"))
+    assert text == jax_text and "Top substitutions" in text
+    assert report == jax_report and report["num_pairs"] == len(ANALYSIS_PAIRS)
+
+
+def test_error_analysis_checkpoint_matches_jax(setup, tmp_path):
+    argv = ["--checkpoint", setup["ckpt"], "--test-data", setup["split"],
+            "--base-model", MODEL, "--weights", setup["weights"],
+            "--batch-size", "2"]
+    jax_text, jax_report = _analysis(jax_error_analysis.main, argv,
+                                     str(tmp_path / "jax.json"))
+    text, report = _analysis(error_analysis.main, argv + ["--device", "cpu"],
+                             str(tmp_path / "port.json"))
+    assert text == jax_text
+    assert report == jax_report and report["num_pairs"] == len(IPAS)
+    # the decoder emits text, so the report is not all deletions
+    assert report["phone_accuracy"] < 1.0 and report["per"]["worst"] > 0
+
+
+def test_error_analysis_cuda_is_the_default_device(setup):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device exists")
+    with pytest.raises(RuntimeError, match="is_available"):
+        error_analysis.main(["--base-model", MODEL, "--test-data",
+                             setup["split"]])

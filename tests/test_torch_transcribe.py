@@ -168,6 +168,38 @@ def test_ladder_retries_the_windows_jax_retries(params, jax_params, audio,
             assert a["tokens"] == b["tokens"]
 
 
+def test_sequential_windows_record_their_branch(params, tok):
+    """Scripted decodes walk the sequential mode through each of its
+    branches; the result's "windows" names the one each window took."""
+    from whisper_ipa_torch.decode import DecodingResult
+
+    tb, text = tok.timestamp_begin, tok.encode("k")
+
+    def result(tokens, no_speech_prob=0.0, avg_logprob=-0.1):
+        return DecodingResult(
+            tokens=tokens, text=tok.decode_text(
+                [t for t in tokens if t < tb]), avg_logprob=avg_logprob,
+            no_speech_prob=no_speech_prob, temperature=0.0,
+            compression_ratio=1.0)
+
+    scripted = iter([
+        result(text, no_speech_prob=0.9, avg_logprob=-2.0),  # 0 s
+        result([tb, *text, tb + 500, tb + 500]),  # 30 s, moves 10 s
+        result(text),  # 40 s, moves a window
+        result([tb]),  # 70 s
+    ])
+    with mock.patch.object(port_tr, "decode",
+                           side_effect=lambda *a, **k: [next(scripted)]):
+        got = transcribe(params, CFG, np.zeros(100 * SAMPLE_RATE, np.float32),
+                         tokenizer=tok, temperature=(0.0,),
+                         sequential_timestamps=True)
+    assert [(w["start"], w["branch"]) for w in got["windows"]] == [
+        (0.0, "silent"), (30.0, "timestamp pairs"), (40.0, "whole window"),
+        (70.0, "no text")]
+    assert [(s["start"], s["end"]) for s in got["segments"]] == [
+        (30.0, 40.0), (40.0, 70.0)]
+
+
 @pytest.mark.parametrize("seconds", [0.0, 1.0, 30.0, 30.01, 70.0])
 def test_chunk_audio_matches_jax(seconds):
     a = np.random.default_rng(1).standard_normal(int(seconds * SAMPLE_RATE)).astype(

@@ -6,9 +6,9 @@ scripts/ipa_data_loader.py:48). Here WAV/PCM decoding is done in-process
 (stdlib + NumPy) with polyphase resampling (scipy); ffmpeg is only used as
 an optional fallback for compressed formats (mp3/flac/ogg) when present.
 
-The PyTorch package's copy of ``whisper_ipa_tpu/audio/io.py``; the
-native C++ WAV decoder of the JAX package is not ported, so WAV files
-always take the Python decoder (the same samples).
+The PyTorch package's copy of ``whisper_ipa_tpu/audio/io.py``: WAV files
+take the native C++ decoder (``audio.native``) when its library is built,
+and the Python decoder (the same samples) otherwise.
 """
 
 from __future__ import annotations
@@ -100,10 +100,21 @@ def resample(audio: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
     return resample_poly(audio, target_sr // g, orig_sr // g).astype(np.float32)
 
 
+try:  # native C++ decoder (native/audio.cpp); Python path is the fallback
+    from .native import decode_wav_file as _native_decode_wav
+except Exception:  # pragma: no cover - shared library not built
+    _native_decode_wav = None
+
+
 def load_audio(path: str, sr: int = SAMPLE_RATE) -> np.ndarray:
     """Load an audio file as 16 kHz mono float32."""
     lower = path.lower()
     if lower.endswith(".wav"):
+        if _native_decode_wav is not None:
+            try:
+                return _native_decode_wav(path, sr)
+            except Exception:
+                pass  # malformed/exotic WAV: fall through to Python
         try:
             data, orig_sr = _decode_wav(path)
         except Exception:

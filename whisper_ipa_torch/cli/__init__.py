@@ -6,6 +6,8 @@
   transcribe_single   one file -> IPA with a checkpoint
   transcribe          audio files of any length -> text or JSON (30 s windows)
   evaluate_ipa        metric self-test (host only)
+  error_analysis      phone confusions and PER/PFER distributions of a
+                      checkpoint on a split (or of saved predictions)
   serve               HTTP server over the micro-batching service
   convert_weights     HF / MLX safetensors -> the checkpoint format
   profile_serving     device time of the serving variants (torch.profiler)

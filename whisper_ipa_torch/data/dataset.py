@@ -11,7 +11,8 @@ Counterpart of ``whisper_ipa_tpu/data/dataset.py``, with the same cache
 files, batches and sampling order:
 
   - optional persistent mel cache (one .npy per utterance, float16 on disk);
-    mels are computed on the host by the NumPy log-mel
+    mels are computed on the host by the NumPy log-mel, or beforehand on a
+    device by ``precompute_mels`` (K1 on CUDA)
   - a background prefetch thread assembles upcoming batches while the
     device runs the current step, sampling with
     ``np.random.default_rng(seed)`` and padding tokens to power-of-two
@@ -112,6 +113,30 @@ class IPADataset:
         if self.mel_cache_dir:
             np.save(self._cache_path(audio_path), m.astype(np.float16))
         return m
+
+    def precompute_mels(self, device, batch_size: int = 16) -> int:
+        """Fill the mel cache on ``device``: the log-mel of every uncached
+        utterance through ``ops.log_mel_spectrogram`` (K1 on CUDA), saved
+        as the float16 file ``mel()`` reads. Returns the number computed."""
+        import torch
+
+        from ..ops.mel_kernel import log_mel_spectrogram as device_log_mel
+
+        if not self.mel_cache_dir:
+            raise ValueError("precompute_mels needs a mel_cache_dir")
+        paths = [e["audio_path"] for e in self.data]
+        todo = [p for p in dict.fromkeys(paths)
+                if not os.path.isfile(self._cache_path(p))]
+        for start in range(0, len(todo), batch_size):
+            group = todo[start:start + batch_size]
+            audio = np.stack([pad_or_trim(load_audio(p)) for p in group])
+            with torch.inference_mode():
+                mels = device_log_mel(
+                    torch.from_numpy(audio).to(device), n_mels=self.n_mels
+                ).to(torch.float16).cpu().numpy()
+            for path, m in zip(group, mels):
+                np.save(self._cache_path(path), m)
+        return len(todo)
 
     # -- frozen-encoder feature cache --------------------------------------
 

@@ -138,7 +138,11 @@ def transcribe(
       - condition_on_previous_text=True: windows in turn, each prompted
         with the previous windows' last tokens (<|startofprev|>)
       - sequential_timestamps=True: windows in turn, decoded with
-        timestamps, the next window starting at the last segment boundary
+        timestamps, the next window starting at the last segment boundary;
+        the result also lists, under "windows", each window's start,
+        temperature and the branch that took its decode: "silent" (the
+        no-speech gate skipped it), "timestamp pairs", "whole window" (text
+        without a closing timestamp) or "no text"
 
     word_timestamps=True adds per-IPA-phone times to each segment.
     ``decode_kwargs`` go to every ``DecodingOptions`` (e.g. sample_len,
@@ -296,6 +300,7 @@ def _transcribe_sequential_timestamps(
 
     segments = []
     texts = []
+    windows = []  # each window's start, temperature and branch
     seek = 0  # in samples
     window = 0
     prev_tokens: List[int] = []
@@ -307,6 +312,8 @@ def _transcribe_sequential_timestamps(
             if condition_on_previous_text and prev_tokens else None
         )
         r = decode_window(mel, prompt)
+        windows.append({"start": seek / SAMPLE_RATE,
+                        "temperature": r.temperature, "branch": "silent"})
 
         if _is_silent(r, no_speech_threshold, logprob_threshold):
             seek += N_SAMPLES
@@ -322,6 +329,7 @@ def _transcribe_sequential_timestamps(
 
         window_segments, advance = parse_timestamp_segments(r.tokens, ts_begin)
         offset_sec = seek / SAMPLE_RATE
+        n_kept = len(segments)
         for s_frame, e_frame, text_tokens in window_segments:
             text = tokenizer.decode_text(text_tokens).strip()
             if not text:
@@ -350,6 +358,9 @@ def _transcribe_sequential_timestamps(
                 "temperature": r.temperature,
             })
             texts.append(r.text.strip())
+        windows[-1]["branch"] = (
+            "no text" if len(segments) == n_kept
+            else "timestamp pairs" if window_segments else "whole window")
 
         if advance is not None and advance > 0:
             seek += int(advance * frame_sec * SAMPLE_RATE)
@@ -357,4 +368,5 @@ def _transcribe_sequential_timestamps(
             seek += N_SAMPLES
         window += 1
 
-    return {"text": "".join(texts), "segments": segments, "language": language}
+    return {"text": "".join(texts), "segments": segments,
+            "language": language, "windows": windows}

@@ -1,5 +1,6 @@
-"""Phonetic metrics (PER, PFER): copies of ``whisper_ipa_tpu.metrics``
-with the NumPy edit-distance cores only."""
+"""Phonetic metrics (PER, PFER) and error analysis: copies of
+``whisper_ipa_tpu.metrics``, the native C++ edit-distance cores first and
+the NumPy ones where the library is not built."""
 
 from .evaluate import evaluate_batch
 from .features import (

@@ -2,8 +2,9 @@
 
 PER = edit_distance(ref_phones, hyp_phones) / len(ref_phones) * 100
 (reference scripts/evaluate_ipa.py:80-105). The PyTorch package's copy of
-``whisper_ipa_tpu/metrics/per.py`` with the vectorized NumPy DP only (the
-native C++ core is not ported).
+``whisper_ipa_tpu/metrics/per.py``: the edit-distance core prefers the
+native C++ implementation (``metrics.native``) and otherwise takes a
+vectorized NumPy DP (the same distances).
 """
 
 from __future__ import annotations
@@ -13,6 +14,12 @@ from typing import List, Sequence
 import numpy as np
 
 from .segment import tokenize_ipa
+
+try:  # native C++ Levenshtein (built from native/editdistance.cpp)
+    from .native import levenshtein as _native_levenshtein
+except Exception:  # pragma: no cover - native lib not built
+    _native_levenshtein = None
+
 
 def _levenshtein_numpy(a: Sequence[int], b: Sequence[int]) -> int:
     """Row-vectorized Levenshtein on integer id sequences."""
@@ -53,6 +60,8 @@ def edit_distance(a: Sequence, b: Sequence) -> int:
         return out
 
     ia, ib = ids(a), ids(b)
+    if _native_levenshtein is not None:
+        return _native_levenshtein(ia, ib)
     return _levenshtein_numpy(ia, ib)
 
 

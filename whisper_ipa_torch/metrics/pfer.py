@@ -13,8 +13,8 @@ Two variants, matching the reference (scripts/evaluate_ipa.py:108-287):
 Both DPs are vectorized: feature vectors are precomputed per unique phone
 and the substitution-cost matrix is one (m, n) tensor op; the remaining
 O(m·n) recurrence runs row-vectorized (anti-diagonal dependency removed via
-the Hamming structure). The PyTorch package's copy of
-``whisper_ipa_tpu/metrics/pfer.py`` without the native C++ core.
+the Hamming structure) or through the native C++ core when available.
+The PyTorch package's copy of ``whisper_ipa_tpu/metrics/pfer.py``.
 """
 
 from __future__ import annotations
@@ -25,6 +25,16 @@ import numpy as np
 
 from .features import NUM_FEATURES, get_phone_features
 from .segment import tokenize_ipa
+
+try:
+    from .native import weighted_edit_distance as _native_weighted
+except Exception:  # pragma: no cover
+    _native_weighted = None
+
+try:
+    from .native import cosine_edit_distance as _native_cosine
+except Exception:  # pragma: no cover
+    _native_cosine = None
 
 
 def _phone_matrix(phones: List[str]) -> np.ndarray:
@@ -51,6 +61,8 @@ def _substitution_costs_hamming(
 def _weighted_dp(sub_cost: np.ndarray) -> float:
     """Edit-distance DP: ins/del cost 1, substitution cost from sub_cost."""
     m, n = sub_cost.shape
+    if _native_weighted is not None:
+        return _native_weighted(sub_cost)
     prev = np.arange(n + 1, dtype=np.float64)
     idx = np.arange(1, n + 1, dtype=np.float64)
     for i in range(1, m + 1):
@@ -106,21 +118,24 @@ def phone_feature_error_rate_cosine(reference: str, hypothesis: str) -> float:
     penalty, equal = _cosine_penalties(ref_feats, hyp_feats)
 
     m, n = len(ref_phones), len(hyp_phones)
-    dp = np.zeros((m + 1, n + 1), dtype=np.float64)
-    dp[:, 0] = np.arange(m + 1)
-    dp[0, :] = np.arange(n + 1)
-    for i in range(1, m + 1):
-        row_pen = penalty[i - 1]
-        row_eq = equal[i - 1]
-        for j in range(1, n + 1):
-            if row_eq[j - 1]:
-                dp[i, j] = dp[i - 1, j - 1]
-            else:
-                dp[i, j] = (
-                    min(dp[i, j - 1], dp[i - 1, j], dp[i - 1, j - 1])
-                    + row_pen[j - 1]
-                )
-    dist = float(dp[m, n])
+    if _native_cosine is not None:
+        dist = _native_cosine(penalty, equal)
+    else:
+        dp = np.zeros((m + 1, n + 1), dtype=np.float64)
+        dp[:, 0] = np.arange(m + 1)
+        dp[0, :] = np.arange(n + 1)
+        for i in range(1, m + 1):
+            row_pen = penalty[i - 1]
+            row_eq = equal[i - 1]
+            for j in range(1, n + 1):
+                if row_eq[j - 1]:
+                    dp[i, j] = dp[i - 1, j - 1]
+                else:
+                    dp[i, j] = (
+                        min(dp[i, j - 1], dp[i - 1, j], dp[i - 1, j - 1])
+                        + row_pen[j - 1]
+                    )
+        dist = float(dp[m, n])
     return (dist / len(ref_phones)) * 100.0
 
 

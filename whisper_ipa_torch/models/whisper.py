@@ -159,6 +159,10 @@ def encode(params: Params, cfg: WhisperConfig, mel, dtype=torch.float32,
         return layer_norm(x, enc["ln_post"])
 
 
+# alias matching the reference surface (model.embed_audio)
+embed_audio = encode
+
+
 # -- decoder (teacher forcing / full sequence) ----------------------------
 
 def decoder_hidden(params: Params, cfg: WhisperConfig, tokens, audio_features,

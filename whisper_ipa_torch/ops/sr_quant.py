@@ -296,6 +296,16 @@ def stochastic_quantize_int8(w: torch.Tensor, seed: int = 0):
     return q, s
 
 
+def quantize_linear_device(p, seed: int = 0):
+    """{"w": ...} -> {"w_q", "w_s"} where the weight lies (stochastic
+    rounding; K9 on CUDA)."""
+    q, s = stochastic_quantize_int8(p["w"], seed=seed)
+    out = {k: v for k, v in p.items() if k != "w"}
+    out["w_q"] = q
+    out["w_s"] = s
+    return out
+
+
 def _take_linears(tree, found):
     """``tree`` with "w" dropped from each linear's dict; (the new dict,
     its "w") appended to ``found`` in the reference's visit order. (A

@@ -7,6 +7,12 @@ from .checkpoints import (
     save_best_checkpoint,
     save_checkpoint,
 )
+from .logger import (
+    TrainingLogger,
+    console_step_line,
+    get_hardware_info,
+    save_training_config,
+)
 from .loop import train, validate
 from .loss import compute_loss, eot_loss_mask, masked_cross_entropy
 from .optimizer import Optimizer, OptState, make_schedule
@@ -16,16 +22,20 @@ __all__ = [
     "OptState",
     "Optimizer",
     "TrainState",
+    "TrainingLogger",
     "check_vocab_provenance",
     "compute_loss",
+    "console_step_line",
     "create_train_state",
     "eot_loss_mask",
+    "get_hardware_info",
     "latest_checkpoint",
     "make_schedule",
     "masked_cross_entropy",
     "restore_checkpoint",
     "save_best_checkpoint",
     "save_checkpoint",
+    "save_training_config",
     "train",
     "train_step",
     "validate",
