@@ -52,6 +52,17 @@ weights from seed 0:
             phone-timestamp oracle against the synthesizer's boundaries,
             transcribe() of 45-60 s batched and sequential, and the held-out
             split under noise and reverb
+  engine    the in-flight engine (serve_continuous): test-tiny tokens on
+            CUDA equal to the CPU engine's and decode()'s; at whisper-small,
+            16 slots, bf16, int8 cache, a seeded stream of 40 requests
+            20-60 ms apart (one cancelled, one with a 0.2 s deadline), each
+            window's tokens held to decode() on its K1 log-mel under the
+            near-tie rule, K1/K2/K4 launches equal to the prediction from
+            the engine's joins and steps; the stream again with joins that
+            rewrite the joiners' rows only, at 1 and 16 steps a sync,
+            adaptive, in f32 and with int4 weights (K7); the join rewrite's
+            drift; cli.serve --continuous over HTTP, with 503s past
+            --max-pending
 
 make -C native builds the host library of the edit-distance and WAV
 cores first (the metrics take their NumPy paths where it does not build;
@@ -1473,6 +1484,474 @@ def phase_service(torch, dev, cfg, params, tok, **svc_kw):
         f"latencies s {lat}; stats {stats}")
 
 
+# -- the in-flight engine (serve_continuous) --------------------------------
+
+ENGINE_SLOTS = 16
+ENGINE_MAX_NEW = 64
+ENGINE_REQUESTS = 40  # the stream at the CLI's setting (bf16, int8 cache)
+EPS_WINDOWS = 16  # windows whose step-0 logits set the bf16 near-tie bound
+ENGINE_CANCEL = 7  # cancelled right after its submit
+ENGINE_DEADLINE = 21  # submitted with a 0.2 s deadline
+EPS_F32 = 1e-3  # near-tie bound on decode()'s two top logits in f32
+
+
+def engine_stream(n: int, seed: int = 30):
+    """n seeded noise clips of 5-40 s (those past 30 s chain two windows)
+    and the seeded 20-60 ms gaps between their arrivals."""
+    rng = np.random.default_rng(seed)
+    seconds = rng.uniform(5.0, 40.0, n)
+    gaps = rng.uniform(0.020, 0.060, n)
+    clips = [synthetic_audio(1, float(s), seed=seed + 1 + i)[0]
+             for i, s in enumerate(seconds)]
+    return clips, gaps
+
+
+class JoinDrift:
+    """Wraps ``serve_continuous._join_step`` while an engine runs. For each
+    slot that re-feeds at a join (a request in flight, pos > 0) it reads the
+    rows [pos, pos + P - 1) of the self K/V before and after: they held the
+    K/V the chunks wrote, and the join writes them again from the same
+    tokens at M = slots * P rows (row pos + P - 1, the newest token's, is a
+    first write). ``restore`` puts the old rows back after each join, which
+    is a join that rewrites the joiners' rows only."""
+
+    def __init__(self, sc, eng, restore: bool = False):
+        self.sc, self.eng, self.restore = sc, eng, restore
+        self.events = self.rows = self.changed = 0
+        self.max_dk = self.max_dv = 0.0
+
+    def __enter__(self):
+        self.orig = self.sc._join_step
+        self.sc._join_step = self.step
+        return self
+
+    def __exit__(self, *exc):
+        self.sc._join_step = self.orig
+        self.slots = len(self.eng._slots)
+        self.eng = None  # the engine's cache is freed with the engine
+
+    def step(self, params, cfg, cache, tokens, pos, dtype):
+        n = tokens.shape[1] - 1
+        starts = pos.tolist()
+        saved = [(b, p, cache.self_k[:, b, p:p + n].clone(),
+                  cache.self_v[:, b, p:p + n].clone())
+                 for b, p in enumerate(starts)
+                 if p > 0 and self.eng._slots[b] is not None]
+        cache = self.orig(params, cfg, cache, tokens, pos, dtype=dtype)
+        for b, p, k, v in saved:
+            dk = float((cache.self_k[:, b, p:p + n].float() - k.float()).abs().max())
+            dv = float((cache.self_v[:, b, p:p + n].float() - v.float()).abs().max())
+            self.max_dk, self.max_dv = max(self.max_dk, dk), max(self.max_dv, dv)
+            self.rows += n
+            self.changed += bool(dk or dv)
+            if self.restore:
+                cache.self_k[:, b, p:p + n] = k
+                cache.self_v[:, b, p:p + n] = v
+        self.events += 1
+        return cache
+
+    def summary(self) -> str:
+        return (f"{self.events} joins, {self.rows} re-fed rows in "
+                f"{self.slots} slots: max |dK| {self.max_dk:.3e}, "
+                f"|dV| {self.max_dv:.3e}, slots changed {self.changed}")
+
+
+def run_engine(torch, dev, eng, clips, gaps, cancel=None, deadline=None):
+    """Submit the stream at its gaps, wait for every answer; the launches
+    are counted from 0 just before the first submit. Returns the results
+    (None where cancelled), each request's tokens by window (from
+    on_token), wall, launches, stats, peak GB."""
+    reset_counts(torch)
+    torch.cuda.reset_peak_memory_stats(dev)
+    futs, streamed = [], []
+    t0 = time.time()
+    for i, (clip, gap) in enumerate(zip(clips, gaps)):
+        by_window = {}
+
+        def on_token(d, by_window=by_window):
+            by_window.setdefault(d["window"], []).append(d["token"])
+
+        fut = eng.submit(clip, on_token=on_token,
+                         deadline_sec=0.2 if i == deadline else None)
+        if i == cancel:
+            require(fut.cancel(), "a request in the queue cancels")
+        futs.append(fut)
+        streamed.append(by_window)
+        time.sleep(float(gap))
+    results = [None if f.cancelled() else f.result(timeout=600) for f in futs]
+    wall = time.time() - t0
+    launches = read_counts(torch)
+    return dict(results=results, streamed=streamed, wall=wall,
+                launches=launches, stats=eng.stats(),
+                peak=torch.cuda.max_memory_allocated(dev) / 1e9)
+
+
+def engine_windows(clips):
+    from whisper_ipa_torch.audio import N_SAMPLES, pad_or_trim
+
+    return [((i, w), pad_or_trim(c[s:s + N_SAMPLES]))
+            for i, c in enumerate(clips)
+            for w, s in enumerate(range(0, len(c), N_SAMPLES))]
+
+
+def engine_oracle(torch, dev, cfg, params, tok, clips, bf16: bool):
+    """decode() of every window of the stream on its K1 log-mel (the
+    engine's options: greedy, no timestamps, 64 tokens, the int8 cache);
+    returns ({(request, window): tokens}, {(request, window): mel})."""
+    from whisper_ipa_torch.decode import DecodingOptions, decode
+    from whisper_ipa_torch.ops import log_mel_spectrogram
+
+    keys, windows = zip(*engine_windows(clips))
+    audio = torch.from_numpy(np.stack(windows)).to(dev)
+    with torch.inference_mode():
+        mel = log_mel_spectrogram(audio, n_mels=cfg.n_mels)
+    options = DecodingOptions(language="en", without_timestamps=True,
+                              sample_len=ENGINE_MAX_NEW, fp16=bf16,
+                              kv_int8=True)
+    results = decode(params, cfg, mel, options, tokenizer=tok)
+    return ({k: r.tokens for k, r in zip(keys, results)},
+            {k: mel[j:j + 1] for j, k in enumerate(keys)})
+
+
+def forced_logits(torch, cfg, params, mel, seq, dtype):
+    """decode()'s next-token logits after ``seq`` (prefix + tokens) on one
+    window, teacher-forced in one block (float32, before the masks)."""
+    from whisper_ipa_torch.models import (cast_decoder_blocks, decode_step,
+                                          encode, init_cache)
+
+    with torch.inference_mode():
+        p = cast_decoder_blocks(params, dtype)
+        feats = encode(params, cfg, mel, dtype=dtype)
+        cache = init_cache(p, cfg, feats, max_len=len(seq), dtype=dtype,
+                           cross_kv_int8=True)
+        tokens = torch.tensor([seq], device=mel.device)
+        logits, _ = decode_step(p, cfg, tokens, cache, 0, dtype=dtype)
+    return logits[0, -1].float()
+
+
+def step0_delta(torch, cfg, params, mels, prefix) -> float:
+    """max |logit(bf16) - logit(f32)| at decode()'s first sampled position
+    over these windows: the bf16 oracle's near-tie bound is twice it."""
+    from whisper_ipa_torch.models import (cast_decoder_blocks, decode_step,
+                                          encode, init_cache)
+
+    mel = torch.cat(mels)
+    out = []
+    with torch.inference_mode():
+        for dtype in (torch.bfloat16, torch.float32):
+            p = cast_decoder_blocks(params, dtype)
+            feats = encode(params, cfg, mel, dtype=dtype)
+            cache = init_cache(p, cfg, feats, max_len=len(prefix), dtype=dtype,
+                               cross_kv_int8=True)
+            tokens = torch.tensor([prefix] * len(mels), device=mel.device)
+            logits, _ = decode_step(p, cfg, tokens, cache, 0, dtype=dtype)
+            out.append(logits[:, -1].float())
+    return float((out[0] - out[1]).abs().max())
+
+
+def check_engine_tokens(torch, cfg, params, tok, eng, run, oracle, mels,
+                        eps: float, name: str):
+    """``eng``: the engine that ran (its prefix, masks and dtype)."""
+    """The near-tie rule, window by window: the engine's tokens equal
+    decode()'s, or at their first difference decode()'s choice leads the
+    engine's by at most eps in decode()'s own (teacher-forced, masked)
+    logits. A timed-out request may stop early. Returns (windows equal,
+    windows diverged at a near-tie, the gaps there)."""
+    equal, gaps = 0, []
+    for (i, w), want in oracle.items():
+        res = run["results"][i]
+        if res is None:
+            continue  # cancelled
+        got = run["streamed"][i].get(w, [])
+        if got == want or (res["timed_out"] and got == want[:len(got)]):
+            equal += 1
+            continue
+        k = next(j for j in range(min(len(got), len(want)) + 1)
+                 if j == len(got) or j == len(want) or got[j] != want[j])
+        if res["timed_out"] and k == len(got):
+            equal += 1
+            continue
+        dec = want[k] if k < len(want) else tok.eot
+        mine = got[k] if k < len(got) else tok.eot
+        lg = forced_logits(torch, cfg, params, mels[(i, w)],
+                           list(eng.prefix) + want[:k], eng.dtype)
+        lg = lg + eng.suppress + (eng.blank if k == 0 else 0.0)
+        gap = float(lg[dec] - lg[mine])
+        gaps.append(round(gap, 6))
+        require(gap <= eps, f"{name}: request {i} window {w} leaves decode() "
+                f"at token {k} ({mine} for {dec}) by {gap:.3e} > {eps:.3e}, "
+                f"not a near-tie")
+    return equal, len(gaps), gaps
+
+
+def engine_numbers(run) -> dict:
+    done = [r for r in run["results"] if r is not None]
+    ttft = sorted(r["ttft_sec"] for r in done if r["ttft_sec"] is not None)
+    queue = sorted(r["queue_sec"] for r in done if r["queue_sec"] is not None)
+    emitted = sum(len(r["tokens"]) for r in done)
+    pick = lambda xs, q: round(float(np.quantile(xs, q)), 4) if xs else None
+    s = run["stats"]
+    return dict(wall_s=round(run["wall"], 4), tokens=emitted,
+                tokens_per_s=round(emitted / run["wall"], 1),
+                ttft_p50=pick(ttft, 0.5), ttft_p90=pick(ttft, 0.9),
+                queue_p50=pick(queue, 0.5), chunks=s["chunks"],
+                fast_chunks=s["fast_chunks"], long_chunks=s["long_chunks"],
+                steps=s["steps"], joins=s["joins"], peak_gb=round(run["peak"], 2))
+
+
+def expect_launches(cfg, run, bf16: bool, name: str) -> dict:
+    """K1 once a joined window, K2 once an encoder layer of one (bf16),
+    K4 once a decoder layer a chunk step (the join's n_prefix queries take
+    the plain path)."""
+    joins, steps = run["stats"]["joins"], run["stats"]["steps"]
+    want = {"K1": joins, "K2": cfg.n_audio_layer * joins if bf16 else 0,
+            "K4": cfg.n_text_layer * steps}
+    got = {k: run["launches"][k] for k in want}
+    positive = ("K1", "K2", "K4") if bf16 else ("K1", "K4")
+    require(got == want and all(got[k] for k in positive),
+            f"{name}: launches {got}, predicted {want}")
+    return got
+
+
+def phase_engine_parity(torch, dev, tok):
+    """test-tiny in f32 with the int8 cache: six requests, some of two
+    windows, through 2 slots on the card, on the CPU, and decode()."""
+    from whisper_ipa_torch.config import CONFIGS
+    from whisper_ipa_torch.decode import DecodingOptions, decode
+    from whisper_ipa_torch.models import init_params, params_to
+    from whisper_ipa_torch.ops import log_mel_spectrogram
+    from whisper_ipa_torch.serve_continuous import ContinuousBatcher
+
+    cfg = replace(CONFIGS["test-tiny"], n_text_ctx=48)
+    params = init_params(cfg, seed=0)
+    clips, _ = engine_stream(6, seed=60)
+    out = {}
+    for device in ("cpu", dev):
+        eng = ContinuousBatcher(params, cfg, device=device, slots=2,
+                                max_new_tokens=16, steps_per_sync=2,
+                                kv_int8=True, tokenizer=tok)
+        try:
+            k4 = counters()["K4"].launches
+            futs = []
+            for c in clips:
+                futs.append(eng.submit(c))
+                time.sleep(0.01)
+            out[str(device)] = [f.result(timeout=600)["tokens"] for f in futs]
+            ran = counters()["K4"].launches - k4
+        finally:
+            eng.close()
+    keys, windows = zip(*engine_windows(clips))
+    audio = torch.from_numpy(np.stack(windows)).to(dev)
+    with torch.inference_mode():
+        mel = log_mel_spectrogram(audio, n_mels=cfg.n_mels)
+    res = decode(params_to(params, dev), cfg, mel,
+                 DecodingOptions(language="en", without_timestamps=True,
+                                 sample_len=16, kv_int8=True), tokenizer=tok)
+    want = [[] for _ in clips]
+    for (i, _), r in zip(keys, res):
+        want[i] += r.tokens
+    same = [a == b == c for a, b, c in zip(out["cpu"], out[str(dev)], want)]
+    log(f"[engine parity] test-tiny f32 int8 cross-KV, 6 requests "
+        f"({len(keys)} windows) through 2 slots: CUDA == CPU == decode() "
+        f"tokens per request {same}; K4 on CUDA {ran}")
+    require(all(same) and ran > 0, "test-tiny engine tokens equal on CUDA, "
+            "on the CPU and decode()'s")
+
+
+def check_stream(run, name: str):
+    """Every future resolved; the cancelled request and the one with the
+    0.2 s deadline are the only ones cancelled and timed out."""
+    results, stats = run["results"], run["stats"]
+    timed_out = [i for i, r in enumerate(results) if r and r["timed_out"]]
+    require(results[ENGINE_CANCEL] is None
+            and all(r is not None for i, r in enumerate(results)
+                    if i != ENGINE_CANCEL), f"{name}: every future resolved")
+    require(stats["cancelled"] == 1 and stats["timed_out"] == 1
+            and timed_out == [ENGINE_DEADLINE],
+            f"{name}: one cancelled, one timed out: {stats}")
+
+
+def phase_engine(torch, dev, cfg, params, tok, by_path):
+    """The in-flight engine at whisper-small's full width and depth: the
+    CLI's setting (bf16, int8 cross cache, 16 slots, 64 tokens, 4 steps a
+    sync, join fast sync, prewarmed) on a stream of 40 requests arriving
+    20-60 ms apart, one cancelled and one with a 0.2 s deadline; the same
+    stream with joins rewriting the joiners' rows only, at 1 and 16 steps
+    a sync, adaptive, in f32 (both rewrites) and with int4 weights; then
+    cli.serve --continuous over HTTP."""
+    import whisper_ipa_torch.serve_continuous as sc
+    from whisper_ipa_torch.models import params_to
+    from whisper_ipa_torch.ops.quant import quantize_params
+
+    t_phase = time.time()
+    phase_engine_parity(torch, dev, tok)
+    clips, gaps = engine_stream(ENGINE_REQUESTS)
+    n_windows = len(engine_windows(clips))
+
+    def serve_stream(name, p, oracle, mels, eps, bf16=True, restore=False,
+                     **kw):
+        """One engine over the stream: launches counted, gates applied,
+        tokens held to the oracle; the engine is dropped on return."""
+        t0 = time.time()
+        eng = sc.ContinuousBatcher(
+            p, cfg, device=dev, slots=ENGINE_SLOTS,
+            max_new_tokens=ENGINE_MAX_NEW, bf16=bf16, kv_int8=True,
+            tokenizer=tok, prewarm=True, **kw)
+        prewarm_s = time.time() - t0
+        try:
+            with JoinDrift(sc, eng, restore=restore) as drift:
+                run = run_engine(torch, dev, eng, clips, gaps,
+                                 cancel=ENGINE_CANCEL, deadline=ENGINE_DEADLINE)
+        finally:
+            eng.close()
+        require(not eng._thread.is_alive(), f"{name}: engine thread stopped")
+        check_stream(run, name)
+        expected = expect_launches(cfg, run, bf16, name)
+        equal, near, at = check_engine_tokens(
+            torch, cfg, p, tok, eng, run, oracle, mels, eps, name)
+        log(f"[{name}] {ENGINE_REQUESTS} requests, {n_windows} windows: "
+            f"{engine_numbers(run)}; prewarm {prewarm_s:.2f} s; launches "
+            f"{nonzero(run['launches'])}, as predicted from joins and steps "
+            f"{expected}; join rewrite: {drift.summary()}; {equal} windows "
+            f"equal decode()'s, {near} leave it at a near-tie (gaps {at}; "
+            f"eps {eps:.4e})")
+        run["join_events"] = drift.events
+        return run
+
+    def differ(a, b) -> int:
+        """Requests whose tokens differ between two runs of the stream (the
+        cancelled and the timed-out one left out)."""
+        return sum(a["streamed"][i] != b["streamed"][i]
+                   for i in range(ENGINE_REQUESTS)
+                   if i not in (ENGINE_CANCEL, ENGINE_DEADLINE))
+
+    # bf16, the CLI's setting; eps from decode()'s own bf16-f32 spread
+    oracle, mels = engine_oracle(torch, dev, cfg, params, tok, clips, True)
+    prefix = list(tok.sot_sequence_including_notimestamps)
+    delta = step0_delta(torch, cfg, params, list(mels.values())[:EPS_WINDOWS],
+                        prefix)
+    eps_bf16 = 2.0 * delta
+    log(f"[engine] bf16 near-tie bound: step-0 max |logit(bf16) - "
+        f"logit(f32)| over {EPS_WINDOWS} windows {delta:.4e}, eps twice it")
+    runs = {}
+    for name, kw in (
+        ("engine bf16", {}),
+        ("engine bf16 joiners-only rewrite", dict(restore=True)),
+        ("engine bf16 steps_per_sync 1", dict(steps_per_sync=1)),
+        ("engine bf16 steps_per_sync 16", dict(steps_per_sync=16)),
+        ("engine bf16 adaptive", dict(adaptive_sync=True)),
+    ):
+        runs[name] = serve_stream(name, params, oracle, mels, eps_bf16, **kw)
+    by_path["engine bf16"] = runs["engine bf16"]["launches"]
+
+    f32_oracle, f32_mels = engine_oracle(torch, dev, cfg, params, tok, clips,
+                                         False)
+    for name, kw in (("engine f32", {}),
+                     ("engine f32 joiners-only rewrite", dict(restore=True))):
+        runs[name] = serve_stream(name, params, f32_oracle, f32_mels, EPS_F32,
+                                  bf16=False, **kw)
+    by_path["engine f32"] = runs["engine f32"]["launches"]
+    log(f"[engine] joins rewriting every slot (the reference's) against the "
+        f"joiners' rows only: requests whose tokens differ, bf16 "
+        f"{differ(runs['engine bf16'], runs['engine bf16 joiners-only rewrite'])}"
+        f", f32 {differ(runs['engine f32'], runs['engine f32 joiners-only rewrite'])}"
+        f" of {ENGINE_REQUESTS - 2}")
+
+    # int4 weights (cli.serve --continuous --quant-bits 4)
+    q4 = params_to(quantize_params(params, bits=4), dev)
+    q4_oracle, q4_mels = engine_oracle(torch, dev, cfg, q4, tok, clips, True)
+    q4_delta = step0_delta(torch, cfg, q4, list(q4_mels.values())[:EPS_WINDOWS],
+                           prefix)
+    run = serve_stream("engine int4", q4, q4_oracle, q4_mels, 2.0 * q4_delta)
+    by_path["engine int4"] = run["launches"]
+    n_enc, n_dec = cfg.n_audio_layer, cfg.n_text_layer
+    # K7 where M * K <= 2M: 5 linears an encoder layer and the 2 cross
+    # projections a decoder layer at batch 1; 8 a decoder layer a join and
+    # a chunk step
+    k7_want = (run["stats"]["joins"] * (5 * n_enc + 2 * n_dec)
+               + 8 * n_dec * (run["join_events"] + run["stats"]["steps"]))
+    require(run["launches"]["K7"] > 0, "engine int4: K7 launched")
+    log(f"[engine int4] K7 {run['launches']['K7']} launches (predicted "
+        f"{k7_want}); step-0 |bf16 - f32| {q4_delta:.4e}")
+    del q4, run
+    torch.cuda.empty_cache()
+
+    phase_engine_http(torch, dev)
+    log(f"[engine] phase passed in {time.time() - t_phase:.1f} s")
+
+
+def phase_engine_http(torch, dev):
+    """cli.serve --continuous --max-pending 2 on whisper-small over HTTP:
+    /transcribe equals the engine called directly, /transcribe_stream one
+    line a token then the final one, and a burst past --max-pending gets
+    503s."""
+    import io
+    import threading
+    import urllib.error
+
+    from whisper_ipa_torch.audio import load_audio_bytes, write_wav
+    from whisper_ipa_torch.cli import serve as serve_cli
+
+    t0 = time.time()
+    server, service = serve_cli.build_server([
+        "--model", "small", "--device", str(dev), "--continuous",
+        "--batch-size", "2", "--max-new-tokens", str(ENGINE_MAX_NEW),
+        "--max-pending", "2", "--warmup", "--port", "0"])
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    bodies = []
+    for i, seconds in enumerate((8.0, 12.0)):
+        buf = io.BytesIO()
+        write_wav(buf, synthetic_audio(1, seconds, seed=90 + i)[0])
+        bodies.append(buf.getvalue())
+    codes = []
+    try:
+        build_s = time.time() - t0
+        posted = _http(f"{url}/transcribe", bodies[0])[0]
+        direct = service.transcribe(load_audio_bytes(bodies[0]), timeout=300)
+        stream = _http(f"{url}/transcribe_stream", bodies[1])
+        barrier = threading.Barrier(8)
+
+        def burst():
+            barrier.wait()
+            try:
+                _http(f"{url}/transcribe", bodies[0])
+                codes.append(200)
+            except urllib.error.HTTPError as e:
+                codes.append(e.code)
+
+        workers = [threading.Thread(target=burst) for _ in range(8)]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(timeout=300)
+        stats = _http(f"{url}/stats")[0]
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.close()
+        thread.join(timeout=30)
+    require(not thread.is_alive() and not service._thread.is_alive(),
+            "server and engine threads stopped")
+    kinds = [next(iter(line)) for line in stream]
+    final = stream[-1]["final"]
+    log(f"[engine serve] cli.serve --continuous, 2 slots, --max-pending 2, "
+        f"built and prewarmed in {build_s:.1f} s: /transcribe {len(posted['tokens'])} "
+        f"tokens, equal to the engine's direct answer "
+        f"{posted['tokens'] == direct['tokens']}; /transcribe_stream "
+        f"{kinds.count('partial')} partial lines then {kinds[-1]}; a burst of "
+        f"8: codes {sorted(codes)}; stats {stats}")
+    require(posted["tokens"] == direct["tokens"] and posted["tokens"],
+            "/transcribe equals the engine's direct result")
+    require(kinds == ["partial"] * (len(kinds) - 1) + ["final"]
+            and [ln["partial"]["token"] for ln in stream[:-1]] == final["tokens"],
+            "one partial line a token, then the final line")
+    require(503 in codes and set(codes) <= {200, 503} and len(codes) == 8,
+            "a burst past --max-pending gets 503")
+    require(stats["rejected"] == codes.count(503), "/stats counts the 503s")
+
+
 def grammar_ok(tokens, tb: int) -> bool:
     """Whisper's timestamp grammar on the host: the first token a timestamp
     within the initial 1 s, the timestamps never decreasing."""
@@ -2575,6 +3054,7 @@ def main() -> int:
     phase_parity(torch, dev, tok)
     phase_service(torch, dev, cfg, params, tok)
     phase_service(torch, dev, cfg, params, tok, quant_bits=4, kv_int4=True)
+    phase_engine(torch, dev, cfg, params, tok, by_path)
     del params
     torch.cuda.empty_cache()
 

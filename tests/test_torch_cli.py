@@ -9,7 +9,11 @@ JAX CLI's hypotheses, PER and PFER; ``transcribe_single`` its text;
 ``evaluate_ipa`` its stdout; ``convert_weights`` round-trips; the HTTP
 server over a CPU service answers /healthz, /stats, /transcribe and
 /transcribe_stream with ``decode()``'s texts; every unported flag exits
-with its message. With ``--beam-size``, ``evaluate_model`` gives the JAX
+with its message. ``cli.serve --continuous`` answers /transcribe,
+/transcribe_stream (one line a token) and /stats as the JAX CLI's handler
+over the JAX package's engine does, 503 past ``--max-pending``, and refuses
+``--beam-size``, ``--kv-int4`` and ``--tp`` with ``--quant-bits`` with the
+JAX CLI's messages. With ``--beam-size``, ``evaluate_model`` gives the JAX
 CLI's report and the server ``decode()``'s beam texts; ``cli.transcribe
 --json`` prints the JAX CLI's JSON lines. ``error_analysis`` prints and
 writes the JAX CLI's report, from saved predictions and from the
@@ -43,7 +47,13 @@ from whisper_ipa_tpu.models.convert import (
     load_safetensors_flat as jax_load_flat,
 )
 from whisper_ipa_tpu.models.convert import save_safetensors as jax_save
-from whisper_ipa_torch.audio import N_SAMPLES, SAMPLE_RATE, pad_or_trim, write_wav
+from whisper_ipa_torch.audio import (
+    N_SAMPLES,
+    SAMPLE_RATE,
+    load_audio_bytes,
+    pad_or_trim,
+    write_wav,
+)
 from whisper_ipa_torch.cli import (
     convert_weights,
     error_analysis,
@@ -335,8 +345,139 @@ def test_http_server_beam(setup):
         service, [load_audio(setup["wavs"][2])])[0]
 
 
+def _serve_in_thread(server):
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    return f"http://127.0.0.1:{server.server_address[1]}", thread
+
+
+def _post(url, body):
+    req = urllib.request.Request(url, data=body,
+                                 headers={"Content-Type": "audio/wav"})
+    with urllib.request.urlopen(req, timeout=300) as r:
+        return [json.loads(ln) for ln in r.read().splitlines() if ln.strip()]
+
+
+ENGINE_ARGV = ["--continuous", "--batch-size", "2", "--max-new-tokens", "8",
+               "--steps-per-sync", "2"]
+
+
+def test_http_server_continuous(setup):
+    """cli.serve --continuous against the JAX CLI's handler over the JAX
+    package's engine built as its --continuous branch builds it (bf16, the
+    int8 cross cache), on the same weights and WAVs: the same /transcribe
+    tokens and keys, one /transcribe_stream line a token then the final
+    result, the same /stats counts."""
+    from whisper_ipa_tpu.cli import serve as jax_serve_cli
+    from whisper_ipa_tpu.models import load_checkpoint_auto as jax_load_ckpt
+    from whisper_ipa_tpu.serve_continuous import ContinuousBatcher as JaxEngine
+    from whisper_ipa_tpu.train.loop import load_or_init_params as jax_load
+
+    from http.server import ThreadingHTTPServer
+
+    server, service = serve_cli.build_server(
+        ["--model", MODEL, "--weights", setup["weights"], "--checkpoint",
+         setup["ckpt"], "--device", "cpu", "--port", "0"] + ENGINE_ARGV)
+    jcfg = jax_config.CONFIGS[MODEL]
+    jparams, _ = jax_load_ckpt(setup["ckpt"],
+                               jax_load(MODEL, jcfg, setup["weights"]))
+    jengine = JaxEngine(jparams, jcfg, slots=2, max_new_tokens=8,
+                        steps_per_sync=2, language="en", bf16=True,
+                        kv_int8=True)
+    jserver = ThreadingHTTPServer(("127.0.0.1", 0),
+                                  jax_serve_cli.make_handler(jengine))
+    url, thread = _serve_in_thread(server)
+    jurl, jthread = _serve_in_thread(jserver)
+    try:
+        rng = np.random.default_rng(9)
+        short = _wav_bytes((0.1 * rng.standard_normal(2 * SAMPLE_RATE)).astype(
+            np.float32))
+        long_ = _wav_bytes((0.1 * rng.standard_normal(40 * SAMPLE_RATE)).astype(
+            np.float32))
+        got, want = (_post(f"{u}/transcribe", short)[0] for u in (url, jurl))
+        assert got.keys() == want.keys()
+        same = ("text", "tokens", "n_windows", "truncated", "timed_out")
+        assert {k: got[k] for k in same} == {k: want[k] for k in same}
+        assert got["tokens"]  # the checkpoint decodes byte tokens
+
+        lines, jlines = (_post(f"{u}/transcribe_stream", long_)
+                         for u in (url, jurl))
+        assert [next(iter(ln)) for ln in lines] == (
+            ["partial"] * (len(lines) - 1) + ["final"])
+        final = lines[-1]["final"]
+        assert final["n_windows"] == 2
+        assert [ln["partial"]["token"] for ln in lines[:-1]] == final["tokens"]
+        assert [ln["partial"] for ln in lines[:-1]] == [
+            ln["partial"] for ln in jlines[:-1]]
+        assert {k: final[k] for k in same} == {
+            k: jlines[-1]["final"][k] for k in same}
+
+        stats = [json.loads(urllib.request.urlopen(f"{u}/stats",
+                                                   timeout=30).read())
+                 for u in (url, jurl)]
+        assert set(stats[1]) <= set(stats[0])
+        counts = ("requests", "joins", "rejected", "cancelled", "timed_out",
+                  "pending", "active_slots")
+        assert {k: stats[0][k] for k in counts} == {k: stats[1][k] for k in counts}
+        assert stats[0]["requests"] == 2 and stats[0]["joins"] == 3
+        # the engine called directly answers as over HTTP
+        assert service.transcribe(load_audio_bytes(short),
+                                  timeout=300)["tokens"] == got["tokens"]
+    finally:
+        for srv in (server, jserver):
+            srv.shutdown()
+            srv.server_close()
+        service.close()
+        jengine.close()
+        thread.join(timeout=30)
+        jthread.join(timeout=30)
+    assert not service._thread.is_alive()
+
+
+def test_http_continuous_backpressure(setup):
+    """Past --max-pending the engine refuses and the server answers 503,
+    on both routes, and serves on."""
+    server, service = serve_cli.build_server(
+        ["--model", MODEL, "--weights", setup["weights"], "--device", "cpu",
+         "--port", "0", "--max-pending", "0"] + ENGINE_ARGV)
+    url, thread = _serve_in_thread(server)
+    body = _wav_bytes(np.zeros(SAMPLE_RATE, np.float32))
+    try:
+        for route in ("/transcribe", "/transcribe_stream"):
+            with pytest.raises(urllib.error.HTTPError) as err:
+                _post(url + route, body)
+            assert err.value.code == 503
+            assert "max_pending=0" in json.loads(err.value.read())["error"]
+        with urllib.request.urlopen(f"{url}/healthz", timeout=30) as r:
+            assert json.loads(r.read()) == {"status": "ok"}
+        assert service.stats()["rejected"] == 2
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.close()
+        thread.join(timeout=30)
+
+
+@pytest.mark.parametrize("argv", [
+    ["--beam-size", "2"],
+    ["--kv-int4"],
+    ["--tp", "2", "--quant-bits", "8"],
+])
+def test_serve_continuous_refusals_match_jax(setup, argv):
+    """The engine's refused combinations exit with the JAX CLI's messages."""
+    from whisper_ipa_tpu.cli import serve as jax_serve_cli
+
+    base = ["--model", MODEL, "--weights", setup["weights"], "--continuous"]
+    with pytest.raises(SystemExit) as want:
+        jax_serve_cli.main(base + argv)
+    with pytest.raises(SystemExit) as got:
+        serve_cli.build_server(base + argv + ["--device", "cpu"])
+    assert str(got.value.code) == str(want.value.code)
+    assert "--continuous" in str(got.value.code)
+
+
 @pytest.mark.parametrize("argv,item", [
-    (["--continuous"], "item 9"),
+    (["--continuous", "--draft-model", "tiny"], "item 10"),
     (["--draft-model", "tiny"], "item 10"),
     (["--medusa-tree"], "item 10"),
     (["--medusa-weights", "heads.safetensors"], "item 10"),
@@ -366,19 +507,37 @@ ENGINE_FLAGS = [
 
 
 @pytest.mark.parametrize("argv,dest,value,item", ENGINE_FLAGS)
-def test_serve_engine_flags_parse(argv, dest, value, item):
+def test_serve_engine_flags_parse(argv, dest, value, item, monkeypatch):
     """Each flag parses with the reference's type and default and is inert
-    alone; with the option it belongs to, the run exits naming the item."""
+    alone. With --draft-model (item 10) the run exits naming the item; with
+    --continuous (item 9, ported) the value reaches the engine."""
     defaults = dict(draft_weights=None, draft_checkpoint=None, draft_k=4,
                     max_new_tokens=128, steps_per_sync=4, adaptive_sync=False,
                     join_fast_sync=True, max_pending=None)
     args = serve_cli.build_parser().parse_args(argv)
     assert {k: getattr(args, k) for k in defaults} == defaults | {dest: value}
     serve_cli._refuse_unported(args)  # alone: accepted
-    owner = ["--draft-model", "tiny"] if item == "item 10" else ["--continuous"]
-    with pytest.raises(SystemExit) as e:
-        serve_cli.build_server(argv + owner + ["--device", "cpu"])
-    assert f"ROADMAP queue 1 {item}" in str(e.value.code)
+    if item == "item 10":
+        with pytest.raises(SystemExit) as e:
+            serve_cli.build_server(argv + ["--draft-model", "tiny",
+                                           "--device", "cpu"])
+        assert f"ROADMAP queue 1 {item}" in str(e.value.code)
+        return
+    seen = {}
+
+    class Engine:
+        def __init__(self, params, cfg, **kw):
+            seen.update(kw)
+
+        def close(self):
+            pass
+
+    monkeypatch.setattr(serve_cli, "ContinuousBatcher", Engine)
+    server, _ = serve_cli.build_server(
+        argv + ["--continuous", "--model", "test-tiny", "--port", "0",
+                "--device", "cpu"])
+    server.server_close()
+    assert seen[dest] == value
 
 
 @pytest.mark.parametrize("argv,item", [

@@ -789,3 +789,41 @@ def test_merged_tokens_cuda_equal_cpu(dev):
         layers.use_merged_attention(False)
         layers.use_fused_attention(None)
     assert [r.tokens for r in gpu] == [r.tokens for r in cpu]
+
+
+@pytest.mark.parametrize("kv_int8", [False, True])
+def test_engine_tokens_equal_the_cpu(dev, kv_int8):
+    """test-tiny in f32: the in-flight engine on the card (K1, and K4 with
+    the int8 cross cache) answers six staggered requests, some of two
+    windows, through two slots with the CPU engine's tokens."""
+    import time
+    from dataclasses import replace
+
+    import numpy as np
+
+    from whisper_ipa_torch.serve_continuous import ContinuousBatcher
+    from whisper_ipa_torch.tokenizer import get_tokenizer
+
+    cfg = replace(CONFIGS["test-tiny"], n_text_ctx=48)
+    params = init_params(cfg, seed=0)
+    tok = get_tokenizer(multilingual=True, language="en")
+    rng = np.random.default_rng(0)
+    audios = [(0.1 * rng.standard_normal(int(rng.integers(8000, 40 * 16000))))
+              .astype(np.float32) for _ in range(6)]
+    out = {}
+    k1, k4 = log_mel_power.launches, decode_cross_attention_int8_tminor.launches
+    for device in ("cpu", dev):
+        eng = ContinuousBatcher(params, cfg, device=device, slots=2,
+                                max_new_tokens=16, steps_per_sync=2,
+                                tokenizer=tok, kv_int8=kv_int8)
+        try:
+            futs = []
+            for a in audios:
+                futs.append(eng.submit(a))
+                time.sleep(0.01)
+            out[str(device)] = [f.result(timeout=600)["tokens"] for f in futs]
+        finally:
+            eng.close()
+    assert out["cpu"] == out[str(dev)]
+    assert log_mel_power.launches > k1
+    assert (decode_cross_attention_int8_tminor.launches > k4) == kv_int8

@@ -9,7 +9,8 @@ host modules, on the CPU.
   scales are held to the JAX package's with the caveats of
   ``tests/test_torch_sr_quant.py`` (another random generator, and XLA's
   CPU scales one ulp off the IEEE quotient).
-- ``cli.serve`` parses ``--no-aot-cache`` and builds the server with it.
+- ``cli.serve`` parses ``--no-aot-cache`` and builds the server with it;
+  under ``--continuous`` the five engine flags reach the engine.
 - ``utils.tree_count``/``tree_bytes``/``tree_summary`` of the port's trees
   equal the JAX package's on the same weights.
 - ``metrics.analysis`` (alignment, confusion report) equals the JAX
@@ -161,6 +162,29 @@ def test_serve_parses_no_aot_cache():
     finally:
         server.server_close()
         service.close()
+
+
+def test_serve_continuous_takes_the_engine_flags():
+    """Under --continuous the reference's five engine flags reach the
+    engine, with --batch-size as its slots, bf16 and the int8 cross cache."""
+    from whisper_ipa_torch.cli import serve as serve_cli
+    from whisper_ipa_torch.serve_continuous import ContinuousBatcher
+
+    server, service = serve_cli.build_server(
+        ["--model", "test-tiny", "--port", "0", "--device", "cpu",
+         "--continuous", "--batch-size", "3", "--max-new-tokens", "16",
+         "--steps-per-sync", "8", "--adaptive-sync", "--no-join-fast-sync",
+         "--max-pending", "5"])
+    try:
+        assert isinstance(service, ContinuousBatcher)
+        got = (service.slots, service.max_new, service.steps_per_sync,
+               service.adaptive_sync, service.join_fast_sync,
+               service.max_pending, service.dtype, service.kv_int8)
+        assert got == (3, 16, 8, True, False, 5, torch.bfloat16, True)
+    finally:
+        server.server_close()
+        service.close()
+    assert not service._thread.is_alive()
 
 
 # -- utils.trees -----------------------------------------------------------

@@ -19,6 +19,9 @@ Layout:
   train/      single-device fine-tuning
   cli/        the command-line entry points
   serve.py    micro-batching TranscriptionService
+  serve_continuous.py
+              the in-flight batching engine (ContinuousBatcher): requests
+              join a running decode batch between chunks of steps
 
 Every wrapper runs its kernel for CUDA tensors and its plain version for
 CPU tensors; it never falls back from a failed kernel to the plain version.

@@ -1,25 +1,38 @@
-"""CLI: HTTP transcription server over the micro-batching service.
+"""CLI: HTTP transcription server over the micro-batching service or the
+in-flight engine.
 
-Counterpart of ``whisper_ipa_tpu/cli/serve.py`` (its micro-batch branch)
-over the port's ``serve.TranscriptionService`` on one device.
+Counterpart of ``whisper_ipa_tpu/cli/serve.py`` over the port's
+``serve.TranscriptionService`` or, with ``--continuous``,
+``serve_continuous.ContinuousBatcher`` on one device.
 
-POST /transcribe with a WAV body (or JSON {"path": ...}) returns {"text",
-"segments", "latency_sec"}. POST /transcribe_stream streams NDJSON over
-chunked transfer: one {"partial": ...} line per decoded 30 s window as it
-completes, then a final {"final": ...} line. GET /healthz and /stats for
-operations. Every handler error is a 500.
+POST /transcribe with a WAV body (or JSON {"path": ...}) returns the
+service's result: {"text", "segments", "latency_sec"}, or the engine's
+{"text", "tokens", "n_windows", "latency_sec", "queue_sec", "ttft_sec",
+"truncated", "timed_out"}. POST /transcribe_stream streams NDJSON over
+chunked transfer: one {"partial": ...} line per decoded 30 s window (the
+service) or per decoded token (the engine), then a final {"final": ...}
+line. GET /healthz and /stats for operations. A handler error is a 500;
+the engine's ``EngineOverloaded`` (``--max-pending`` requests already
+waiting) is a 503.
 
   python -m whisper_ipa_torch.cli.serve --model small --port 8080 \\
       --checkpoint checkpoints/whisper-ipa/best-checkpoint
+  python -m whisper_ipa_torch.cli.serve --model small --continuous \\
+      --batch-size 16 --max-new-tokens 128 --max-pending 64 --warmup
 
 ``build_server(argv)`` builds the service and a bound server without
 serving, so a caller can run ``serve_forever`` in a thread and stop it with
 ``shutdown()``.
 
-``--beam-size`` decodes each batch with beam search. Not ported, each
-exits with a message: ``--continuous`` (the in-flight engine, ROADMAP
-queue 1 item 9), ``--draft-model`` / ``--medusa-*`` (speculative decoding,
-item 10, with or without ``--beam-size``) and ``--dp`` / ``--tp`` > 1 (item
+``--beam-size`` decodes each batch with beam search. ``--continuous``
+takes the reference's engine settings: bf16 activations, the int8 cross
+cache, ``--batch-size`` slots, ``--max-new-tokens``, ``--steps-per-sync``,
+``--adaptive-sync``, ``--no-join-fast-sync``, ``--max-pending``, and with
+``--warmup`` every kernel built before binding; it refuses ``--beam-size``,
+``--kv-int4`` and ``--tp`` with ``--quant-bits``, as the reference does.
+Not ported, each exits with a message: ``--draft-model`` / ``--medusa-*``
+(speculative decoding, ROADMAP queue 1 item 10, with or without
+``--beam-size`` or ``--continuous``) and ``--dp`` / ``--tp`` > 1 (item
 12). The reference's ``--no-aot-cache`` parses and does nothing: CUDA has
 no executable cache to switch off (item 14).
 """
@@ -34,7 +47,9 @@ import numpy as np
 from ..audio import load_audio_bytes
 from ..config import get_config
 from ..models import load_checkpoint_auto
+from ..ops.quant import quantize_params
 from ..serve import TranscriptionService
+from ..serve_continuous import ContinuousBatcher, EngineOverloaded
 from ..train.loop import load_or_init_params, resolve_device
 from . import add_device_flag, add_overlay_flags
 
@@ -100,8 +115,9 @@ def make_handler(service):
                 self._write_chunk({"final": fut.result()})
                 self.wfile.write(b"0\r\n\r\n")
             except Exception as e:  # the request's boundary: report, serve on
+                code = 503 if isinstance(e, EngineOverloaded) else 500
                 try:
-                    self._send(500, {"error": str(e)})
+                    self._send(code, {"error": str(e)})
                 except OSError:
                     pass  # the client is gone, or a stream already started
 
@@ -139,12 +155,16 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--warmup", action="store_true",
-        help="run one dummy batch before binding (builds the kernels)",
+        help="run one dummy batch before binding (builds the kernels; the "
+        "continuous engine also runs each of its device functions once)",
     )
     p.add_argument("--beam-size", type=int, default=None,
                    help="beam-search decoding width (default: greedy)")
-    p.add_argument("--continuous", action="store_true",
-                   help="not ported (ROADMAP queue 1 item 9)")
+    p.add_argument(
+        "--continuous", action="store_true",
+        help="in-flight batching engine (serve_continuous): requests join "
+        "a running batch; per-token streaming; 30 s windows in turn",
+    )
     p.add_argument("--draft-model", default=None,
                    help="not ported (ROADMAP queue 1 item 10)")
     p.add_argument("--medusa-tree", action="store_true",
@@ -161,16 +181,26 @@ def build_parser() -> argparse.ArgumentParser:
     ):
         p.add_argument(flag, help="with --draft-model; not ported (ROADMAP "
                        "queue 1 item 10)", **kw)
-    for flag, kw in (
-        ("--max-new-tokens", dict(type=int, default=128)),
-        ("--steps-per-sync", dict(type=int, default=4)),
-        ("--adaptive-sync", dict(action="store_true")),
-        ("--no-join-fast-sync", dict(dest="join_fast_sync",
-                                     action="store_false", default=True)),
-        ("--max-pending", dict(type=int, default=None)),
-    ):
-        p.add_argument(flag, help="with --continuous; not ported (ROADMAP "
-                       "queue 1 item 9)", **kw)
+    p.add_argument("--max-new-tokens", type=int, default=128,
+                   help="continuous engine: token budget of a window")
+    p.add_argument("--steps-per-sync", type=int, default=4,
+                   help="continuous engine: decode steps between host syncs")
+    p.add_argument(
+        "--adaptive-sync", action="store_true",
+        help="continuous engine: long decode chunks when no joins are "
+        "pending (throughput knob; raises worst-case join latency)",
+    )
+    p.add_argument(
+        "--no-join-fast-sync", dest="join_fast_sync",
+        action="store_false", default=True,
+        help="continuous engine: no 1-round chunk after a join (the TTFT "
+        "fast path)",
+    )
+    p.add_argument(
+        "--max-pending", type=int, default=None,
+        help="continuous engine: answer 503 when this many requests are "
+        "already waiting (backpressure over unbounded queueing latency)",
+    )
     p.add_argument("--dp", type=int, default=1,
                    help="not ported (ROADMAP queue 1 item 12)")
     p.add_argument("--tp", type=int, default=1,
@@ -180,10 +210,24 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _refuse_continuous(args) -> None:
+    """The reference's refusals of the engine's flag combinations."""
+    if args.tp > 1 and args.quant_bits is not None:
+        raise SystemExit(
+            "--continuous --tp shards float weights (TP_RULES); "
+            "drop --quant-bits or use the micro-batch service"
+        )
+    if args.beam_size:
+        raise SystemExit("--continuous is greedy-only (no beam)")
+    if args.kv_int4:
+        raise SystemExit(
+            "--continuous supports int8 cross-KV only (the engine's "
+            "persistent cache has no int4 path); drop --kv-int4"
+        )
+
+
 def _refuse_unported(args) -> None:
     unported = (
-        (args.continuous, "--continuous: the in-flight batching engine",
-         "item 9"),
         (args.draft_model or args.medusa_tree or args.medusa_weights,
          "--draft-model / --medusa-*: speculative decoding", "item 10"),
         (args.dp * args.tp > 1, "--dp / --tp: multi-device serving",
@@ -199,6 +243,8 @@ def build_server(argv=None):
     """Parse the flags, load the model, start the service and bind the
     server; returns (server, service) without serving."""
     args = build_parser().parse_args(argv)
+    if args.continuous:
+        _refuse_continuous(args)
     _refuse_unported(args)
     device = resolve_device(args.device)
     cfg = get_config(args.model)
@@ -208,17 +254,38 @@ def build_server(argv=None):
             args.checkpoint, params, args.full_ckpt
         )
         print(f"Loaded {n} tensors from {args.checkpoint}")
-    service = TranscriptionService(
-        params,
-        cfg,
-        device=device,
-        batch_size=args.batch_size,
-        max_wait_ms=args.max_wait_ms,
-        language=args.language,
-        beam_size=args.beam_size,
-        quant_bits=args.quant_bits,
-        kv_int4=args.kv_int4,
-    )
+    if args.continuous:
+        if args.quant_bits is not None:
+            params = quantize_params(params, bits=args.quant_bits)
+        # the service's serving defaults: bf16 activations, int8 cross cache
+        service = ContinuousBatcher(
+            params,
+            cfg,
+            device=device,
+            slots=args.batch_size,
+            max_new_tokens=args.max_new_tokens,
+            steps_per_sync=args.steps_per_sync,
+            join_fast_sync=args.join_fast_sync,
+            adaptive_sync=args.adaptive_sync,
+            language=args.language,
+            bf16=True,
+            kv_int8=True,
+            max_pending=args.max_pending,
+            # a long-lived server builds every kernel before binding
+            prewarm=args.warmup,
+        )
+    else:
+        service = TranscriptionService(
+            params,
+            cfg,
+            device=device,
+            batch_size=args.batch_size,
+            max_wait_ms=args.max_wait_ms,
+            language=args.language,
+            beam_size=args.beam_size,
+            quant_bits=args.quant_bits,
+            kv_int4=args.kv_int4,
+        )
     try:
         if args.warmup:
             print("Warming up (one dummy batch)...")

@@ -567,6 +567,78 @@ def decode_step_beam(
     return step_logits.reshape(B, J, -1), cache
 
 
+def decode_step_multipos(
+    params: Params,
+    cfg: WhisperConfig,
+    tokens,
+    cache: DecoderCache,
+    pos,
+    dtype=torch.float32,
+) -> Tuple[torch.Tensor, DecoderCache]:
+    """``decode_step`` with a per-element position vector: pos (B,) long."""
+    logits, cache, _ = decode_step_multipos_hidden(
+        params, cfg, tokens, cache, pos, dtype=dtype
+    )
+    return logits, cache
+
+
+def decode_step_multipos_hidden(
+    params: Params,
+    cfg: WhisperConfig,
+    tokens,
+    cache: DecoderCache,
+    pos,
+    dtype=torch.float32,
+) -> Tuple[torch.Tensor, DecoderCache, torch.Tensor]:
+    """One decoder step where element b's S tokens sit at positions
+    [pos[b], pos[b] + S); pos is a (B,) long tensor on the tokens' device.
+
+    Each element attends over its own frozen cache rows < pos[b] and,
+    causally, the S new keys; the new K/V then land in place at
+    pos[b]:pos[b] + S with one advanced-index write per layer. Unlike the
+    reference's ``dynamic_update_slice``, the write does not clamp a start
+    that runs off the end: an index past n_ctx raises on the CPU and trips
+    a device assert on CUDA (the in-flight engine's budget freeze keeps
+    every write in range). Returns (logits (B, S, n_vocab) f32, cache, the
+    final-LN hidden states (B, S, d)).
+    """
+    dec = params["decoder"]
+    B, S = tokens.shape
+    n_ctx = cache.self_k.shape[2]
+    device = tokens.device
+    with full_fp32():
+        pos_idx = pos[:, None] + torch.arange(S, device=device)[None, :]
+        x = dec["token_embedding"][tokens].to(dtype)
+        x = x + dec["positional_embedding"][pos_idx].to(dtype)
+
+        key_idx = torch.arange(n_ctx, device=device)[None, None, :]
+        zero = torch.zeros((), device=device)
+        neg = torch.full((), float("-inf"), device=device)
+        mask_cache = torch.where(
+            (key_idx < pos[:, None, None]) & (key_idx <= pos_idx[:, :, None]),
+            zero, neg,
+        )[:, None]  # (B, 1, S, n_ctx)
+        blk = torch.arange(S, device=device)
+        mask_new = torch.where(blk[None, :] <= blk[:, None], zero, neg)
+
+        def self_attn(q, k_cache, v_cache, k_new, v_new):
+            return multi_head_attention_two_part(
+                q, k_cache, v_cache, k_new, v_new,
+                cfg.n_text_head, mask_cache, mask_new,
+            )
+
+        x, news = _run_decoder_layers(
+            dec, cfg, x, cache, self_attn, _cross_attn_default(cfg)
+        )
+        rows = torch.arange(B, device=device)[:, None]
+        for i, (k_new, v_new) in enumerate(news):
+            cache.self_k[i, rows, pos_idx] = k_new
+            cache.self_v[i, rows, pos_idx] = v_new
+        hidden = layer_norm(x, dec["ln"])
+        step_logits = hidden.float() @ dec["token_embedding"].float().T
+    return step_logits, cache, hidden
+
+
 # -- parameter utilities --------------------------------------------------
 
 def count_parameters(params) -> int:
