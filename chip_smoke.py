@@ -63,6 +63,18 @@ weights from seed 0:
             adaptive, in f32 and with int4 weights (K7); the join rewrite's
             drift; cli.serve --continuous over HTTP, with 503s past
             --max-pending
+  speculative decoding at whisper-small on the serving batch (bf16, int8
+            cache, K 4): a self-draft, a whisper-tiny draft, n-gram, a
+            Medusa chain and tree, each held to decode() under the
+            near-tie rule, K1/K2 launches as predicted and no K4 (the
+            verify blocks are multi-query); the self-draft in f32; the
+            drift of the tree's re-fed K/V rows in bf16 and f32; the
+            verify forward's device time; test-tiny CUDA against the CPU;
+            on the learning phase's checkpoint, cli.train_medusa and
+            cli.distill_draft (K2 forward, K5 backward), the trained and
+            untrained drafts on the held-out split, and cli.serve
+            --draft-model ngram (plain, as the reference's service) and
+            medusa --medusa-tree over HTTP
 
 make -C native builds the host library of the edit-distance and WAV
 cores first (the metrics take their NumPy paths where it does not build;
@@ -315,14 +327,16 @@ def check_attention(torch, dev):
     # bounds: f32 2e-5 (the TPU kernel's test bound); bf16 5e-3 absolute at
     # unit-normal inputs, or one bf16 ulp of outputs at or above 1: both
     # sides sum in f32 and round P to bf16 before the value product, at
-    # values that differ in the last bits. Whisper-small's 12 heads, and
-    # whisper-tiny's 6 as phase_learn trains it (bf16, batch 16)
+    # values that differ in the last bits. Whisper-small's 12 heads,
+    # whisper-tiny's 6 as phase_learn trains it (bf16, batch 16), and the
+    # test-tiny student cli.distill_draft trains (2 heads of width 32)
     for heads, dh, dtype, tol in (
         (12, 64, torch.bfloat16, 5e-3),
         (12, 64, torch.float32, 2e-5),
         (12, 32, torch.bfloat16, 5e-3),
         (12, 32, torch.float32, 2e-5),
         (6, 64, torch.bfloat16, 5e-3),
+        (2, 32, torch.bfloat16, 5e-3),
     ):
         q, k, v = (
             torch.randn((MAIN_BATCH, heads, 1500, dh), generator=gen,
@@ -533,13 +547,16 @@ def check_attention_backward(torch, dev):
     # another order than cuBLAS); bf16 1e-2: both sides round P and dS to
     # bf16 before their products (one ulp 2^-8 relative) at values that
     # differ in the last bits. Whisper-small fine-tuned at batch 12 with 12
-    # heads, and whisper-tiny as phase_learn trains it (batch 16, 6 heads)
+    # heads, whisper-tiny as phase_learn trains it (batch 16, 6 heads), and
+    # the test-tiny student cli.distill_draft trains (batch 16, 2 heads of
+    # width 32)
     for B, H, dh, dtype, tol in (
         (TRAIN_BATCH, 12, 64, torch.bfloat16, 1e-2),
         (TRAIN_BATCH, 12, 64, torch.float32, 1e-4),
         (TRAIN_BATCH, 12, 32, torch.bfloat16, 1e-2),
         (TRAIN_BATCH, 12, 32, torch.float32, 1e-4),
         (LEARN_BATCH, 6, 64, torch.bfloat16, 1e-2),
+        (LEARN_BATCH, 2, 32, torch.bfloat16, 1e-2),
     ):
         q, k, v, g = (
             torch.randn((B, H, T, dh), generator=gen, device=dev).to(dtype)
@@ -1649,39 +1666,44 @@ def step0_delta(torch, cfg, params, mels, prefix) -> float:
     return float((out[0] - out[1]).abs().max())
 
 
-def check_engine_tokens(torch, cfg, params, tok, eng, run, oracle, mels,
-                        eps: float, name: str):
-    """``eng``: the engine that ran (its prefix, masks and dtype)."""
-    """The near-tie rule, window by window: the engine's tokens equal
-    decode()'s, or at their first difference decode()'s choice leads the
-    engine's by at most eps in decode()'s own (teacher-forced, masked)
-    logits. A timed-out request may stop early. Returns (windows equal,
-    windows diverged at a near-tie, the gaps there)."""
+def hold_to_decode(torch, cfg, params, tok, rows, prefix, suppress, blank,
+                   dtype, eps: float, name: str):
+    """The near-tie rule, row by row: a path's tokens equal decode()'s, or
+    at their first difference decode()'s choice leads the path's by at
+    most eps in decode()'s own (teacher-forced, masked) logits. ``rows``:
+    (label, tokens, decode()'s tokens, the row's (1, frames, n_mels) mel,
+    whether the path may stop early); ``prefix``, ``suppress``, ``blank``
+    and ``dtype``: decode()'s. Returns (rows equal, rows diverged at a
+    near-tie, the gaps there)."""
     equal, gaps = 0, []
-    for (i, w), want in oracle.items():
-        res = run["results"][i]
-        if res is None:
-            continue  # cancelled
-        got = run["streamed"][i].get(w, [])
-        if got == want or (res["timed_out"] and got == want[:len(got)]):
+    for label, got, want, mel, may_stop in rows:
+        if got == want or (may_stop and got == want[:len(got)]):
             equal += 1
             continue
         k = next(j for j in range(min(len(got), len(want)) + 1)
                  if j == len(got) or j == len(want) or got[j] != want[j])
-        if res["timed_out"] and k == len(got):
-            equal += 1
-            continue
         dec = want[k] if k < len(want) else tok.eot
         mine = got[k] if k < len(got) else tok.eot
-        lg = forced_logits(torch, cfg, params, mels[(i, w)],
-                           list(eng.prefix) + want[:k], eng.dtype)
-        lg = lg + eng.suppress + (eng.blank if k == 0 else 0.0)
+        lg = forced_logits(torch, cfg, params, mel, list(prefix) + want[:k],
+                           dtype)
+        lg = lg + suppress + (blank if k == 0 else 0.0)
         gap = float(lg[dec] - lg[mine])
         gaps.append(round(gap, 6))
-        require(gap <= eps, f"{name}: request {i} window {w} leaves decode() "
-                f"at token {k} ({mine} for {dec}) by {gap:.3e} > {eps:.3e}, "
-                f"not a near-tie")
+        require(gap <= eps, f"{name}: {label} leaves decode() at token {k} "
+                f"({mine} for {dec}) by {gap:.3e} > {eps:.3e}, not a near-tie")
     return equal, len(gaps), gaps
+
+
+def check_engine_tokens(torch, cfg, params, tok, eng, run, oracle, mels,
+                        eps: float, name: str):
+    """``hold_to_decode`` over the engine's windows (``eng``: the engine
+    that ran, for its prefix, masks and dtype); a timed-out request may
+    stop early, a cancelled one is left out."""
+    rows = [(f"request {i} window {w}", run["streamed"][i].get(w, []), want,
+             mels[(i, w)], run["results"][i]["timed_out"])
+            for (i, w), want in oracle.items() if run["results"][i] is not None]
+    return hold_to_decode(torch, cfg, params, tok, rows, eng.prefix,
+                          eng.suppress, eng.blank, eng.dtype, eps, name)
 
 
 def engine_numbers(run) -> dict:
@@ -2968,7 +2990,505 @@ def phase_learn(torch, dev, root: str, by_path) -> dict:
             "learn: perturbed scores finite")
     wall = time.time() - t_phase
     log(f"[learn] phase passed in {wall:.1f} s")
-    return dict(floor=floor, train=train_score, summary=summary, wall=wall)
+    return dict(floor=floor, train=train_score, summary=summary, wall=wall,
+                ckpt=ckpt, params=params, tok=tok, train_json=train_json,
+                heldout=heldout, cache=cache)
+
+
+# -- speculative decoding (decode/speculative.py, decode/medusa_tree.py) ----
+
+SPEC_K = 4  # draft tokens a round (chain); DEFAULT_TREE is 4 deep
+SPEC_TRAIN_STEPS = 200  # cli.train_medusa and cli.distill_draft
+SPEC_HTTP = 8  # held-out requests through each speculative server
+
+
+def spec_masks(torch, dev, tok, options, n_vocab):
+    """decode()'s suppress and first-token blank masks for ``options``."""
+    from whisper_ipa_torch.decode import build_blank_mask, build_suppress_mask
+
+    return (torch.from_numpy(build_suppress_mask(tok, options, n_vocab)).to(dev),
+            torch.from_numpy(build_blank_mask(tok, n_vocab)).to(dev))
+
+
+def spec_decoders(cfg, params, draft, heads):
+    """name -> (fn(mel, options, tok) -> (results, stats), the draft's
+    encoder layers): the five modes of the phase."""
+    from whisper_ipa_torch.decode import medusa_tree_decode, speculative_decode
+    from whisper_ipa_torch.decode.medusa_tree import DEFAULT_TREE
+
+    def chain(draft_params, draft_cfg, medusa=None):
+        return lambda mel, o, tok: speculative_decode(
+            params, cfg, draft_params, draft_cfg, mel, o, draft_k=SPEC_K,
+            tokenizer=tok, return_stats=True, medusa_params=medusa)
+
+    return {
+        "self-draft": (chain(params, cfg), cfg.n_audio_layer),
+        "unrelated draft": (chain(*draft), draft[1].n_audio_layer),
+        "n-gram": (chain(None, None), 0),
+        "medusa chain": (chain(None, None, heads), 0),
+        "medusa tree": (lambda mel, o, tok: medusa_tree_decode(
+            params, cfg, heads, mel, o, tree=DEFAULT_TREE, tokenizer=tok,
+            return_stats=True), 0),
+    }
+
+
+def spec_run(torch, dev, cfg, audio, fn, options, tok):
+    """waveform -> log-mel (K1) -> fn, launches counted from 0 and the wall
+    on the host clock, synchronised. Returns (mel, results, stats, wall,
+    launches)."""
+    from whisper_ipa_torch.ops import log_mel_spectrogram
+
+    reset_counts(torch)
+    t0 = time.time()
+    with torch.inference_mode():
+        mel = log_mel_spectrogram(audio, n_mels=cfg.n_mels)
+    out = fn(mel, options, tok)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    results, stats = out if isinstance(out, tuple) else (out, None)
+    return mel, results, stats, wall, read_counts(torch)
+
+
+def verify_profile(torch, dev, cfg, params, batch: int):
+    """torch.profiler device time of one chain verification forward (K + 1
+    queries a row at position n_prefix + 32, bf16, int8 cross cache) and
+    of its plain int8 cross-attention over every decoder layer (the work a
+    multi-query K4 would take), beside one single-query step and K4 over
+    the same cache."""
+    from whisper_ipa_torch.models import (cast_decoder_blocks, decode_step,
+                                          decode_step_multipos_hidden,
+                                          encode, init_cache)
+    from whisper_ipa_torch.models.layers import multi_head_attention_int8kv
+
+    dtype, n_prefix = torch.bfloat16, 4
+    mel = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (batch, 2 * cfg.n_audio_ctx, cfg.n_mels)).astype(np.float32)).to(dev)
+    out = {}
+    with torch.inference_mode():
+        p = cast_decoder_blocks(params, dtype)
+        feats = encode(params, cfg, mel, dtype=dtype)
+        cache = init_cache(p, cfg, feats, max_len=n_prefix + MAIN_SAMPLE_LEN
+                           + SPEC_K + 1, dtype=dtype, cross_kv_int8=True)
+        tokens = torch.full((batch, SPEC_K + 1), 300, device=dev)
+        pos = torch.full((batch,), n_prefix + 32, device=dev)
+        out["verify_ms"], out["verify_kernels"] = device_profile(
+            torch, lambda: decode_step_multipos_hidden(
+                p, cfg, tokens, cache, pos, dtype=dtype), iters=20)
+        out["step_ms"], out["step_kernels"] = device_profile(
+            torch, lambda: decode_step(p, cfg, tokens[:, :1], cache,
+                                       n_prefix + 32, dtype=dtype), iters=20)
+        d = cfg.n_text_state
+        for name, s in (("plain_cross_ms", SPEC_K + 1), ("k4_cross_ms", 1)):
+            q = torch.randn((batch, s, d), device=dev, dtype=dtype)
+            out[name] = cfg.n_text_layer * device_ms(
+                torch, lambda: multi_head_attention_int8kv(
+                    q, cache.cross_k[0], cache.cross_k_scale[0],
+                    cache.cross_v[0], cache.cross_v_scale[0], cfg.n_text_head),
+                iters=20)
+    return {k: round(v, 4) for k, v in out.items()}
+
+
+class TreeDrift:
+    """Wraps ``medusa_tree.tree_round`` while a tree decode runs. Each round
+    re-feeds the R = K + 2 newest context rows, positions max(lens - R, 0)
+    to lens - 1, and writes their self K/V again. The rows below the
+    previous round's lens (the prefix pass's at the first round) already
+    held the K/V an earlier forward wrote from the same tokens at the same
+    positions; it reads those rows before and after each round."""
+
+    def __init__(self, mt):
+        self.mt = mt
+        self.rounds = self.rows = self.changed = 0
+        self.max_dk = self.max_dv = 0.0
+
+    def __enter__(self):
+        self.orig, self.prev = self.mt.tree_round, None
+        self.mt.tree_round = self.round
+        return self
+
+    def __exit__(self, *exc):
+        self.mt.tree_round = self.orig
+
+    def round(self, *args):
+        # (params, heads, cfg, cache, tokens_buf, hidden, lens, suppress,
+        #  blank, n_prefix, tree, dtype), as _tree_decode passes them
+        cache, lens, tree = args[3], args[6].tolist(), args[10]
+        R = self.mt._tree_tables(tuple(tuple(n) for n in tree))[5] + 2
+        prev = self.prev or lens
+        saved = [(b, max(n - R, 0), p, cache.self_k[:, b, max(n - R, 0):p].clone(),
+                  cache.self_v[:, b, max(n - R, 0):p].clone())
+                 for b, (n, p) in enumerate(zip(lens, prev)) if p > max(n - R, 0)]
+        out = self.orig(*args)
+        for b, lo, hi, k, v in saved:
+            dk = float((out[0].self_k[:, b, lo:hi].float() - k.float()).abs().max())
+            dv = float((out[0].self_v[:, b, lo:hi].float() - v.float()).abs().max())
+            self.max_dk, self.max_dv = max(self.max_dk, dk), max(self.max_dv, dv)
+            self.rows += hi - lo
+            self.changed += bool(dk or dv)
+        self.prev = lens
+        self.rounds += 1
+        return out
+
+    def summary(self) -> str:
+        return (f"{self.rounds} calls of tree_round, {self.rows} re-fed rows written "
+                f"before: max |dK| {self.max_dk:.3e}, |dV| {self.max_dv:.3e}, "
+                f"row-rounds changed {self.changed}")
+
+
+def phase_speculative_parity(torch, dev, tok):
+    """test-tiny in f32 with the int8 cache: the draft-model, n-gram, Medusa
+    chain and tree tokens on the card equal the CPU's (and decode()'s)."""
+    from whisper_ipa_torch.config import CONFIGS
+    from whisper_ipa_torch.decode import DecodingOptions, decode
+    from whisper_ipa_torch.models import init_params, params_to
+    from whisper_ipa_torch.models.medusa import init_medusa_params
+
+    cfg = replace(CONFIGS["test-tiny"], n_audio_ctx=32, n_text_ctx=48)
+    mel = np.random.default_rng(4).standard_normal((2, 64, cfg.n_mels)).astype(
+        np.float32)
+    opts = DecodingOptions(language="en", without_timestamps=True,
+                           sample_len=16, kv_int8=True)
+    cpu = (init_params(cfg, seed=0), init_params(cfg, seed=7),
+           init_medusa_params(cfg, SPEC_K, seed=1))
+    tokens = {}
+    for where, (p, d, h) in (("cpu", cpu), ("cuda", tuple(
+            params_to(t, dev) for t in cpu))):
+        for name, (fn, _) in spec_decoders(cfg, p, (d, cfg), h).items():
+            if name == "self-draft":
+                continue
+            res, _ = fn(mel, opts, tok)
+            tokens[(where, name)] = [r.tokens for r in res]
+        tokens[(where, "decode")] = [r.tokens for r in decode(
+            p, cfg, mel, opts, tokenizer=tok)]
+    names = sorted({n for _, n in tokens})
+    same = {n: tokens[("cpu", n)] == tokens[("cuda", n)]
+            == tokens[("cpu", "decode")] for n in names}
+    log(f"[speculative parity] test-tiny f32 int8 cross-KV, 2 rows x 16 "
+        f"tokens, K {SPEC_K}: CUDA == CPU == decode() tokens {same}")
+    require(all(same.values()), "test-tiny speculative tokens equal on CUDA, "
+            "on the CPU and decode()'s")
+
+
+def phase_speculative(torch, dev, cfg, params, tok, by_path, card: str):
+    """Speculative decoding at whisper-small's full width on the serving
+    phases' batch (16 x 30 s, 64 tokens, EOT suppressed, bf16, int8 cross
+    cache, K 4): a self-draft (the acceptance ceiling), an unrelated
+    whisper-tiny draft from seed 1 (the floor), n-gram, a Medusa chain on
+    init_medusa_params heads and a Medusa tree on DEFAULT_TREE; each held
+    to decode() under the near-tie rule, K1/K2/K4/K8 launches equal to the
+    prediction; the self-draft in f32 at batch 2; the drift of the tree's
+    re-fed K/V rows in bf16 and f32 (TreeDrift); the verification
+    forward's device time; test-tiny CUDA against the CPU."""
+    from whisper_ipa_torch.config import CONFIGS
+    from whisper_ipa_torch.decode import DecodingOptions, decode
+    from whisper_ipa_torch.decode import medusa_tree as mt
+    from whisper_ipa_torch.models import init_params
+    from whisper_ipa_torch.models.medusa import init_medusa_params
+
+    t_phase = time.time()
+    phase_speculative_parity(torch, dev, tok)
+    tiny = CONFIGS["tiny"]
+    draft = (init_params(tiny, seed=1, device=dev), tiny)
+    heads = init_medusa_params(cfg, SPEC_K, seed=0, device=dev)
+    modes = spec_decoders(cfg, params, draft, heads)
+    prefix = list(tok.sot_sequence_including_notimestamps)
+    audio = torch.from_numpy(synthetic_audio(MAIN_BATCH, 30.0, seed=1)).to(dev)
+
+    def decode_fn(mel, o, t):
+        return decode(params, cfg, mel, o, tokenizer=t)
+
+    for bf16, batch in ((True, MAIN_BATCH), (False, 2)):
+        options = DecodingOptions(
+            language="en", without_timestamps=True,
+            sample_len=MAIN_SAMPLE_LEN, suppress_tokens=[-1, tok.eot],
+            fp16=bf16, kv_int8=True)
+        dtype = torch.bfloat16 if bf16 else torch.float32
+        suppress, blank = spec_masks(torch, dev, tok, options, cfg.n_vocab)
+        runs = {"decode": decode_fn} | ({k: v[0] for k, v in modes.items()}
+                                        if bf16 else
+                                        {"self-draft": modes["self-draft"][0]})
+        short = replace(options, sample_len=8)
+        for fn in runs.values():  # warm-up: cuBLAS handles, the allocator
+            spec_run(torch, dev, cfg, audio[:batch], fn, short, tok)
+        out = {name: spec_run(torch, dev, cfg, audio[:batch], fn, options, tok)
+               for name, fn in runs.items()}
+        mel, oracle, _, decode_wall, _ = out.pop("decode")
+        mels = [mel[i:i + 1] for i in range(batch)]
+        eps = (2.0 * step0_delta(torch, cfg, params, mels[:EPS_WINDOWS], prefix)
+               if bf16 else EPS_F32)
+        precision = "bf16" if bf16 else "f32"
+        log(f"[speculative] whisper-small {precision}, batch {batch} x 30 s, "
+            f"{MAIN_SAMPLE_LEN} tokens a row (EOT suppressed), int8 cross "
+            f"cache, K {SPEC_K}, on {card}: decode() wall {decode_wall:.4f} "
+            f"s; near-tie eps {eps:.4e}")
+        for name, (_, results, stats, wall, launches) in out.items():
+            want = {"K1": 1, "K2": cfg.n_audio_layer + modes[name][1] if bf16
+                    else 0, "K4": 0, "K8": 0}
+            got = {k: launches[k] for k in want}
+            rows = [(f"row {i}", r.tokens, o.tokens, mels[i], False)
+                    for i, (r, o) in enumerate(zip(results, oracle))]
+            equal, near, gaps = hold_to_decode(
+                torch, cfg, params, tok, rows, prefix, suppress, blank, dtype,
+                eps, f"speculative {name} {precision}")
+            log(f"[speculative {name} {precision}] rounds {stats.rounds}, "
+                f"tokens a round {stats.tokens_per_round:.4f} ({stats.emitted_tokens} "
+                f"tokens), wall {wall:.4f} s against decode()'s "
+                f"{decode_wall:.4f} s ({wall / decode_wall:.3f}x); {equal} rows "
+                f"equal decode()'s, {near} leave it at a near-tie (gaps {gaps}); "
+                f"launches {nonzero(launches)}, predicted {want}")
+            require(all(len(r.tokens) == MAIN_SAMPLE_LEN for r in results)
+                    and stats.emitted_tokens == batch * MAIN_SAMPLE_LEN,
+                    f"speculative {name}: every row decoded {MAIN_SAMPLE_LEN} "
+                    f"tokens")
+            require(got == want, f"speculative {name} {precision}: launches "
+                    f"{got}, predicted {want}")
+            by_path[f"speculative {name} {precision}"] = launches
+        # the tree's re-feed rewrites rows it wrote before: read once, on
+        # a run of its own, outside the timed ones
+        with TreeDrift(mt) as drift:
+            spied, _ = modes["medusa tree"][0](mel, options, tok)
+        same = (out["medusa tree"][1] if bf16 else None)
+        log(f"[speculative tree re-feed {precision}] batch {batch}, "
+            f"DEFAULT_TREE, R {SPEC_K + 2}: {drift.summary()}"
+            + ("" if same is None else
+               f"; tokens equal the timed run's "
+               f"{[r.tokens for r in spied] == [r.tokens for r in same]}"))
+        require(drift.rounds > 0 and drift.rows > 0,
+                f"the tree re-feed spy read rows ({precision})")
+        if bf16:
+            ceiling = out["self-draft"][2].tokens_per_round
+            require(ceiling > 1.5, f"the self-draft accepts: {ceiling:.3f} "
+                    f"tokens a round")
+    prof = verify_profile(torch, dev, cfg, params, MAIN_BATCH)
+    log(f"[speculative verify profile] whisper-small bf16 int8 cache, batch "
+        f"{MAIN_BATCH}, torch.profiler device time: one verification forward "
+        f"of {SPEC_K + 1} queries a row {prof['verify_ms']} ms "
+        f"({prof['verify_kernels']} kernels), one single-query step "
+        f"{prof['step_ms']} ms ({prof['step_kernels']} kernels); the plain "
+        f"int8 cross-attention of the verification over "
+        f"{cfg.n_text_layer} layers {prof['plain_cross_ms']} ms, K4's "
+        f"single-query cross-attention {prof['k4_cross_ms']} ms")
+    del draft, heads
+    torch.cuda.empty_cache()
+    log(f"[speculative] phase passed in {time.time() - t_phase:.1f} s")
+
+
+def phase_speculative_learned(torch, dev, root: str, learned: dict, by_path):
+    """On phase_learn's whisper-tiny checkpoint: cli.train_medusa (4 heads,
+    200 steps, the accuracy file), cli.distill_draft (a test-tiny student,
+    200 steps, bf16: K2 forward for student and teacher, K5 backward for
+    the student), then the 48 held-out utterances decoded with the trained
+    chain, the trained tree (tree_for_heads), the distilled draft, the
+    untrained heads and the undistilled student, each held to decode() by
+    the near-tie rule; then cli.serve --draft-model ngram and --draft-model
+    medusa --medusa-tree over HTTP."""
+    from whisper_ipa_torch.audio import load_audio, pad_or_trim
+    from whisper_ipa_torch.cli import distill_draft, train_medusa
+    from whisper_ipa_torch.config import CONFIGS
+    from whisper_ipa_torch.decode import DecodingOptions, decode
+    from whisper_ipa_torch.decode.medusa_tree import tree_for_heads
+    from whisper_ipa_torch.models import init_params, load_checkpoint_auto
+    from whisper_ipa_torch.models.medusa import init_medusa_params, load_medusa
+    from whisper_ipa_torch.ops import log_mel_spectrogram
+
+    t_phase = time.time()
+    cfg, params, tok = CONFIGS["tiny"], learned["params"], learned["tok"]
+    common = ["--train-data", learned["train_json"], "--batch-size", "16",
+              "--mel-cache-dir", learned["cache"], "--log-every", "50",
+              "--device", dev.type]
+    heads_path = os.path.join(root, "heads.safetensors")
+    reset_counts(torch)
+    t0 = time.time()
+    probs = train_medusa.main([
+        "--model", "tiny", "--checkpoint", learned["ckpt"], "--full-checkpoint",
+        "--n-heads", str(SPEC_K), "--steps", str(SPEC_TRAIN_STEPS),
+        "--output", heads_path, *common])
+    heads_s, launches = time.time() - t0, read_counts(torch)
+    by_path["learn train_medusa"] = launches
+    want = {"K1": 0, "K2": cfg.n_audio_layer * (SPEC_TRAIN_STEPS + 4), "K5": 0}
+    got = {k: launches[k] for k in want}
+    log(f"[learn train_medusa] {SPEC_K} heads, {SPEC_TRAIN_STEPS} steps, batch "
+        f"16, frozen whisper-tiny checkpoint: {heads_s:.1f} s; per-head top-4 "
+        f"accuracy {[[round(x, 4) for x in row] for row in probs]}; launches "
+        f"{nonzero(launches)}, predicted {want}")
+    require(got == want, f"train_medusa launches {got}, predicted {want}")
+    require(os.path.isfile(heads_path + ".accuracy.json"),
+            "train_medusa wrote the accuracy file")
+
+    student_cfg = CONFIGS["test-tiny"]
+    out_dir = os.path.join(root, "draft")
+    reset_counts(torch)
+    t0 = time.time()
+    # ten times the CLI's default rate: a test-tiny student from random
+    # init moves little in 200 steps at 1e-4
+    student_ckpt = distill_draft.main([
+        "--student", "test-tiny", "--teacher", "tiny", "--teacher-checkpoint",
+        learned["ckpt"], "--full-checkpoint", "--output-dir", out_dir,
+        "--steps", str(SPEC_TRAIN_STEPS), "--save-every", "0",
+        "--learning-rate", "1e-3", *common])
+    distill_s, launches = time.time() - t0, read_counts(torch)
+    by_path["learn distill_draft"] = launches
+    want = {"K1": 0, "K2": (student_cfg.n_audio_layer + cfg.n_audio_layer)
+            * SPEC_TRAIN_STEPS, "K5": student_cfg.n_audio_layer * SPEC_TRAIN_STEPS}
+    got = {k: launches[k] for k in want}
+    log(f"[learn distill_draft] test-tiny student from the whisper-tiny "
+        f"teacher, {SPEC_TRAIN_STEPS} steps, batch 16, lr 1e-3, bf16, token "
+        f"width 128: "
+        f"{distill_s:.1f} s; launches {nonzero(launches)}, predicted {want}")
+    require(got == want, f"distill_draft launches {got}, predicted {want}")
+
+    # the held-out split, batches of 16 (48 rows: three)
+    heldout = learned["heldout"]
+    waves = [pad_or_trim(load_audio(e["audio_path"])) for e in heldout]
+    with torch.inference_mode():
+        mels = [log_mel_spectrogram(torch.from_numpy(np.stack(
+            waves[i:i + 16])).to(dev), n_mels=cfg.n_mels)
+            for i in range(0, len(waves), 16)]
+    options = DecodingOptions(language="en", without_timestamps=True,
+                              sample_len=MAIN_SAMPLE_LEN, fp16=True,
+                              kv_int8=True)
+    suppress, blank = spec_masks(torch, dev, tok, options, cfg.n_vocab)
+    prefix = list(tok.sot_sequence_including_notimestamps)
+    oracle = [r.tokens for m in mels
+              for r in decode(params, cfg, m, options, tokenizer=tok)]
+    rows_mel = [m[i:i + 1] for m in mels for i in range(m.shape[0])]
+    eps = 2.0 * step0_delta(torch, cfg, params, rows_mel[:EPS_WINDOWS], prefix)
+    trained = load_medusa(heads_path, device=dev)
+    tree = tree_for_heads(heads_path)
+    student, _ = load_checkpoint_auto(student_ckpt, init_params(
+        student_cfg, seed=0, device=dev))
+    from whisper_ipa_torch.decode import medusa_tree_decode, speculative_decode
+
+    def chain(draft_params=None, draft_cfg=None, heads=None):
+        return lambda m: speculative_decode(
+            params, cfg, draft_params, draft_cfg, m, options, draft_k=SPEC_K,
+            tokenizer=tok, return_stats=True, medusa_params=heads)
+
+    modes = {
+        "untrained heads": chain(heads=init_medusa_params(cfg, SPEC_K, seed=0,
+                                                          device=dev)),
+        "trained heads": chain(heads=trained),
+        "trained tree": lambda m: medusa_tree_decode(
+            params, cfg, trained, m, options, tree=tree, tokenizer=tok,
+            return_stats=True),
+        "undistilled student": chain(init_params(student_cfg, seed=0,
+                                                 device=dev), student_cfg),
+        "distilled student": chain(student, student_cfg),
+    }
+    tpr = {}
+    for name, fn in modes.items():
+        reset_counts(torch)
+        t0 = time.time()
+        outs = [fn(m) for m in mels]
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        by_path[f"learn speculative {name}"] = read_counts(torch)
+        got = [r.tokens for res, _ in outs for r in res]
+        rounds = sum(st.rounds * st.batch for _, st in outs)
+        tpr[name] = sum(st.emitted_tokens for _, st in outs) / rounds
+        equal, near, gaps = hold_to_decode(
+            torch, cfg, params, tok,
+            [(f"utterance {i}", g, w, m, False)
+             for i, (g, w, m) in enumerate(zip(got, oracle, rows_mel))],
+            prefix, suppress, blank, torch.bfloat16, eps,
+            f"learn speculative {name}")
+        log(f"[learn speculative {name}] {len(got)} held-out utterances, bf16, "
+            f"int8 cache: {sum(st.rounds for _, st in outs)} rounds over "
+            f"{len(outs)} batches, tokens a round {tpr[name]:.4f} (a finished "
+            f"row counts in its batch's rounds), wall {wall:.3f} s; "
+            f"{equal} equal decode()'s, {near} leave it at a near-tie (gaps "
+            f"{gaps}; eps {eps:.4e})")
+    log(f"[learn speculative] tokens a round: trained heads "
+        f"{tpr['trained heads']:.4f} against untrained {tpr['untrained heads']:.4f}, "
+        f"trained tree {tpr['trained tree']:.4f} (tree {tree}); distilled "
+        f"student {tpr['distilled student']:.4f} against undistilled "
+        f"{tpr['undistilled student']:.4f}")
+    require(tpr["trained heads"] >= tpr["untrained heads"],
+            "trained heads reach at least the untrained heads' tokens a round")
+
+    phase_speculative_http(torch, dev, learned, heads_path, prefix, eps)
+    log(f"[learn speculative] phase passed in {time.time() - t_phase:.1f} s")
+
+
+def phase_speculative_http(torch, dev, learned, heads_path, prefix, eps):
+    """cli.serve on the whisper-tiny checkpoint, one request a batch: plain,
+    --draft-model ngram (a plain service, as the reference's), and
+    --draft-model medusa with the trained heads and --medusa-tree. Each
+    answer equals the same decoder called directly on the request's batch.
+    The ngram texts equal the plain server's; the tree's equal them except
+    where its tokens leave decode() at a near-tie, which the near-tie rule
+    holds on those direct calls' tokens."""
+    import threading
+
+    from whisper_ipa_torch.audio import load_audio, pad_or_trim
+    from whisper_ipa_torch.cli import serve as serve_cli
+    from whisper_ipa_torch.config import CONFIGS
+    from whisper_ipa_torch.decode import decode
+    from whisper_ipa_torch.ops import log_mel_spectrogram
+
+    cfg, params, tok = CONFIGS["tiny"], learned["params"], learned["tok"]
+    paths = [e["audio_path"] for e in learned["heldout"][:SPEC_HTTP]]
+    base = ["--model", "tiny", "--checkpoint", learned["ckpt"],
+            "--full-checkpoint", "--batch-size", "1", "--port", "0",
+            "--device", dev.type]
+    texts, direct = {}, {}
+    for name, extra in (("plain", []), ("ngram", ["--draft-model", "ngram"]),
+                        ("medusa tree", ["--draft-model", "medusa",
+                                         "--medusa-weights", heads_path,
+                                         "--medusa-tree"])):
+        server, service = serve_cli.build_server(base + extra)
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            texts[name] = [_http(f"{url}/transcribe", json.dumps(
+                {"path": p}).encode(), "application/json")[0]["text"]
+                for p in paths]
+            direct[name] = []
+            for p in paths:
+                with torch.inference_mode():
+                    mel = log_mel_spectrogram(torch.from_numpy(pad_or_trim(
+                        load_audio(p)))[None].to(dev), n_mels=cfg.n_mels)
+                direct[name].append((mel, service._decode_windows(
+                    [pad_or_trim(load_audio(p))])[0]))
+        finally:
+            server.shutdown()
+            server.server_close()
+            service.close()
+            thread.join(timeout=30)
+        require(not thread.is_alive() and not service._thread.is_alive(),
+                f"serve {name}: threads stopped")
+        require(texts[name] == [r.text for _, r in direct[name]],
+                f"serve {name}: each answer equals the direct call's")
+    options = service.options  # the server's: bf16, the int8 cross cache
+    require(options.fp16 and options.kv_int8, "the serving options")
+    suppress, blank = spec_masks(torch, dev, tok, options, cfg.n_vocab)
+    plain = [(m, r.tokens) for m, r in direct["plain"]]
+    require([decode(params, cfg, m, options, tokenizer=tok)[0].tokens
+             for m, _ in plain] == [t for _, t in plain],
+            "the plain server decodes as decode() on the checkpoint")
+    for name in ("ngram", "medusa tree"):
+        equal, near, gaps = hold_to_decode(
+            torch, cfg, params, tok,
+            [(f"request {i}", r.tokens, want, m, False)
+             for i, ((m, want), (_, r)) in enumerate(zip(plain, direct[name]))],
+            prefix, suppress, blank, torch.bfloat16, eps, f"serve {name}")
+        same = [a == b for a, b in zip(texts[name], texts["plain"])]
+        tie_free = [r.tokens == want
+                    for (_, want), (_, r) in zip(plain, direct[name])]
+        log(f"[learn serve {name}] cli.serve --draft-model {name.split()[0]}"
+            f"{' --medusa-tree' if 'tree' in name else ''}, {SPEC_HTTP} "
+            f"held-out requests: {sum(same)} texts equal the plain server's; "
+            f"tokens {equal} equal decode()'s, {near} at a near-tie (gaps "
+            f"{gaps})")
+        # n-gram drafts serve only in the in-flight engine: under ngram the
+        # service decodes plainly, as the reference's does, so its texts
+        # are the plain server's. The tree verifies in bf16 blocks, which
+        # may leave greedy decoding at a near-tie (held above); every other
+        # request's text is the plain server's
+        require(all(same) if name == "ngram" else
+                all(s for s, t in zip(same, tie_free) if t),
+                f"serve {name}: texts equal the plain server's")
 
 
 def main() -> int:
@@ -3055,6 +3575,7 @@ def main() -> int:
     phase_service(torch, dev, cfg, params, tok)
     phase_service(torch, dev, cfg, params, tok, quant_bits=4, kv_int4=True)
     phase_engine(torch, dev, cfg, params, tok, by_path)
+    phase_speculative(torch, dev, cfg, params, tok, by_path, card)
     del params
     torch.cuda.empty_cache()
 
@@ -3068,7 +3589,9 @@ def main() -> int:
     phase_train_parity(torch, dev)
     root = tempfile.mkdtemp(prefix="chip_smoke_learn_")
     try:
-        phase_learn(torch, dev, root, by_path)
+        learned = phase_learn(torch, dev, root, by_path)
+        phase_speculative_learned(torch, dev, root, learned, by_path)
+        del learned
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log(f"[done] all phases passed in {time.time() - t_start:.1f} s")

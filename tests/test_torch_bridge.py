@@ -88,6 +88,14 @@ LEARNING_SLICE_MODULES = [
     "whisper_ipa_torch.utils.timing",
     "whisper_ipa_torch.utils.trees",
 ]
+# modules the speculative-decoding slice added
+SPECULATIVE_SLICE_MODULES = [
+    "whisper_ipa_torch.decode.speculative",
+    "whisper_ipa_torch.decode.medusa_tree",
+    "whisper_ipa_torch.models.medusa",
+    "whisper_ipa_torch.cli.train_medusa",
+    "whisper_ipa_torch.cli.distill_draft",
+]
 
 
 def test_port_never_imports_jax():
@@ -117,6 +125,7 @@ def test_port_never_imports_jax():
     names = out.stdout.split()
     assert len(names) >= 30  # every module was imported
     assert set(LEARNING_SLICE_MODULES) <= set(names)
+    assert set(SPECULATIVE_SLICE_MODULES) <= set(names)
 
 
 def _imported_modules(path):

@@ -17,7 +17,11 @@ JAX CLI's messages. With ``--beam-size``, ``evaluate_model`` gives the JAX
 CLI's report and the server ``decode()``'s beam texts; ``cli.transcribe
 --json`` prints the JAX CLI's JSON lines. ``error_analysis`` prints and
 writes the JAX CLI's report, from saved predictions and from the
-checkpoint.
+checkpoint. ``cli.train_medusa`` writes heads, their snapshot and their
+accuracy file, which the JAX package reads; ``cli.distill_draft`` writes a
+checkpoint both packages load with the full overlay; ``cli.serve
+--draft-model ngram`` (a plain service, as the reference's) and
+``--draft-model medusa --medusa-tree`` answer with ``decode()``'s text.
 """
 
 import io
@@ -477,13 +481,12 @@ def test_serve_continuous_refusals_match_jax(setup, argv):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--continuous", "--draft-model", "tiny"], "item 10"),
-    (["--draft-model", "tiny"], "item 10"),
-    (["--medusa-tree"], "item 10"),
-    (["--medusa-weights", "heads.safetensors"], "item 10"),
+    (["--continuous", "--draft-model", "tiny"], "item 16"),
+    (["--continuous", "--draft-model", "ngram"], "item 16"),
+    (["--continuous", "--draft-model", "medusa", "--medusa-tree"], "item 16"),
     (["--dp", "2"], "item 12"),
     (["--tp", "2"], "item 12"),
-    (["--beam-size", "2", "--draft-model", "tiny"], "item 10"),
+    (["--draft-model", "ngram", "--tp", "2"], "item 12"),
 ])
 def test_serve_unported_flags_exit(argv, item):
     with pytest.raises(SystemExit) as e:
@@ -494,7 +497,8 @@ def test_serve_unported_flags_exit(argv, item):
 # the reference's engine and speculative-decoding options, with what the
 # reference's parser makes of them
 ENGINE_FLAGS = [
-    (["--draft-weights", "d.safetensors"], "draft_weights", "d.safetensors", "item 10"),
+    (["--draft-weights", "d.safetensors"], "draft_weights", "d.safetensors",
+     "item 10"),
     (["--draft-checkpoint", "run/checkpoint-9"], "draft_checkpoint",
      "run/checkpoint-9", "item 10"),
     (["--draft-k", "6"], "draft_k", 6, "item 10"),
@@ -509,8 +513,9 @@ ENGINE_FLAGS = [
 @pytest.mark.parametrize("argv,dest,value,item", ENGINE_FLAGS)
 def test_serve_engine_flags_parse(argv, dest, value, item, monkeypatch):
     """Each flag parses with the reference's type and default and is inert
-    alone. With --draft-model (item 10) the run exits naming the item; with
-    --continuous (item 9, ported) the value reaches the engine."""
+    alone. With --draft-model (item 10, ported) the value reaches the draft
+    model's loaders and the service; with --continuous (item 9, ported) it
+    reaches the engine."""
     defaults = dict(draft_weights=None, draft_checkpoint=None, draft_k=4,
                     max_new_tokens=128, steps_per_sync=4, adaptive_sync=False,
                     join_fast_sync=True, max_pending=None)
@@ -518,10 +523,33 @@ def test_serve_engine_flags_parse(argv, dest, value, item, monkeypatch):
     assert {k: getattr(args, k) for k in defaults} == defaults | {dest: value}
     serve_cli._refuse_unported(args)  # alone: accepted
     if item == "item 10":
-        with pytest.raises(SystemExit) as e:
-            serve_cli.build_server(argv + ["--draft-model", "tiny",
-                                           "--device", "cpu"])
-        assert f"ROADMAP queue 1 {item}" in str(e.value.code)
+        seen = {}
+        load = serve_cli.load_or_init_params
+
+        def load_or_init(name, cfg, weights, device=None):
+            seen["draft_weights"] = weights  # the draft model loads last
+            return load(name, cfg, None, device=device)
+
+        def load_ckpt(path, base, full=None):
+            seen["draft_checkpoint"] = path
+            return base, 0
+
+        class Service:
+            def __init__(self, params, cfg, **kw):
+                seen["draft_k"] = kw["draft_k"]
+                assert kw["draft_cfg"].name == "test-tiny"
+
+            def close(self):
+                pass
+
+        monkeypatch.setattr(serve_cli, "load_or_init_params", load_or_init)
+        monkeypatch.setattr(serve_cli, "load_checkpoint_auto", load_ckpt)
+        monkeypatch.setattr(serve_cli, "TranscriptionService", Service)
+        server, _ = serve_cli.build_server(
+            argv + ["--draft-model", "test-tiny", "--model", "test-tiny",
+                    "--port", "0", "--device", "cpu"])
+        server.server_close()
+        assert seen[dest] == value
         return
     seen = {}
 
@@ -616,3 +644,169 @@ def test_error_analysis_cuda_is_the_default_device(setup):
     with pytest.raises(RuntimeError, match="is_available"):
         error_analysis.main(["--base-model", MODEL, "--test-data",
                              setup["split"]])
+
+
+# -- speculative decoding: the two trainers and the server ---------------------
+
+def test_train_medusa_cli(setup, tmp_path):
+    """cli.train_medusa on the checkpoint: the heads, the .partial snapshot
+    and the accuracy file, which both packages read; --measure-only writes
+    the file again for the saved heads."""
+    from whisper_ipa_tpu.decode.medusa_tree import tree_for_heads as jax_tree
+    from whisper_ipa_tpu.models.medusa import load_medusa as jax_load_medusa
+    from whisper_ipa_torch.cli import train_medusa
+    from whisper_ipa_torch.decode.medusa_tree import tree_for_heads
+    from whisper_ipa_torch.models.medusa import load_medusa
+
+    out = str(tmp_path / "heads.safetensors")
+    argv = ["--model", MODEL, "--weights", setup["weights"], "--checkpoint",
+            setup["ckpt"], "--train-data", setup["split"], "--batch-size", "2",
+            "--n-heads", "2", "--output", out, "--device", "cpu"]
+    text, probs = _stdout(train_medusa.main, argv + [
+        "--steps", "3", "--log-every", "1", "--save-every", "2",
+        "--steps-per-call", "4"])
+    assert "step 3/3: head loss" in text and "Loaded" in text
+    assert os.path.isfile(out + ".partial")
+    heads, theirs = load_medusa(out), jax_load_medusa(out)
+    assert len(heads["heads"]) == len(theirs["heads"]) == 2
+    for h, t in zip(heads["heads"], theirs["heads"]):
+        for k in ("w1", "b1", "w2", "b2"):
+            assert np.array_equal(h[k].numpy(), np.asarray(t[k]))
+    assert not torch.equal(heads["heads"][0]["w2"], torch.zeros_like(
+        heads["heads"][0]["w2"]))  # trained
+    with open(out + ".accuracy.json") as f:
+        side = json.load(f)
+    assert side["top_c"] == 4 and np.shape(side["head_topk_accuracy"]) == (2, 4)
+    assert side["head_topk_accuracy"] == probs
+    assert all(0.0 <= p <= 1.0 for row in probs for p in row)
+    assert tree_for_heads(out) == jax_tree(out)
+    _, again = _stdout(train_medusa.main, argv + ["--measure-only"])
+    assert again == probs
+
+
+def test_distill_draft_cli(setup, tmp_path):
+    """cli.distill_draft: a test-tiny student from the checkpoint's
+    teacher; the checkpoint loads in both packages, with the full overlay
+    (the run records freeze_encoder: false)."""
+    from whisper_ipa_tpu.models.convert import (
+        checkpoint_overlay_mode as jax_overlay_mode,
+    )
+    from whisper_ipa_tpu.models.convert import (
+        load_checkpoint_model as jax_load_checkpoint,
+    )
+    from whisper_ipa_torch.cli import distill_draft
+    from whisper_ipa_torch.models import (
+        checkpoint_overlay_mode,
+        init_params,
+        load_checkpoint_auto,
+        params_to_numpy,
+    )
+
+    out = str(tmp_path / "draft")
+    text, path = _stdout(distill_draft.main, [
+        "--student", MODEL, "--teacher", MODEL, "--teacher-checkpoint",
+        setup["ckpt"], "--train-data", setup["split"], "--output-dir", out,
+        "--steps", "2", "--batch-size", "2", "--token-len", "16",
+        "--save-every", "0", "--log-every", "1", "--steps-per-call", "2",
+        "--device", "cpu"])
+    assert "step 2/2: distill loss" in text
+    assert path == os.path.join(out, "checkpoint-2")
+    assert checkpoint_overlay_mode(path) is True and jax_overlay_mode(path) is True
+    cfg = port_config.CONFIGS[MODEL]
+    ours, n = load_checkpoint_auto(path, init_params(cfg, seed=3))
+    theirs, m = jax_load_checkpoint(path, jax_init_params(
+        jax_config.CONFIGS[MODEL], seed=3), full=True)
+    assert n == m == len(params_to_numpy(ours))
+    theirs = {k: np.asarray(v) for k, v in jax_flatten_params(theirs).items()}
+    for k, v in params_to_numpy(ours).items():
+        assert np.array_equal(v, theirs[k]), k
+
+
+@pytest.mark.parametrize("mode", ["ngram", "medusa-tree"])
+def test_http_server_speculative(setup, tmp_path, mode, monkeypatch):
+    """cli.serve --draft-model ngram, and --draft-model medusa with a heads
+    file, its accuracy file and --medusa-tree: /transcribe answers with
+    decode()'s text on the same batch. n-gram drafts serve only in the
+    in-flight engine, so under ngram the service decodes plainly (bf16, as
+    the reference's). The Medusa service runs in f32 here, where
+    speculation gives greedy decoding's tokens exactly (in bf16 a block
+    verification may leave it at a near-tie, which the card's smoke test
+    bounds)."""
+    import functools
+
+    if mode != "ngram":
+        monkeypatch.setattr(serve_cli, "TranscriptionService",
+                            functools.partial(TranscriptionService, bf16=False))
+    from whisper_ipa_torch.cli.train_medusa import write_accuracy
+    from whisper_ipa_torch.decode.medusa_tree import DEFAULT_TREE, optimize_tree
+    from whisper_ipa_torch.models.medusa import init_medusa_params, save_medusa
+
+    argv = ["--model", MODEL, "--weights", setup["weights"], "--checkpoint",
+            setup["ckpt"], "--device", "cpu", "--port", "0", "--batch-size",
+            "2", "--max-wait-ms", "10", "--draft-k", "3"]
+    probs = [[0.6, 0.2, 0.1, 0.05], [0.4, 0.2, 0.1, 0.0], [0.3, 0.1, 0.0, 0.0]]
+    if mode == "ngram":
+        argv += ["--draft-model", "ngram"]
+    else:
+        heads = str(tmp_path / "heads.safetensors")
+        save_medusa(heads, init_medusa_params(port_config.CONFIGS[MODEL], 3, seed=4))
+        write_accuracy(heads, probs)
+        argv += ["--draft-model", "medusa", "--medusa-weights", heads,
+                 "--medusa-tree"]
+    server, service = serve_cli.build_server(argv)
+    url, thread = _serve_in_thread(server)
+    try:
+        req = urllib.request.Request(
+            f"{url}/transcribe",
+            data=json.dumps({"path": setup["wavs"][1]}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            got = json.loads(r.read())
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.close()
+        thread.join(timeout=30)
+    from whisper_ipa_torch.audio import load_audio
+
+    if mode == "ngram":
+        assert service.options.fp16 and service.draft_k == 3
+        assert (service.draft_params, service.medusa_params,
+                service.medusa_tree) == (None, None, None)
+    else:
+        assert service.medusa_tree == optimize_tree(probs, 12) != DEFAULT_TREE
+    assert got["text"] and got["text"] == _expected_texts(
+        service, [load_audio(setup["wavs"][1])])[0]
+
+
+@pytest.mark.parametrize("argv,message", [
+    (["--medusa-tree"], "--medusa-tree requires --draft-model medusa"),
+    (["--draft-model", "ngram", "--medusa-tree"],
+     "--medusa-tree requires --draft-model medusa"),
+])
+def test_serve_medusa_tree_needs_medusa(argv, message):
+    with pytest.raises(SystemExit) as e:
+        serve_cli.build_server(argv + ["--device", "cpu"])
+    assert str(e.value.code) == message
+
+
+def test_serve_untrained_heads_warn(capsys, monkeypatch):
+    """--draft-model medusa without --medusa-weights serves --draft-k
+    untrained heads and says so."""
+    seen = {}
+
+    class Service:
+        def __init__(self, params, cfg, **kw):
+            seen.update(kw)
+
+        def close(self):
+            pass
+
+    monkeypatch.setattr(serve_cli, "TranscriptionService", Service)
+    server, _ = serve_cli.build_server(
+        ["--model", "test-tiny", "--draft-model", "medusa", "--draft-k", "3",
+         "--port", "0", "--device", "cpu"])
+    server.server_close()
+    assert "WARNING: untrained Medusa heads" in capsys.readouterr().out
+    assert len(seen["medusa_params"]["heads"]) == 3
+    assert seen["medusa_tree"] is None and seen["draft_params"] is None

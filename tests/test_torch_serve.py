@@ -2,7 +2,7 @@
 
 Requests of any length resolve, and each window's text equals ``decode()``
 on the same batch of windows (tail padded with silence, as the service
-pads it), greedy and with beam search.
+pads it), greedy, with beam search and with a draft model.
 """
 
 from dataclasses import replace
@@ -93,18 +93,58 @@ def test_requests_resolve_and_match_decode(service, params, tok):
 @pytest.mark.parametrize(
     "kw",
     [
-        dict(draft_params={}, draft_cfg=CFG),
-        dict(medusa_params={}),
         dict(mesh=object()),
-        dict(draft_params={}, draft_cfg=CFG, beam_size=2),
-        dict(draft_params={}, draft_cfg=CFG, draft_k=4),
+        dict(mesh=object(), draft_params={}, draft_cfg=CFG),
         dict(tensor_parallel=True),
+        dict(tensor_parallel=True, medusa_params={"heads": []}),
     ],
 )
 def test_unported_options_raise(params, kw):
-    item = "12" if kw.get("tensor_parallel") or "mesh" in kw else "10"
-    with pytest.raises(NotImplementedError, match=rf"item \[{item}\]"):
+    with pytest.raises(NotImplementedError, match=r"item \[12\]"):
         TranscriptionService(params, CFG, device="cpu", **kw)
+
+
+@pytest.mark.parametrize(
+    "kw,message",
+    [
+        (dict(draft_params={}, draft_cfg=CFG, beam_size=2), "excludes beam"),
+        (dict(medusa_params={"heads": []}, beam_size=2), "excludes beam"),
+        (dict(draft_params={}, draft_cfg=CFG, medusa_params={"heads": []}),
+         "ONE of"),
+        (dict(draft_params={}), "requires draft_cfg"),
+        (dict(medusa_tree=((-1, 0),)), "needs medusa_params"),
+    ],
+)
+def test_speculative_options_rejected(params, kw, message):
+    """The reference's ValueErrors for the speculative keywords."""
+    with pytest.raises(ValueError, match=message):
+        TranscriptionService(params, CFG, device="cpu", **kw)
+
+
+def test_service_speculative_texts_equal_plain(params, tok):
+    """Full 30 s windows through the service with a draft model (K 3) and
+    plainly: the same texts and avg_logprobs."""
+    draft = init_params(CFG, seed=5)
+    rng = np.random.default_rng(9)
+    clips = [(0.1 * rng.standard_normal(int(s * SAMPLE_RATE))).astype(np.float32)
+             for s in (3.0, 35.0)]  # the second spans two windows
+    outs = {}
+    for name, kw in (("plain", {}),
+                     ("draft", dict(draft_params=draft, draft_cfg=CFG,
+                                    draft_k=3))):
+        svc = TranscriptionService(params, CFG, device="cpu", batch_size=3,
+                                   max_wait_ms=2000.0, bf16=False,
+                                   tokenizer=tok, **kw)
+        try:
+            futs = [svc.submit(c) for c in clips]
+            outs[name] = [f.result(timeout=300) for f in futs]
+        finally:
+            svc.close()
+    for a, b in zip(outs["draft"], outs["plain"]):
+        assert a["text"] == b["text"]
+        assert [s["avg_logprob"] for s in a["segments"]] == pytest.approx(
+            [s["avg_logprob"] for s in b["segments"]], abs=1e-5)
+    assert len(outs["plain"][1]["segments"]) == 2
 
 
 def test_beam_service_matches_decode(params, tok):

@@ -579,7 +579,7 @@ def test_engine_thread_failure_fails_pending_futures(params, tok, monkeypatch):
     dict(tensor_parallel=True),
 ])
 def test_unported_options_raise(params, kw):
-    item = "12" if "mesh" in kw or kw.get("tensor_parallel") else "10"
+    item = "12" if "mesh" in kw or kw.get("tensor_parallel") else "16"
     before = threading.active_count()
     with pytest.raises(NotImplementedError, match=rf"item \[{item}\]"):
         ContinuousBatcher(params, CFG, device="cpu", **kw)

@@ -54,11 +54,6 @@ NOT_PORTED = {
         "make_optimizer": "builds an optax chain; Optimizer is the port's "
                           "(ROADMAP item [14])",
     },
-    "decode": {
-        "SpeculativeStats": "speculative decoding (ROADMAP item [10])",
-        "speculative_decode": "speculative decoding (ROADMAP item [10])",
-        "medusa_tree_decode": "Medusa trees (ROADMAP item [10])",
-    },
 }
 SURFACE = [
     (pkg, name)

@@ -8,7 +8,12 @@
   evaluate_ipa        metric self-test (host only)
   error_analysis      phone confusions and PER/PFER distributions of a
                       checkpoint on a split (or of saved predictions)
-  serve               HTTP server over the micro-batching service
+  serve               HTTP server over the micro-batching service or the
+                      in-flight engine; speculative decoding with
+                      --draft-model <name>|ngram|medusa
+  train_medusa        Medusa draft heads on a frozen model (and their
+                      per-head accuracy file)
+  distill_draft       a draft model distilled from a fine-tuned target
   convert_weights     HF / MLX safetensors -> the checkpoint format
   profile_serving     device time of the serving variants (torch.profiler)
 

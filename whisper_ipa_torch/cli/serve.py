@@ -30,11 +30,21 @@ cache, ``--batch-size`` slots, ``--max-new-tokens``, ``--steps-per-sync``,
 ``--adaptive-sync``, ``--no-join-fast-sync``, ``--max-pending``, and with
 ``--warmup`` every kernel built before binding; it refuses ``--beam-size``,
 ``--kv-int4`` and ``--tp`` with ``--quant-bits``, as the reference does.
-Not ported, each exits with a message: ``--draft-model`` / ``--medusa-*``
-(speculative decoding, ROADMAP queue 1 item 10, with or without
-``--beam-size`` or ``--continuous``) and ``--dp`` / ``--tp`` > 1 (item
-12). The reference's ``--no-aot-cache`` parses and does nothing: CUDA has
-no executable cache to switch off (item 14).
+
+``--draft-model`` turns on speculative decoding in the service (tokens
+equal to greedy decoding): a model name (e.g. ``tiny``, its weights from
+``--draft-weights`` and a trained checkpoint from ``--draft-checkpoint``,
+``--draft-k`` tokens a round), ``ngram`` (prompt lookup: its drafts serve
+only in the in-flight engine, so the service decodes plainly, as the
+reference's does), or ``medusa``
+(heads from ``--medusa-weights``, untrained ``--draft-k`` heads without
+it; ``--medusa-tree`` verifies a tree, optimized from the heads' accuracy
+file where ``cli.train_medusa`` wrote one).
+
+Not ported, each exits with a message: ``--continuous --draft-model``
+(the engine's speculative modes, ROADMAP queue 1 item 16) and ``--dp`` /
+``--tp`` > 1 (item 12). The reference's ``--no-aot-cache`` parses and does
+nothing: CUDA has no executable cache to switch off (item 14).
 """
 
 import argparse
@@ -46,7 +56,9 @@ import numpy as np
 
 from ..audio import load_audio_bytes
 from ..config import get_config
+from ..decode.medusa_tree import DEFAULT_TREE, tree_for_heads
 from ..models import load_checkpoint_auto
+from ..models.medusa import init_medusa_params, load_medusa
 from ..ops.quant import quantize_params
 from ..serve import TranscriptionService
 from ..serve_continuous import ContinuousBatcher, EngineOverloaded
@@ -165,22 +177,34 @@ def build_parser() -> argparse.ArgumentParser:
         help="in-flight batching engine (serve_continuous): requests join "
         "a running batch; per-token streaming; 30 s windows in turn",
     )
-    p.add_argument("--draft-model", default=None,
-                   help="not ported (ROADMAP queue 1 item 10)")
-    p.add_argument("--medusa-tree", action="store_true",
-                   help="not ported (ROADMAP queue 1 item 10)")
-    p.add_argument("--medusa-weights", default=None,
-                   help="not ported (ROADMAP queue 1 item 10)")
-    # the reference's options of the engine and of speculative decoding:
-    # inert alone, as there; with --continuous or --draft-model the run is
-    # refused, naming the item
-    for flag, kw in (
-        ("--draft-weights", dict(default=None)),
-        ("--draft-checkpoint", dict(default=None)),
-        ("--draft-k", dict(type=int, default=4)),
-    ):
-        p.add_argument(flag, help="with --draft-model; not ported (ROADMAP "
-                       "queue 1 item 10)", **kw)
+    p.add_argument(
+        "--draft-model", default=None,
+        help="speculative decoding: a draft model name (e.g. tiny), "
+        "'ngram' (prompt lookup), or 'medusa' (one-shot heads from "
+        "--medusa-weights); the tokens stay those of greedy decoding",
+    )
+    p.add_argument(
+        "--medusa-tree", action="store_true",
+        help="tree-structured Medusa verification "
+        "(decode/medusa_tree.DEFAULT_TREE, or the tree optimized from the "
+        "heads' accuracy file)",
+    )
+    p.add_argument(
+        "--medusa-weights", default=None,
+        help="safetensors file of Medusa heads (cli.train_medusa) for "
+        "--draft-model medusa",
+    )
+    p.add_argument("--draft-weights", default=None,
+                   help="pretrained safetensors of the draft model")
+    p.add_argument(
+        "--draft-checkpoint", default=None,
+        help="trained draft checkpoint (e.g. cli.distill_draft's) over the "
+        "draft model; the overlay mode comes from its run's "
+        "training_config.json",
+    )
+    p.add_argument("--draft-k", type=int, default=4,
+                   help="draft tokens a round (the untrained heads' count "
+                   "for --draft-model medusa)")
     p.add_argument("--max-new-tokens", type=int, default=128,
                    help="continuous engine: token budget of a window")
     p.add_argument("--steps-per-sync", type=int, default=4,
@@ -228,8 +252,9 @@ def _refuse_continuous(args) -> None:
 
 def _refuse_unported(args) -> None:
     unported = (
-        (args.draft_model or args.medusa_tree or args.medusa_weights,
-         "--draft-model / --medusa-*: speculative decoding", "item 10"),
+        (args.continuous and args.draft_model,
+         "--continuous --draft-model: the in-flight engine's speculative "
+         "modes", "item 16"),
         (args.dp * args.tp > 1, "--dp / --tp: multi-device serving",
          "item 12"),
     )
@@ -246,6 +271,8 @@ def build_server(argv=None):
     if args.continuous:
         _refuse_continuous(args)
     _refuse_unported(args)
+    if args.medusa_tree and args.draft_model != "medusa":
+        raise SystemExit("--medusa-tree requires --draft-model medusa")
     device = resolve_device(args.device)
     cfg = get_config(args.model)
     params = load_or_init_params(args.model, cfg, args.weights, device=device)
@@ -254,6 +281,30 @@ def build_server(argv=None):
             args.checkpoint, params, args.full_ckpt
         )
         print(f"Loaded {n} tensors from {args.checkpoint}")
+    draft_params = draft_cfg = medusa_params = medusa_tree = None
+    if args.draft_model == "medusa":
+        if args.medusa_weights:
+            medusa_params = load_medusa(args.medusa_weights, device=device)
+        else:
+            medusa_params = init_medusa_params(cfg, n_heads=args.draft_k,
+                                               device=device)
+            print(
+                "WARNING: untrained Medusa heads (no --medusa-weights): "
+                "output stays exact but speculation will rarely accept"
+            )
+        if args.medusa_tree:
+            medusa_tree = (tree_for_heads(args.medusa_weights)
+                           if args.medusa_weights else DEFAULT_TREE)
+    elif args.draft_model and args.draft_model != "ngram":
+        draft_cfg = get_config(args.draft_model)
+        draft_params = load_or_init_params(
+            args.draft_model, draft_cfg, args.draft_weights, device=device
+        )
+        if args.draft_checkpoint:
+            draft_params, n = load_checkpoint_auto(
+                args.draft_checkpoint, draft_params
+            )
+            print(f"Loaded {n} draft tensors from {args.draft_checkpoint}")
     if args.continuous:
         if args.quant_bits is not None:
             params = quantize_params(params, bits=args.quant_bits)
@@ -285,6 +336,11 @@ def build_server(argv=None):
             beam_size=args.beam_size,
             quant_bits=args.quant_bits,
             kv_int4=args.kv_int4,
+            draft_params=draft_params,
+            draft_cfg=draft_cfg,
+            draft_k=args.draft_k,
+            medusa_params=medusa_params,
+            medusa_tree=medusa_tree,
         )
     try:
         if args.warmup:

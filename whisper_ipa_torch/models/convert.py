@@ -88,6 +88,21 @@ def params_to_numpy(params: Params) -> Dict[str, np.ndarray]:
     }
 
 
+def medusa_from_numpy(medusa, device: Optional[torch.device] = None) -> Params:
+    """Medusa heads ``{"heads": [{"w1", "b1", "w2", "b2"}, ...]}`` of
+    arrays (the JAX package's, or numpy) -> the port's heads on ``device``.
+    The arrays are copied."""
+    return params_from_numpy(
+        {name: np.asarray(a) for name, a in flatten_params(medusa).items()},
+        device,
+    )
+
+
+def medusa_to_numpy(medusa: Params) -> Params:
+    """The port's heads -> the same tree of host arrays, which the JAX
+    package's Medusa functions take as they are."""
+    return unflatten_params(params_to_numpy(medusa))
+
 def params_to(params: Params, device) -> Params:
     """The same tree with every tensor moved to ``device``."""
     return unflatten_params(

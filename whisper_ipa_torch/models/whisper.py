@@ -639,6 +639,67 @@ def decode_step_multipos_hidden(
     return step_logits, cache, hidden
 
 
+
+def decode_step_block(
+    params: Params,
+    cfg: WhisperConfig,
+    tokens,
+    cache: DecoderCache,
+    pos,
+    frontier,
+    mask_new,
+    write_len: int,
+    dtype=torch.float32,
+) -> Tuple[torch.Tensor, DecoderCache, torch.Tensor]:
+    """The general block step of tree verification: per-token positions,
+    an explicit in-block mask and a partial K/V write.
+
+    tokens, pos: (B, S) long; token s of row b sits at position pos[b, s]
+    (siblings of a draft tree share one). frontier: (B,) long; cache rows
+    < frontier[b] are frozen-valid. mask_new: additive (B, S, S) or (S, S)
+    over the block. Only entries [0, write_len) land in the cache, at
+    pos[b, 0] + arange(write_len) (they must be consecutive; the read-only
+    draft nodes follow them). As in ``decode_step_multipos_hidden`` the
+    write does not clamp a start that runs off the end; callers keep it in
+    range. Returns (logits (B, S, n_vocab) f32, cache, the final-LN hidden
+    states (B, S, d)).
+    """
+    dec = params["decoder"]
+    B, S = tokens.shape
+    n_ctx = cache.self_k.shape[2]
+    device = tokens.device
+    with full_fp32():
+        x = dec["token_embedding"][tokens].to(dtype)
+        x = x + dec["positional_embedding"][pos].to(dtype)
+
+        key_idx = torch.arange(n_ctx, device=device)[None, None, :]
+        zero = torch.zeros((), device=device)
+        neg = torch.full((), float("-inf"), device=device)
+        mask_cache = torch.where(
+            (key_idx < frontier[:, None, None]) & (key_idx <= pos[:, :, None]),
+            zero, neg,
+        )[:, None]  # (B, 1, S, n_ctx)
+        if mask_new.dim() == 3:
+            mask_new = mask_new[:, None]  # (B, 1, S, S)
+
+        def self_attn(q, k_cache, v_cache, k_new, v_new):
+            return multi_head_attention_two_part(
+                q, k_cache, v_cache, k_new, v_new,
+                cfg.n_text_head, mask_cache, mask_new,
+            )
+
+        x, news = _run_decoder_layers(
+            dec, cfg, x, cache, self_attn, _cross_attn_default(cfg)
+        )
+        rows = torch.arange(B, device=device)[:, None]
+        write_pos = pos[:, :1] + torch.arange(write_len, device=device)[None, :]
+        for i, (k_new, v_new) in enumerate(news):
+            cache.self_k[i, rows, write_pos] = k_new[:, :write_len]
+            cache.self_v[i, rows, write_pos] = v_new[:, :write_len]
+        hidden = layer_norm(x, dec["ln"])
+        step_logits = hidden.float() @ dec["token_embedding"].float().T
+    return step_logits, cache, hidden
+
 # -- parameter utilities --------------------------------------------------
 
 def count_parameters(params) -> int:

@@ -4,18 +4,24 @@ Counterpart of ``whisper_ipa_tpu/serve.py`` (its greedy and beam
 branches). Callers submit audio of any length and get futures; a scheduler
 thread coalesces pending requests into fixed-size batches of 30 s windows
 (the tail padded with silence), runs waveform -> log-mel (K1 on CUDA) ->
-encoder -> int8 cross-KV greedy decode, or beam search with ``beam_size``,
-on the service's device, and resolves the futures.
+encoder -> int8 cross-KV greedy decode, beam search with ``beam_size``, or
+speculative decoding (below), on the service's device, and resolves the
+futures.
 
 ``quant_bits`` (8 or 4) quantizes the block weights at startup
 (``ops/quant.quantize_params``) before they move to the device; ``kv_int4``
 keeps the cross cache as nibble-packed int4 (and overrides ``kv_int8``).
 
+Speculative decoding: ``draft_params``/``draft_cfg`` (a draft model,
+``draft_k`` tokens a round; its own log-mel through K1 when its ``n_mels``
+differs) or ``medusa_params`` (Medusa heads, chain, or tree with
+``medusa_tree``) send each batch to ``speculative_decode`` or
+``medusa_tree_decode``, whose tokens are ``decode()``'s. They exclude
+``beam_size`` and each other; ``draft_k`` alone is inert. The service has
+no n-gram mode, as the reference's has none: n-gram drafts serve in the
+in-flight engine.
 Not ported yet (the constructor raises ``NotImplementedError`` naming the
-ROADMAP item): speculative decoding (draft model, Medusa heads; with or
-without ``beam_size``, which the reference refuses beside them), multi-
-device meshes and tensor-parallel serving. ``draft_k`` is accepted and, as
-in the reference, inert without ``draft_params``.
+ROADMAP item): multi-device meshes and tensor-parallel serving.
 The HTTP front end over it is ``cli/serve.py``.
 """
 
@@ -33,7 +39,8 @@ import torch
 
 from .audio import N_SAMPLES, load_audio, pad_or_trim
 from .config import WhisperConfig
-from .decode import DecodingOptions, decode
+from .decode import (DecodingOptions, decode, medusa_tree_decode,
+                     speculative_decode)
 from .models.convert import params_to
 from .ops.mel_kernel import log_mel_spectrogram
 from .ops.quant import quantize_params
@@ -85,10 +92,6 @@ class TranscriptionService:
         tokenizer: Optional[WhisperTokenizer] = None,
     ):
         unported = {
-            "draft_params/draft_cfg (ROADMAP queue 1 item [10])":
-            draft_params is not None or draft_cfg is not None,
-            "medusa_params/medusa_tree (ROADMAP queue 1 item [10])":
-            medusa_params is not None or medusa_tree is not None,
             "mesh (ROADMAP queue 1 item [12])": mesh is not None,
             "tensor_parallel (ROADMAP queue 1 item [12])": tensor_parallel,
         }
@@ -97,8 +100,26 @@ class TranscriptionService:
             raise NotImplementedError(
                 "not ported to the PyTorch service yet: " + ", ".join(missing)
             )
-        self.draft_k = draft_k
+        if (draft_params is not None or medusa_params is not None) and (
+            beam_size is not None
+        ):
+            raise ValueError(
+                "speculative decoding (draft/medusa) excludes beam_size"
+            )
+        if draft_params is not None and medusa_params is not None:
+            raise ValueError("choose ONE of draft_params / medusa_params")
+        if draft_params is not None and draft_cfg is None:
+            raise ValueError("draft_params requires draft_cfg")
+        if medusa_tree is not None and medusa_params is None:
+            raise ValueError("medusa_tree needs medusa_params")
         self.device = resolve_device(device)
+        self.draft_cfg = draft_cfg
+        self.draft_k = draft_k
+        self.draft_params = (None if draft_params is None
+                             else params_to(draft_params, self.device))
+        self.medusa_params = (None if medusa_params is None
+                              else params_to(medusa_params, self.device))
+        self.medusa_tree = tuple(medusa_tree) if medusa_tree else None
         if quant_bits is not None:
             params = quantize_params(params, bits=quant_bits)
         self.params = params_to(params, self.device)
@@ -188,6 +209,27 @@ class TranscriptionService:
         audio = torch.from_numpy(np.stack(group)).to(self.device)
         with torch.inference_mode():
             mels = log_mel_spectrogram(audio, n_mels=self.cfg.n_mels)
+        if self.medusa_tree is not None:
+            return medusa_tree_decode(
+                self.params, self.cfg, self.medusa_params, mels,
+                self.options, tree=self.medusa_tree, tokenizer=self.tokenizer,
+            )
+        if self.medusa_params is not None:
+            return speculative_decode(
+                self.params, self.cfg, None, None, mels, self.options,
+                tokenizer=self.tokenizer, medusa_params=self.medusa_params,
+            )
+        if self.draft_params is not None:
+            draft_mels = None
+            if self.draft_cfg.n_mels != self.cfg.n_mels:
+                with torch.inference_mode():
+                    draft_mels = log_mel_spectrogram(
+                        audio, n_mels=self.draft_cfg.n_mels)
+            return speculative_decode(
+                self.params, self.cfg, self.draft_params, self.draft_cfg,
+                mels, self.options, draft_k=self.draft_k,
+                draft_mel=draft_mels, tokenizer=self.tokenizer,
+            )
         return decode(
             self.params, self.cfg, mels, self.options, tokenizer=self.tokenizer
         )

@@ -31,7 +31,7 @@ how many frozen steps a drained batch pays for.
 
 Not ported (the constructor raises ``NotImplementedError`` naming the
 ROADMAP item): in-flight speculation (``draft_k``, a draft model, Medusa
-heads and trees: item [10]) and slot or tensor sharding over a mesh (item
+heads and trees: item [16]) and slot or tensor sharding over a mesh (item
 [12]). The reference's executable cache (``aot_call``) has no counterpart
 (item [14]).
 """
@@ -231,10 +231,10 @@ class ContinuousBatcher:
         """
         unported = {
             "draft_k > 0 (in-flight n-gram speculation, ROADMAP queue 1 "
-            "item [10])": draft_k > 0,
-            "draft_params/draft_cfg (ROADMAP queue 1 item [10])":
+            "item [16])": draft_k > 0,
+            "draft_params/draft_cfg (ROADMAP queue 1 item [16])":
             draft_params is not None or draft_cfg is not None,
-            "medusa_params/medusa_tree (ROADMAP queue 1 item [10])":
+            "medusa_params/medusa_tree (ROADMAP queue 1 item [16])":
             medusa_params is not None or medusa_tree is not None,
             "mesh (ROADMAP queue 1 item [12])": mesh is not None,
             "tensor_parallel (ROADMAP queue 1 item [12])": tensor_parallel,

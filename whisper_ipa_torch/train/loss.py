@@ -7,7 +7,8 @@ EOT indicator marks the first one as cumsum == 1.
 
 A frozen encoder runs under ``torch.no_grad()`` (the reference's
 ``stop_gradient``), so no encoder activations are kept for a backward.
-The draft-distillation loss is not ported yet.
+``compute_distill_loss`` trains a speculative-decoding draft toward a
+frozen teacher (``cli/distill_draft.py``).
 """
 
 from __future__ import annotations
@@ -85,3 +86,54 @@ def compute_loss(
         remat=remat, bf16_head=bf16_head,
     )
     return masked_cross_entropy(logits, target_tokens, mask)
+
+
+def compute_distill_loss(
+    student_params,
+    teacher_params,
+    student_cfg: WhisperConfig,
+    teacher_cfg: WhisperConfig,
+    mel,
+    tokens,
+    eot: int,
+    *,
+    alpha: float = 0.5,
+    temperature: float = 2.0,
+    dtype=torch.float32,
+):
+    """Draft distillation: (1 - alpha) * CE(student, data) + alpha * T^2 *
+    KL(teacher_T || student_T), both over the first-EOT-kept mask (Hinton
+    et al. 2015's scaling).
+
+    Speculative acceptance measures draft-target agreement, so the draft
+    learns the target's distribution and not only the data. The teacher
+    runs under ``torch.no_grad()`` (frozen); the two models may differ in
+    size but share the vocabulary and the mel shape.
+    """
+    if student_cfg.n_vocab != teacher_cfg.n_vocab:
+        raise ValueError("student and teacher must share the vocabulary")
+
+    decoder_input = tokens[:, :-1]
+    target_tokens = tokens[:, 1:]
+    mask = eot_loss_mask(target_tokens, eot)
+
+    s_feats = encode(student_params, student_cfg, mel, dtype=dtype)
+    s_logits = decoder_logits(
+        student_params, student_cfg, decoder_input, s_feats, dtype=dtype
+    )
+    with torch.no_grad():
+        t_feats = encode(teacher_params, teacher_cfg, mel, dtype=dtype)
+        t_logits = decoder_logits(
+            teacher_params, teacher_cfg, decoder_input, t_feats, dtype=dtype
+        )
+
+    ce = masked_cross_entropy(s_logits, target_tokens, mask)
+
+    T = temperature
+    t_lp = torch.log_softmax(t_logits / T, dim=-1)
+    s_lp = torch.log_softmax(s_logits / T, dim=-1)
+    kl_tok = (torch.exp(t_lp) * (t_lp - s_lp)).sum(-1)  # (B, T)
+    num_valid = mask.sum().clamp_min(1)
+    kl = (kl_tok * mask.to(kl_tok.dtype)).sum() / num_valid
+
+    return (1.0 - alpha) * ce + alpha * (T * T) * kl

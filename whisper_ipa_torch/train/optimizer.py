@@ -13,7 +13,9 @@ parameter tree, in optax's order of operations, because
   u   <- (mu / (1 - b1^t)) / (sqrt(nu / (1 - b2^t)) + eps) + wd * p
   p   <- p - lr(s) * u
 
-with t the update count from 1 and s the schedule's count from 0. A
+with t the update count from 1 and s the schedule's count from 0.
+``max_grad_norm=None`` drops the clip and ``weight_decay=0`` the decay,
+which is ``optax.adam`` (the Medusa heads' optimizer). A
 frozen encoder gets no optimizer state and no update. ``mu_dtype`` stores
 the first moment in that dtype (the update is computed before the cast).
 With ``accum_steps`` k > 1, gradients are averaged over k calls (Welford
@@ -106,7 +108,7 @@ class Optimizer:
     """Per-tensor clip + AdamW (+ optional gradient accumulation)."""
 
     learning_rate: Schedule = 1e-5
-    max_grad_norm: float = 1.0
+    max_grad_norm: Optional[float] = 1.0  # None: no clip (optax.adam)
     weight_decay: float = 0.01
     freeze_encoder: bool = True
     accum_steps: int = 1
@@ -171,8 +173,9 @@ class Optimizer:
             lr = self.learning_rate
         for name, g in grads.items():
             p = flat_params[name]
-            norm = torch.sqrt((g * g).sum())
-            g = g * torch.clamp_max(self.max_grad_norm / (norm + 1e-6), 1.0)
+            if self.max_grad_norm is not None:
+                norm = torch.sqrt((g * g).sum())
+                g = g * torch.clamp_max(self.max_grad_norm / (norm + 1e-6), 1.0)
             # b1 * mu in the moment's dtype, b1 rounded to it too (a bf16
             # moment decays by bf16(0.9) = 0.8984375), as optax does
             m = state.mu[name]
