@@ -1735,9 +1735,12 @@ def expect_launches(cfg, run, bf16: bool, name: str) -> dict:
     return got
 
 
-def phase_engine_parity(torch, dev, tok):
+def phase_engine_parity(torch, dev, tok, modes=(("plain", {}),)):
     """test-tiny in f32 with the int8 cache: six requests, some of two
-    windows, through 2 slots on the card, on the CPU, and decode()."""
+    windows, through 2 slots on the card, on the CPU, and decode(); once
+    for each (name, engine keywords) of ``modes``. K4 runs on the card
+    where the engine takes single-query steps over the int8 cache (the
+    plain engine's steps, a draft model's)."""
     from whisper_ipa_torch.config import CONFIGS
     from whisper_ipa_torch.decode import DecodingOptions, decode
     from whisper_ipa_torch.models import init_params, params_to
@@ -1747,21 +1750,6 @@ def phase_engine_parity(torch, dev, tok):
     cfg = replace(CONFIGS["test-tiny"], n_text_ctx=48)
     params = init_params(cfg, seed=0)
     clips, _ = engine_stream(6, seed=60)
-    out = {}
-    for device in ("cpu", dev):
-        eng = ContinuousBatcher(params, cfg, device=device, slots=2,
-                                max_new_tokens=16, steps_per_sync=2,
-                                kv_int8=True, tokenizer=tok)
-        try:
-            k4 = counters()["K4"].launches
-            futs = []
-            for c in clips:
-                futs.append(eng.submit(c))
-                time.sleep(0.01)
-            out[str(device)] = [f.result(timeout=600)["tokens"] for f in futs]
-            ran = counters()["K4"].launches - k4
-        finally:
-            eng.close()
     keys, windows = zip(*engine_windows(clips))
     audio = torch.from_numpy(np.stack(windows)).to(dev)
     with torch.inference_mode():
@@ -1772,12 +1760,32 @@ def phase_engine_parity(torch, dev, tok):
     want = [[] for _ in clips]
     for (i, _), r in zip(keys, res):
         want[i] += r.tokens
-    same = [a == b == c for a, b, c in zip(out["cpu"], out[str(dev)], want)]
-    log(f"[engine parity] test-tiny f32 int8 cross-KV, 6 requests "
-        f"({len(keys)} windows) through 2 slots: CUDA == CPU == decode() "
-        f"tokens per request {same}; K4 on CUDA {ran}")
-    require(all(same) and ran > 0, "test-tiny engine tokens equal on CUDA, "
-            "on the CPU and decode()'s")
+    for mode, kw in modes:
+        kw = kw(cfg) if callable(kw) else kw
+        out = {}
+        for device in ("cpu", dev):
+            eng = ContinuousBatcher(params, cfg, device=device, slots=2,
+                                    max_new_tokens=16, steps_per_sync=2,
+                                    kv_int8=True, tokenizer=tok, **kw)
+            try:
+                k4 = counters()["K4"].launches
+                futs = []
+                for c in clips:
+                    futs.append(eng.submit(c))
+                    time.sleep(0.01)
+                out[str(device)] = [f.result(timeout=600)["tokens"]
+                                    for f in futs]
+                ran = counters()["K4"].launches - k4
+            finally:
+                eng.close()
+        same = [a == b == c for a, b, c in zip(out["cpu"], out[str(dev)], want)]
+        single_query = not kw or kw.get("draft_params") is not None
+        log(f"[engine parity {mode}] test-tiny f32 int8 cross-KV, 6 requests "
+            f"({len(keys)} windows) through 2 slots: CUDA == CPU == decode() "
+            f"tokens per request {same}; K4 on CUDA {ran}")
+        require(all(same) and (ran > 0) == single_query,
+                f"test-tiny engine ({mode}) tokens equal on CUDA, on the CPU "
+                f"and decode()'s, K4 {ran}")
 
 
 def check_stream(run, name: str):
@@ -1798,9 +1806,12 @@ def phase_engine(torch, dev, cfg, params, tok, by_path):
     CLI's setting (bf16, int8 cross cache, 16 slots, 64 tokens, 4 steps a
     sync, join fast sync, prewarmed) on a stream of 40 requests arriving
     20-60 ms apart, one cancelled and one with a 0.2 s deadline; the same
-    stream with joins rewriting the joiners' rows only, at 1 and 16 steps
-    a sync, adaptive, in f32 (both rewrites) and with int4 weights; then
-    cli.serve --continuous over HTTP."""
+    stream with joins rewriting the joiners' rows only, at 16 steps a sync
+    (1 step a sync is the path of the join fast sync's chunks), adaptive,
+    in f32 (both rewrites) and with int4 weights; then cli.serve
+    --continuous over HTTP. Returns the stream, its bf16 oracle, mels and
+    near-tie bound and the bf16 run's numbers, for
+    phase_engine_speculative."""
     import whisper_ipa_torch.serve_continuous as sc
     from whisper_ipa_torch.models import params_to
     from whisper_ipa_torch.ops.quant import quantize_params
@@ -1859,7 +1870,6 @@ def phase_engine(torch, dev, cfg, params, tok, by_path):
     for name, kw in (
         ("engine bf16", {}),
         ("engine bf16 joiners-only rewrite", dict(restore=True)),
-        ("engine bf16 steps_per_sync 1", dict(steps_per_sync=1)),
         ("engine bf16 steps_per_sync 16", dict(steps_per_sync=16)),
         ("engine bf16 adaptive", dict(adaptive_sync=True)),
     ):
@@ -1878,6 +1888,8 @@ def phase_engine(torch, dev, cfg, params, tok, by_path):
         f"{differ(runs['engine bf16'], runs['engine bf16 joiners-only rewrite'])}"
         f", f32 {differ(runs['engine f32'], runs['engine f32 joiners-only rewrite'])}"
         f" of {ENGINE_REQUESTS - 2}")
+
+    plain = engine_numbers(runs["engine bf16"])
 
     # int4 weights (cli.serve --continuous --quant-bits 4)
     q4 = params_to(quantize_params(params, bits=4), dev)
@@ -1900,6 +1912,113 @@ def phase_engine(torch, dev, cfg, params, tok, by_path):
 
     phase_engine_http(torch, dev)
     log(f"[engine] phase passed in {time.time() - t_phase:.1f} s")
+    return dict(clips=clips, gaps=gaps, oracle=oracle, mels=mels,
+                eps=eps_bf16, plain=plain)
+
+
+ENGINE_TREE_SLOTS = 32  # the tree's second run (ROADMAP item [11])
+
+
+def expect_spec_launches(cfg, run, name: str, draft_cfg, draft_k: int) -> dict:
+    """K1 once a joined window (the draft reuses the log-mel), K2 once an
+    encoder layer of the target's, and of the draft model's, a join; K4
+    once a draft decoder layer a draft step, K draft steps a round (the
+    joins and the (K + 1)-query verifications take the plain int8
+    cross-attention), none without a draft model."""
+    joins, rounds = run["stats"]["joins"], run["stats"]["spec_rounds"]
+    enc = cfg.n_audio_layer + (draft_cfg.n_audio_layer if draft_cfg else 0)
+    want = {"K1": joins, "K2": enc * joins,
+            "K4": draft_cfg.n_text_layer * draft_k * rounds if draft_cfg else 0}
+    got = {k: run["launches"][k] for k in want}
+    require(got == want and got["K1"] and got["K2"]
+            and (got["K4"] or not draft_cfg),
+            f"{name}: launches {got}, predicted {want}")
+    return got
+
+
+def phase_engine_speculative(torch, dev, cfg, params, tok, by_path, stream):
+    """The in-flight engine's speculative modes at whisper-small's full width
+    and depth, at the CLI's engine setting (bf16, int8 cross cache, 16
+    slots, 64 tokens, 4 rounds a sync, prewarmed, K 4) on phase_engine's
+    stream of 40 requests (one cancelled, one with a 0.2 s deadline): n-gram
+    drafts, a self-draft (the acceptance ceiling), a whisper-tiny draft from
+    seed 1 (the floor), a Medusa chain and DEFAULT_TREE on fresh heads, and
+    the tree again at 32 slots. Every window is held to decode() by the
+    near-tie rule with phase_engine's bound, and K1/K2/K4 launch as
+    predicted from joins and rounds; first the test-tiny modes on the card
+    against the CPU."""
+    import whisper_ipa_torch.serve_continuous as sc
+    from whisper_ipa_torch.config import CONFIGS
+    from whisper_ipa_torch.decode.medusa_tree import DEFAULT_TREE
+    from whisper_ipa_torch.models import init_params
+    from whisper_ipa_torch.models.medusa import init_medusa_params
+
+    t_phase = time.time()
+    phase_engine_parity(torch, dev, tok, modes=(
+        ("n-gram", dict(draft_k=SPEC_K)),
+        ("draft model", lambda c: dict(draft_k=SPEC_K, draft_cfg=c,
+                                       draft_params=init_params(c, seed=7))),
+        ("medusa chain", lambda c: dict(
+            medusa_params=init_medusa_params(c, SPEC_K, seed=1))),
+        ("medusa tree", lambda c: dict(
+            medusa_params=init_medusa_params(c, SPEC_K, seed=1),
+            medusa_tree=DEFAULT_TREE)),
+    ))
+    clips, gaps, oracle, mels, eps, plain = (stream[k] for k in (
+        "clips", "gaps", "oracle", "mels", "eps", "plain"))
+    tiny = CONFIGS["tiny"]
+    draft = init_params(tiny, seed=1, device=dev)
+    heads = init_medusa_params(cfg, SPEC_K, seed=0, device=dev)
+    tree = dict(medusa_params=heads, medusa_tree=DEFAULT_TREE)
+    log(f"[engine speculative] the plain engine on the same stream: "
+        f"tokens/s {plain['tokens_per_s']}, TTFT p50 {plain['ttft_p50']} s, "
+        f"wall {plain['wall_s']} s")
+    for name, kw, draft_cfg, slots in (
+        ("n-gram", dict(draft_k=SPEC_K), None, ENGINE_SLOTS),
+        ("self-draft", dict(draft_k=SPEC_K, draft_params=params,
+                            draft_cfg=cfg), cfg, ENGINE_SLOTS),
+        ("whisper-tiny draft", dict(draft_k=SPEC_K, draft_params=draft,
+                                    draft_cfg=tiny), tiny, ENGINE_SLOTS),
+        ("medusa chain", dict(medusa_params=heads), None, ENGINE_SLOTS),
+        ("medusa tree", tree, None, ENGINE_SLOTS),
+        (f"medusa tree {ENGINE_TREE_SLOTS} slots", tree, None,
+         ENGINE_TREE_SLOTS),
+    ):
+        name = f"engine {name}"
+        t0 = time.time()
+        eng = sc.ContinuousBatcher(
+            params, cfg, device=dev, slots=slots,
+            max_new_tokens=ENGINE_MAX_NEW, bf16=True, kv_int8=True,
+            tokenizer=tok, prewarm=True, **kw)
+        prewarm_s = time.time() - t0
+        try:
+            run = run_engine(torch, dev, eng, clips, gaps,
+                             cancel=ENGINE_CANCEL, deadline=ENGINE_DEADLINE)
+        finally:
+            eng.close()
+        require(not eng._thread.is_alive(), f"{name}: engine thread stopped")
+        check_stream(run, name)
+        expected = expect_spec_launches(cfg, run, name, draft_cfg, eng.draft_k)
+        equal, near, at = check_engine_tokens(
+            torch, cfg, params, tok, eng, run, oracle, mels, eps, name)
+        st, numbers = run["stats"], engine_numbers(run)
+        tpr = st["spec_emitted"] / max(st["spec_slot_rounds"], 1)
+        log(f"[{name}] {slots} slots, K {eng.draft_k}, {ENGINE_REQUESTS} "
+            f"requests: tokens a round {tpr:.4f} ({st['spec_emitted']} tokens "
+            f"over {st['spec_slot_rounds']} active slot-rounds, "
+            f"{st['spec_rounds']} rounds); {numbers}; against the plain "
+            f"engine tokens/s {numbers['tokens_per_s'] / plain['tokens_per_s']:.3f}x, "
+            f"TTFT p50 {numbers['ttft_p50']} s against {plain['ttft_p50']} s; "
+            f"prewarm {prewarm_s:.2f} s; launches {nonzero(run['launches'])}, "
+            f"as predicted {expected}; {equal} windows equal decode()'s, {near} "
+            f"leave it at a near-tie (gaps {at}; eps {eps:.4e})")
+        require(st["spec_rounds"] > 0 and st["spec_emitted"] > 0,
+                f"{name}: the engine speculated")
+        by_path[name] = run["launches"]
+        del eng, run
+    del draft, heads, tree
+    torch.cuda.empty_cache()
+    log(f"[engine speculative] phase passed in {time.time() - t_phase:.1f} s")
 
 
 def phase_engine_http(torch, dev):
@@ -3281,7 +3400,7 @@ def phase_speculative_learned(torch, dev, root: str, learned: dict, by_path):
     chain, the trained tree (tree_for_heads), the distilled draft, the
     untrained heads and the undistilled student, each held to decode() by
     the near-tie rule; then cli.serve --draft-model ngram and --draft-model
-    medusa --medusa-tree over HTTP."""
+    medusa --medusa-tree over HTTP, the latter also with --continuous."""
     from whisper_ipa_torch.audio import load_audio, pad_or_trim
     from whisper_ipa_torch.cli import distill_draft, train_medusa
     from whisper_ipa_torch.config import CONFIGS
@@ -3413,12 +3532,15 @@ def phase_speculative_learned(torch, dev, root: str, learned: dict, by_path):
 def phase_speculative_http(torch, dev, learned, heads_path, prefix, eps):
     """cli.serve on the whisper-tiny checkpoint, one request a batch: plain,
     --draft-model ngram (a plain service, as the reference's), and
-    --draft-model medusa with the trained heads and --medusa-tree. Each
-    answer equals the same decoder called directly on the request's batch.
-    The ngram texts equal the plain server's; the tree's equal them except
-    where its tokens leave decode() at a near-tie, which the near-tie rule
-    holds on those direct calls' tokens."""
+    --draft-model medusa with the trained heads and --medusa-tree, in the
+    micro-batch service and in the in-flight engine (--continuous, one
+    slot, the service's 224-token budget). Each answer equals the same
+    decoder called directly on the request's batch (the engine's
+    transcribe()). The ngram texts equal the plain server's; the trees'
+    equal them except where their tokens leave decode() at a near-tie,
+    which the near-tie rule holds on those direct calls' tokens."""
     import threading
+    from types import SimpleNamespace
 
     from whisper_ipa_torch.audio import load_audio, pad_or_trim
     from whisper_ipa_torch.cli import serve as serve_cli
@@ -3432,11 +3554,15 @@ def phase_speculative_http(torch, dev, learned, heads_path, prefix, eps):
             "--full-checkpoint", "--batch-size", "1", "--port", "0",
             "--device", dev.type]
     texts, direct = {}, {}
+    tree = ["--draft-model", "medusa", "--medusa-weights", heads_path,
+            "--medusa-tree"]
     for name, extra in (("plain", []), ("ngram", ["--draft-model", "ngram"]),
-                        ("medusa tree", ["--draft-model", "medusa",
-                                         "--medusa-weights", heads_path,
-                                         "--medusa-tree"])):
+                        ("medusa tree", tree),
+                        ("continuous medusa tree", tree + [
+                            "--continuous", "--max-new-tokens", "224"])):
         server, service = serve_cli.build_server(base + extra)
+        if name == "plain":
+            options = service.options  # bf16, the int8 cross cache
         url = f"http://127.0.0.1:{server.server_address[1]}"
         thread = threading.Thread(target=server.serve_forever, daemon=True)
         thread.start()
@@ -3446,11 +3572,16 @@ def phase_speculative_http(torch, dev, learned, heads_path, prefix, eps):
                 for p in paths]
             direct[name] = []
             for p in paths:
+                audio = pad_or_trim(load_audio(p))
                 with torch.inference_mode():
-                    mel = log_mel_spectrogram(torch.from_numpy(pad_or_trim(
-                        load_audio(p)))[None].to(dev), n_mels=cfg.n_mels)
-                direct[name].append((mel, service._decode_windows(
-                    [pad_or_trim(load_audio(p))])[0]))
+                    mel = log_mel_spectrogram(torch.from_numpy(audio)[None].to(
+                        dev), n_mels=cfg.n_mels)
+                if "continuous" in name:
+                    out = service.transcribe(audio, timeout=300)
+                    res = SimpleNamespace(text=out["text"], tokens=out["tokens"])
+                else:
+                    res = service._decode_windows([audio])[0]
+                direct[name].append((mel, res))
         finally:
             server.shutdown()
             server.server_close()
@@ -3460,14 +3591,13 @@ def phase_speculative_http(torch, dev, learned, heads_path, prefix, eps):
                 f"serve {name}: threads stopped")
         require(texts[name] == [r.text for _, r in direct[name]],
                 f"serve {name}: each answer equals the direct call's")
-    options = service.options  # the server's: bf16, the int8 cross cache
     require(options.fp16 and options.kv_int8, "the serving options")
     suppress, blank = spec_masks(torch, dev, tok, options, cfg.n_vocab)
     plain = [(m, r.tokens) for m, r in direct["plain"]]
     require([decode(params, cfg, m, options, tokenizer=tok)[0].tokens
              for m, _ in plain] == [t for _, t in plain],
             "the plain server decodes as decode() on the checkpoint")
-    for name in ("ngram", "medusa tree"):
+    for name in ("ngram", "medusa tree", "continuous medusa tree"):
         equal, near, gaps = hold_to_decode(
             torch, cfg, params, tok,
             [(f"request {i}", r.tokens, want, m, False)
@@ -3476,7 +3606,9 @@ def phase_speculative_http(torch, dev, learned, heads_path, prefix, eps):
         same = [a == b for a, b in zip(texts[name], texts["plain"])]
         tie_free = [r.tokens == want
                     for (_, want), (_, r) in zip(plain, direct[name])]
-        log(f"[learn serve {name}] cli.serve --draft-model {name.split()[0]}"
+        log(f"[learn serve {name}] cli.serve"
+            f"{' --continuous' if 'continuous' in name else ''} --draft-model "
+            f"{name.split()[-2] if 'tree' in name else name}"
             f"{' --medusa-tree' if 'tree' in name else ''}, {SPEC_HTTP} "
             f"held-out requests: {sum(same)} texts equal the plain server's; "
             f"tokens {equal} equal decode()'s, {near} at a near-tie (gaps "
@@ -3574,7 +3706,9 @@ def main() -> int:
     phase_parity(torch, dev, tok)
     phase_service(torch, dev, cfg, params, tok)
     phase_service(torch, dev, cfg, params, tok, quant_bits=4, kv_int4=True)
-    phase_engine(torch, dev, cfg, params, tok, by_path)
+    stream = phase_engine(torch, dev, cfg, params, tok, by_path)
+    phase_engine_speculative(torch, dev, cfg, params, tok, by_path, stream)
+    del stream
     phase_speculative(torch, dev, cfg, params, tok, by_path, card)
     del params
     torch.cuda.empty_cache()

@@ -13,7 +13,9 @@ with its message. ``cli.serve --continuous`` answers /transcribe,
 /transcribe_stream (one line a token) and /stats as the JAX CLI's handler
 over the JAX package's engine does, 503 past ``--max-pending``, and refuses
 ``--beam-size``, ``--kv-int4`` and ``--tp`` with ``--quant-bits`` with the
-JAX CLI's messages. With ``--beam-size``, ``evaluate_model`` gives the JAX
+JAX CLI's messages; with ``--draft-model tiny``, ``ngram`` and ``medusa
+--medusa-tree`` (in f32) the engine speculates and answers with
+``decode()``'s tokens. With ``--beam-size``, ``evaluate_model`` gives the JAX
 CLI's report and the server ``decode()``'s beam texts; ``cli.transcribe
 --json`` prints the JAX CLI's JSON lines. ``error_analysis`` prints and
 writes the JAX CLI's report, from saved predictions and from the
@@ -481,9 +483,6 @@ def test_serve_continuous_refusals_match_jax(setup, argv):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--continuous", "--draft-model", "tiny"], "item 16"),
-    (["--continuous", "--draft-model", "ngram"], "item 16"),
-    (["--continuous", "--draft-model", "medusa", "--medusa-tree"], "item 16"),
     (["--dp", "2"], "item 12"),
     (["--tp", "2"], "item 12"),
     (["--draft-model", "ngram", "--tp", "2"], "item 12"),
@@ -508,6 +507,71 @@ ENGINE_FLAGS = [
     (["--no-join-fast-sync"], "join_fast_sync", False, "item 9"),
     (["--max-pending", "32"], "max_pending", 32, "item 9"),
 ]
+
+
+@pytest.mark.parametrize("mode", ["tiny", "ngram", "medusa-tree"])
+def test_http_continuous_speculative(setup, tmp_path, mode, monkeypatch):
+    """cli.serve --continuous --draft-model tiny (a random whisper-tiny
+    draft), ngram, and medusa with a heads file, its accuracy file and
+    --medusa-tree: the engine speculates, and /transcribe and
+    /transcribe_stream answer with decode()'s tokens and text. The engine
+    runs in f32 here, where speculation gives greedy decoding's tokens
+    exactly (in bf16 a verification block may leave it at a near-tie,
+    which the card's smoke test bounds)."""
+    from whisper_ipa_torch.audio import load_audio
+    from whisper_ipa_torch.cli.train_medusa import write_accuracy
+    from whisper_ipa_torch.decode import DecodingOptions
+    from whisper_ipa_torch.decode.medusa_tree import optimize_tree
+    from whisper_ipa_torch.models.medusa import init_medusa_params, save_medusa
+
+    engine = serve_cli.ContinuousBatcher
+    monkeypatch.setattr(serve_cli, "ContinuousBatcher",
+                        lambda *a, **kw: engine(*a, **(kw | {"bf16": False})))
+    argv = ["--model", MODEL, "--weights", setup["weights"], "--checkpoint",
+            setup["ckpt"], "--device", "cpu", "--port", "0", "--draft-k", "3",
+            "--warmup"] + ENGINE_ARGV
+    probs = [[0.6, 0.2, 0.1, 0.05], [0.4, 0.2, 0.1, 0.0], [0.3, 0.1, 0.0, 0.0]]
+    if mode == "medusa-tree":
+        heads = str(tmp_path / "heads.safetensors")
+        save_medusa(heads, init_medusa_params(port_config.CONFIGS[MODEL], 3, seed=4))
+        write_accuracy(heads, probs)
+        argv += ["--draft-model", "medusa", "--medusa-weights", heads,
+                 "--medusa-tree"]
+    else:
+        argv += ["--draft-model", mode]
+    server, service = serve_cli.build_server(argv)
+    url, thread = _serve_in_thread(server)
+    try:
+        got = _post(f"{url}/transcribe", _wav_bytes(
+            load_audio(setup["wavs"][1])))[0]
+        lines = _post(f"{url}/transcribe_stream", _wav_bytes(
+            load_audio(setup["wavs"][2])))
+        stats = service.stats()
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.close()
+        thread.join(timeout=30)
+    assert not thread.is_alive() and not service._thread.is_alive()
+    tree = optimize_tree(probs, 12)
+    assert service.draft_k == {"medusa-tree": max(3, len(probs) + 2)}.get(mode, 3)
+    assert (service.draft_cfg is not None) == (mode == "tiny")
+    assert service.medusa_tree == (tree if mode == "medusa-tree" else None)
+    assert stats["spec_rounds"] > 0 and stats["requests"] == 3  # and --warmup
+    options = DecodingOptions(language="en", without_timestamps=True,
+                              sample_len=8, kv_int8=True)
+    want = []
+    for wav in setup["wavs"][1:]:
+        with torch.inference_mode():
+            mel = log_mel_spectrogram(torch.from_numpy(pad_or_trim(
+                load_audio(wav))), n_mels=service.cfg.n_mels)[None]
+        want.append(decode(service.params, service.cfg, mel, options,
+                           tokenizer=service.tokenizer)[0])
+    final = lines[-1]["final"]
+    assert got["tokens"] and got["tokens"] == want[0].tokens
+    assert got["text"] == want[0].text
+    assert final["tokens"] == want[1].tokens and final["text"] == want[1].text
+    assert [ln["partial"]["token"] for ln in lines[:-1]] == final["tokens"]
 
 
 @pytest.mark.parametrize("argv,dest,value,item", ENGINE_FLAGS)

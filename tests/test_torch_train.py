@@ -246,11 +246,36 @@ def test_bf16_first_moment_matches_optax(flat_np):
 
 # -- the train step -----------------------------------------------------------
 
-def _jax_trajectory(flat_np, batch, freeze, n):
-    mel, tokens = batch
-    state, tx = jax_create_state(
-        jax_tree(flat_np), learning_rate=STEP_LR, freeze_encoder=freeze
+# optimizer settings of the cross-restore tests: gradient accumulation, a
+# warmup + linear-decay schedule with bfloat16 first moments, and both
+OPTS = {
+    "plain": {},
+    "accum2": dict(accum_steps=2),
+    "warmup-linear-bf16": dict(warmup=3, decay="linear", mu_dtype="bfloat16"),
+    "accum2-warmup-linear-bf16": dict(accum_steps=2, warmup=3, decay="linear",
+                                      mu_dtype="bfloat16"),
+}
+
+
+def _state_kw(opt, make):
+    """create_train_state's keywords for OPTS[opt], the schedule made by
+    ``make`` (the package's make_schedule)."""
+    kw = dict(OPTS[opt])
+    if "decay" in kw:
+        kw["schedule"] = make(STEP_LR, kw.pop("warmup"), kw.pop("decay"),
+                              total_steps=10)
+    return kw
+
+
+def _jax_create(flat_np, freeze, opt="plain"):
+    return jax_create_state(
+        jax_tree(flat_np), learning_rate=STEP_LR, freeze_encoder=freeze,
+        **_state_kw(opt, jax_make_schedule),
     )
+
+
+def _jax_steps(state, tx, batch, freeze, n):
+    mel, tokens = batch
     losses = []
     for _ in range(n):
         state, loss = jax_train_step(
@@ -261,10 +286,15 @@ def _jax_trajectory(flat_np, batch, freeze, n):
     return losses, state
 
 
-def _port_state(flat_np, freeze):
+def _jax_trajectory(flat_np, batch, freeze, n, opt="plain"):
+    state, tx = _jax_create(flat_np, freeze, opt)
+    return _jax_steps(state, tx, batch, freeze, n)
+
+
+def _port_state(flat_np, freeze, opt="plain"):
     return create_train_state(
         params_from_numpy(flat_np), learning_rate=STEP_LR,
-        freeze_encoder=freeze,
+        freeze_encoder=freeze, **_state_kw(opt, make_schedule),
     )
 
 
@@ -340,54 +370,115 @@ def test_safetensors_files_cross_read(tmp_path):
 
 
 def _compare_states(port_state, jax_state, freeze):
-    """Params, AdamW moments and step equal between the two packages."""
+    """Params, AdamW moments, step and counts equal between the two
+    packages; with gradient accumulation also the mini step, the gradient
+    step and the accumulated gradients."""
     assert port_state.step == int(jax_state.step)
     ref = {k: np.asarray(v) for k, v in jax_flatten_params(jax_state.params).items()}
     ours = {k: v.numpy() for k, v in flatten_params(port_state.params).items()}
     assert ref.keys() == ours.keys()
     for k in ref:
         assert np.array_equal(ours[k], ref[k]), k
+    opt = port_state.opt_state
     adam = _adam_state(jax_state.opt_state)
-    assert int(adam.count) == port_state.opt_state.count
+    assert int(adam.count) == opt.count
     for field in ("mu", "nu"):
         ref_m = {
-            k: np.asarray(v)
+            k: np.asarray(v.astype(jnp.float32))
             for k, v in jax_flatten_params(getattr(adam, field)).items()
             if not isinstance(v, optax.MaskedNode)
         }
-        ours_m = {k: v.numpy() for k, v in getattr(port_state.opt_state, field).items()}
+        ours_m = {k: v.float().numpy() for k, v in getattr(opt, field).items()}
         assert ours_m.keys() == {
             k for k in ref_m if not (freeze and k.startswith("encoder."))
         }
         for k in ours_m:
             assert np.array_equal(ours_m[k], ref_m[k]), (field, k)
+    counts = [x.count for x in jax.tree_util.tree_leaves(
+        jax_state.opt_state,
+        is_leaf=lambda x: isinstance(x, optax.ScaleByScheduleState))
+        if isinstance(x, optax.ScaleByScheduleState)]
+    assert opt.schedule_count == (int(counts[0]) if counts else None)
+    multi = jax_state.opt_state
+    if isinstance(multi, optax.MultiStepsState):
+        assert (opt.mini_step, opt.gradient_step) == (
+            int(multi.mini_step), int(multi.gradient_step))
+        acc = {k: np.asarray(v)
+               for k, v in jax_flatten_params(multi.acc_grads).items()}
+        assert opt.acc_grads and set(opt.acc_grads) <= acc.keys()
+        for k, v in acc.items():
+            want = opt.acc_grads[k].numpy() if k in opt.acc_grads else 0.0
+            assert np.array_equal(v, np.broadcast_to(want, v.shape)), k
+    else:
+        assert (opt.mini_step, opt.gradient_step, opt.acc_grads) == (0, 0, {})
 
 
-@pytest.mark.parametrize("freeze", [True, False])
-def test_port_checkpoint_restores_in_jax(flat_np, batch, freeze, tmp_path):
-    state, tx = _port_state(flat_np, freeze)
-    _, state = _port_steps(state, tx, batch, freeze, 2)
-    ckpt = save_checkpoint(state, 2, 1.0, str(tmp_path))
-    template, _ = jax_create_state(
-        jax_tree(flat_np), learning_rate=STEP_LR, freeze_encoder=freeze
-    )
+# (freeze, optimizer setting): both layouts at a constant rate, then the
+# other settings with the frozen encoder
+RESTORE_CASES = [
+    pytest.param(True, "plain", id="True"),
+    pytest.param(False, "plain", id="False"),
+    pytest.param(True, "accum2", id="accum2"),
+    pytest.param(True, "warmup-linear-bf16", id="warmup-linear-bf16"),
+    pytest.param(True, "accum2-warmup-linear-bf16",
+                 id="accum2-warmup-linear-bf16"),
+]
+
+
+def _saved_accumulation(ckpt, opt):
+    """The opt_state file carries the accumulation state when it should
+    (every accumulated gradient under .acc_grads)."""
+    keys = safetensors_io.load_file(
+        os.path.join(ckpt, "opt_state.safetensors")).keys()
+    accum = OPTS[opt].get("accum_steps", 1) > 1
+    for key in (".mini_step", ".gradient_step"):
+        assert (key in keys) == accum
+    assert any(k.startswith(".acc_grads[") for k in keys) == accum
+
+
+def _after_restore_agree(port, jax_, losses, ref_losses):
+    """Two more steps on each side: losses relative 1e-5, parameters within
+    1e-5 absolute."""
+    np.testing.assert_allclose(losses, ref_losses, rtol=1e-5)
+    ref = {k: np.asarray(v) for k, v in jax_flatten_params(jax_.params).items()}
+    for k, v in flatten_params(port.params).items():
+        assert np.max(np.abs(v.numpy() - ref[k])) <= 1e-5, k
+
+
+@pytest.mark.parametrize("freeze,opt", RESTORE_CASES)
+def test_port_checkpoint_restores_in_jax(flat_np, batch, freeze, opt, tmp_path):
+    """A port checkpoint (mid-accumulation where accumulating) restores in
+    JAX with equal state and counts; two more steps on each side agree."""
+    n = 2 if opt == "plain" else 3  # 3: one gradient waits in acc_grads
+    state, tx = _port_state(flat_np, freeze, opt)
+    _, state = _port_steps(state, tx, batch, freeze, n)
+    ckpt = save_checkpoint(state, n, 1.0, str(tmp_path))
+    _saved_accumulation(ckpt, opt)
+    template, jtx = _jax_create(flat_np, freeze, opt)
     restored, meta = jax_ckpt.restore_checkpoint(ckpt, template)
-    assert meta["step"] == 2
+    assert meta["step"] == n
     _compare_states(state, restored, freeze)
+    ref_losses, restored = _jax_steps(restored, jtx, batch, freeze, 2)
+    losses, state = _port_steps(state, tx, batch, freeze, 2)
+    _after_restore_agree(state, restored, losses, ref_losses)
 
 
-@pytest.mark.parametrize("freeze", [True, False])
-def test_jax_checkpoint_restores_in_port(flat_np, batch, freeze, tmp_path):
-    """A JAX checkpoint resumes in the port: equal state, and the port's
-    next step gives the loss of the JAX run's next step (relative 1e-5)."""
-    ref_losses, _ = _jax_trajectory(flat_np, batch, freeze, 3)
-    _, jstate = _jax_trajectory(flat_np, batch, freeze, 2)
-    ckpt = jax_ckpt.save_checkpoint(jstate, 2, 1.0, str(tmp_path))
-    template, tx = _port_state(flat_np, freeze)
+@pytest.mark.parametrize("freeze,opt", RESTORE_CASES)
+def test_jax_checkpoint_restores_in_port(flat_np, batch, freeze, opt, tmp_path):
+    """A JAX checkpoint resumes in the port: equal state and counts, and
+    the port's next two steps give the JAX run's losses (relative 1e-5)
+    and parameters (within 1e-5)."""
+    n = 2 if opt == "plain" else 3
+    jstate, jtx = _jax_create(flat_np, freeze, opt)
+    _, jstate = _jax_steps(jstate, jtx, batch, freeze, n)
+    ckpt = jax_ckpt.save_checkpoint(jstate, n, 1.0, str(tmp_path))
+    _saved_accumulation(ckpt, opt)
+    template, tx = _port_state(flat_np, freeze, opt)
     restored, _ = restore_checkpoint(ckpt, template)
     _compare_states(restored, jstate, freeze)
-    losses, _ = _port_steps(restored, tx, batch, freeze, 1)
-    assert losses[0] == pytest.approx(ref_losses[2], rel=1e-5)
+    ref_losses, jstate = _jax_steps(jstate, jtx, batch, freeze, 2)
+    losses, restored = _port_steps(restored, tx, batch, freeze, 2)
+    _after_restore_agree(restored, jstate, losses, ref_losses)
 
 
 def test_resumed_run_continues_the_same_trajectory(flat_np, batch, tmp_path):

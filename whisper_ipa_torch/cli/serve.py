@@ -31,19 +31,22 @@ cache, ``--batch-size`` slots, ``--max-new-tokens``, ``--steps-per-sync``,
 ``--warmup`` every kernel built before binding; it refuses ``--beam-size``,
 ``--kv-int4`` and ``--tp`` with ``--quant-bits``, as the reference does.
 
-``--draft-model`` turns on speculative decoding in the service (tokens
-equal to greedy decoding): a model name (e.g. ``tiny``, its weights from
-``--draft-weights`` and a trained checkpoint from ``--draft-checkpoint``,
-``--draft-k`` tokens a round), ``ngram`` (prompt lookup: its drafts serve
-only in the in-flight engine, so the service decodes plainly, as the
-reference's does), or ``medusa``
-(heads from ``--medusa-weights``, untrained ``--draft-k`` heads without
-it; ``--medusa-tree`` verifies a tree, optimized from the heads' accuracy
-file where ``cli.train_medusa`` wrote one).
+``--draft-model`` turns on speculative decoding, in the service and in
+the engine alike (tokens equal to greedy decoding): a model name (e.g.
+``tiny``, its weights from ``--draft-weights`` and a trained checkpoint
+from ``--draft-checkpoint``, ``--draft-k`` tokens a round), ``ngram``
+(prompt lookup over ``--draft-k`` tokens: its drafts serve only in the
+in-flight engine, so the service decodes plainly, as the reference's
+does), or ``medusa`` (heads from ``--medusa-weights``, untrained
+``--draft-k`` heads without it; ``--medusa-tree`` verifies a tree,
+optimized from the heads' accuracy file where ``cli.train_medusa`` wrote
+one).
 
-Not ported, each exits with a message: ``--continuous --draft-model``
-(the engine's speculative modes, ROADMAP queue 1 item 16) and ``--dp`` /
-``--tp`` > 1 (item 12). The reference's ``--no-aot-cache`` parses and does
+  python -m whisper_ipa_torch.cli.serve --model small --continuous \
+      --draft-model medusa --medusa-weights heads.safetensors --medusa-tree
+
+Not ported, it exits with a message: ``--dp`` / ``--tp`` > 1 (ROADMAP
+queue 1 item 12). The reference's ``--no-aot-cache`` parses and does
 nothing: CUDA has no executable cache to switch off (item 14).
 """
 
@@ -251,17 +254,9 @@ def _refuse_continuous(args) -> None:
 
 
 def _refuse_unported(args) -> None:
-    unported = (
-        (args.continuous and args.draft_model,
-         "--continuous --draft-model: the in-flight engine's speculative "
-         "modes", "item 16"),
-        (args.dp * args.tp > 1, "--dp / --tp: multi-device serving",
-         "item 12"),
-    )
-    for used, what, item in unported:
-        if used:
-            raise SystemExit(f"{what} is not ported to the PyTorch package "
-                             f"yet (ROADMAP queue 1 {item})")
+    if args.dp * args.tp > 1:
+        raise SystemExit("--dp / --tp: multi-device serving is not ported to "
+                         "the PyTorch package yet (ROADMAP queue 1 item 12)")
 
 
 def build_server(argv=None):
@@ -321,6 +316,11 @@ def build_server(argv=None):
             language=args.language,
             bf16=True,
             kv_int8=True,
+            draft_k=args.draft_k if args.draft_model else 0,
+            draft_params=draft_params,
+            draft_cfg=draft_cfg,
+            medusa_params=medusa_params,
+            medusa_tree=medusa_tree,
             max_pending=args.max_pending,
             # a long-lived server builds every kernel before binding
             prewarm=args.warmup,

@@ -29,11 +29,20 @@ slot has halted; reading that condition here costs a host sync, so
 whatever the cadence, so the tokens are the same; the cadence only decides
 how many frozen steps a drained batch pays for.
 
+With ``draft_k > 0`` the engine speculates in flight, token-identical to
+the greedy engine: a chunk runs ``steps_per_sync`` verification rounds,
+each one (K+1)-query forward of the target over K drafts per slot from
+prompt lookup over the slot's tokens (``_spec_chunk``), a persistent draft
+model with its own slot-aligned cache (``_spec_chunk_model``), Medusa heads
+on the frontier hidden state (``_spec_chunk_medusa``) or a Medusa tree
+(``_spec_chunk_medusa_tree``). These chunks run their rounds as the
+reference's fixed ``lax.scan`` does, with no all-halted check, so
+``spec_rounds`` counts the rounds asked for, as the reference's.
+
 Not ported (the constructor raises ``NotImplementedError`` naming the
-ROADMAP item): in-flight speculation (``draft_k``, a draft model, Medusa
-heads and trees: item [16]) and slot or tensor sharding over a mesh (item
-[12]). The reference's executable cache (``aot_call``) has no counterpart
-(item [14]).
+ROADMAP item): slot or tensor sharding over a mesh (item [12]). The
+reference's executable cache (``aot_call``) has no counterpart (item
+[14]).
 """
 
 from __future__ import annotations
@@ -56,11 +65,16 @@ from .decode.decoding import (
     build_suppress_mask,
     initial_tokens,
 )
+from .decode.medusa_tree import _tree_tables, tree_round
+from .decode.speculative import _accept, _ngram_drafts
 from .models.convert import params_to
+from .models.medusa import medusa_propose
 from .models.whisper import (
     DecoderCache,
     cast_decoder_blocks,
+    decode_step_block,
     decode_step_multipos,
+    decode_step_multipos_hidden,
     encode,
     init_cache,
 )
@@ -148,6 +162,227 @@ def _decode_chunk(params, cfg: WhisperConfig, cache: DecoderCache, last_tok,
     return cache, last_tok, lens, finished, toks, steps_run
 
 
+# -- speculative device functions (draft_k > 0) ---------------------------
+
+def _join_step_hidden(params, cfg: WhisperConfig, cache: DecoderCache, tokens,
+                      pos, dtype=torch.float32):
+    """``_join_step`` that also returns each slot's frontier hidden state.
+
+    Medusa heads draft from the final-LN hidden of the input at lens - 2
+    (head k on h_t predicts the token at t + k + 2). In the join block that
+    input sits at block index n_prefix - 2 for joiners (pos 0, lens becomes
+    n_prefix) and for re-feeders (pos = lens - n_prefix) alike."""
+    _, cache, hidden = decode_step_multipos_hidden(params, cfg, tokens, cache,
+                                                   pos, dtype=dtype)
+    return cache, hidden[:, tokens.shape[1] - 2]
+
+
+def _join_step_tree(params, cfg: WhisperConfig, cache: DecoderCache, tokens,
+                    start, lens_eff, dtype=torch.float32):
+    """The join of tree-Medusa mode, W = max(n_prefix, tree_K + 2) wide.
+
+    A tree round accepts up to K + 1 tokens whose K/V it never writes (tree
+    nodes are read only), so a join re-feeds each slot's last W tokens
+    (tokens (B, W), EOT past lens_eff) at start = max(lens_eff - W, 0): it
+    writes every such row, and the entries past lens_eff are masked out.
+    Returns the cache and each slot's hidden of the input at lens_eff - 2
+    (the Medusa draft frontier)."""
+    B, W = tokens.shape
+    pos = start[:, None] + torch.arange(W, device=tokens.device)[None, :]
+    real = pos < lens_eff[:, None]
+    mask_new = torch.where(
+        real[:, None, :] & (pos[:, None, :] <= pos[:, :, None]),
+        torch.zeros((), device=tokens.device),
+        torch.full((), float("-inf"), device=tokens.device),
+    )  # (B, W, W)
+    _, cache, hidden = decode_step_block(params, cfg, tokens, cache, pos,
+                                         start, mask_new, write_len=W,
+                                         dtype=dtype)
+    idx = lens_eff - 2 - start  # block index of the input at lens_eff - 2
+    return cache, hidden[torch.arange(B, device=tokens.device), idx]
+
+
+def _advance(emit, m, last_tok, lens, finished, eot: int, n_prefix: int,
+             max_new: int):
+    """The engine's accept rule after a verification: the m matched tokens
+    and the one after them, cut after an EOT and at the max_new budget, 0
+    for a finished slot. The engine's lens counts content tokens (an
+    emitted EOT is not one). Returns (emit_w (B, K + 1): the emitted tokens,
+    EOT past them; v (B,) their count; vc (B,) the content count; last_tok,
+    lens, finished)."""
+    v, ate_eot = _accept(emit, m, lens, finished, n_prefix, max_new, eot)
+    idx = torch.arange(emit.shape[1], device=emit.device)[None, :]
+    emit_w = torch.where(idx < v[:, None], emit, eot)
+    vc = v - ate_eot.long()
+    last = emit.gather(1, (vc - 1).clamp_min(0)[:, None])[:, 0]
+    last_tok = torch.where(vc >= 1, last, last_tok)
+    lens = lens + vc
+    finished = finished | ate_eot | (lens - n_prefix >= max_new)
+    return emit_w, v, vc, last_tok, lens, finished
+
+
+def _write_rows(tokens_buf, emit_w, lens):
+    """tokens_buf[b, lens[b]:lens[b] + K + 1] = emit_w[b], in place."""
+    idx = torch.arange(emit_w.shape[1], device=emit_w.device)[None, :]
+    tokens_buf.scatter_(1, lens[:, None] + idx, emit_w)
+
+
+def _chain_round(params, cfg, cache, drafts, last_tok, lens, finished,
+                 suppress_mask, blank_mask, eot, n_prefix, max_new, dtype):
+    """One chain verification: the (K + 1)-query block [last_tok, drafts]
+    at lens - 1, then ``_advance`` on the longest run of drafts that equal
+    the greedy choices. Returns (cache, block hidden states, emit_w, v, vc,
+    last_tok, lens, finished)."""
+    K = drafts.shape[1]
+    block = torch.cat([last_tok[:, None], drafts], dim=1)
+    logits, cache, hidden = decode_step_multipos_hidden(
+        params, cfg, block, cache, lens - 1, dtype=dtype)
+    # logits[:, i] predicts the token at lens + i: suppress mask, and the
+    # blank mask at the first sampled slot
+    idx = torch.arange(K + 1, device=lens.device)
+    first = (lens[:, None] + idx[None, :]) == n_prefix
+    lg = logits + suppress_mask
+    greedy = torch.where(first[..., None], lg + blank_mask, lg).argmax(dim=-1)
+    a = torch.cumprod((greedy[:, :K] == drafts).long(), dim=1).sum(dim=1)
+    return (cache, hidden) + _advance(greedy, a, last_tok, lens, finished,
+                                      eot, n_prefix, max_new)
+
+
+def _spec_chunk(params, cfg: WhisperConfig, cache: DecoderCache, tokens_buf,
+                last_tok, lens, finished, suppress_mask, blank_mask, eot: int,
+                n_rounds: int, draft_k: int, n_prefix: int, max_new: int,
+                dtype=torch.float32):
+    """n_rounds n-gram verification rounds on the device.
+
+    Each round drafts K tokens a slot by prompt lookup over tokens_buf (B,
+    buf_len: prefix and emitted tokens, EOT past them, written in place as
+    rounds emit; ``_ngram_drafts``), verifies them in one (K + 1)-query
+    forward and accepts the longest matching run and the token after it:
+    the tokens of single-step greedy decoding. Rejected drafts' K/V is written over by the next round's
+    frontier re-feed. Returns (cache, last_tok, lens, finished, emits
+    (n_rounds, B, K + 1), vs (n_rounds, B)): round r emits
+    emits[r, b, :vs[r, b]], EOT included when hit."""
+    params = cast_decoder_blocks(params, dtype)
+    emits, vs = [], []
+    for _ in range(n_rounds):
+        drafts = _ngram_drafts(tokens_buf, lens, draft_k)
+        (cache, _, emit_w, v, _, last_tok, new_lens, finished) = _chain_round(
+            params, cfg, cache, drafts, last_tok, lens, finished,
+            suppress_mask, blank_mask, eot, n_prefix, max_new, dtype)
+        _write_rows(tokens_buf, emit_w, lens)
+        lens = new_lens
+        emits.append(emit_w)
+        vs.append(v)
+    return cache, last_tok, lens, finished, torch.stack(emits), torch.stack(vs)
+
+
+def _spec_chunk_model(params, draft_params, cfg: WhisperConfig,
+                      draft_cfg: WhisperConfig, cache: DecoderCache,
+                      draft_cache: DecoderCache, last_tok, lens, finished,
+                      suppress_mask, blank_mask, eot: int, n_rounds: int,
+                      draft_k: int, n_prefix: int, max_new: int,
+                      dtype=torch.float32):
+    """n_rounds draft-model verification rounds on the device.
+
+    Each round runs K single-query steps of the persistent draft model (its
+    own slot-aligned cache), masked by suppress and blank as verification
+    is, then the target's (K + 1)-query verification. The draft's cache
+    needs no repair: the accepted tokens are the drafts whose K/V the draft
+    steps wrote, and the correction token's row (lens_new - 1) is written by
+    the next round's first draft step. Returns (cache, draft_cache,
+    last_tok, lens, finished, emits, vs) as ``_spec_chunk``."""
+    params = cast_decoder_blocks(params, dtype)
+    draft_params = cast_decoder_blocks(draft_params, dtype)
+    emits, vs = [], []
+    for _ in range(n_rounds):
+        tok, steps = last_tok, []
+        for i in range(draft_k):
+            logits, draft_cache = decode_step_multipos(
+                draft_params, draft_cfg, tok[:, None], draft_cache,
+                lens - 1 + i, dtype=dtype)
+            lg = logits[:, 0] + suppress_mask
+            lg = torch.where((lens + i == n_prefix)[:, None], lg + blank_mask,
+                             lg)
+            tok = lg.argmax(dim=-1)
+            steps.append(tok)
+        (cache, _, emit_w, v, _, last_tok, lens, finished) = _chain_round(
+            params, cfg, cache, torch.stack(steps, dim=1), last_tok, lens,
+            finished, suppress_mask, blank_mask, eot, n_prefix, max_new, dtype)
+        emits.append(emit_w)
+        vs.append(v)
+    return (cache, draft_cache, last_tok, lens, finished, torch.stack(emits),
+            torch.stack(vs))
+
+
+def _spec_chunk_medusa(params, medusa_params, cfg: WhisperConfig,
+                       cache: DecoderCache, hidden_frontier, last_tok, lens,
+                       finished, suppress_mask, blank_mask, eot: int,
+                       n_rounds: int, n_prefix: int, max_new: int,
+                       dtype=torch.float32):
+    """n_rounds Medusa-chain verification rounds on the device.
+
+    The K heads propose all K drafts at once from each slot's frontier
+    hidden state (B, d: the final-LN hidden of the input at lens - 2), so a
+    round is one (K + 1)-query target forward, which also gives the next
+    frontier: the hidden at block index vc - 1, the input at (new lens) -
+    2. Returns (cache, hidden_frontier, last_tok, lens, finished, emits,
+    vs) as ``_spec_chunk``."""
+    params = cast_decoder_blocks(params, dtype)
+    B = last_tok.shape[0]
+    rows = torch.arange(B, device=last_tok.device)
+    emits, vs = [], []
+    for _ in range(n_rounds):
+        drafts = medusa_propose(medusa_params, params, hidden_frontier, dtype)
+        (cache, hidden, emit_w, v, vc, last_tok, lens,
+         finished) = _chain_round(
+            params, cfg, cache, drafts, last_tok, lens, finished,
+            suppress_mask, blank_mask, eot, n_prefix, max_new, dtype)
+        new_hf = hidden[rows, (vc - 1).clamp_min(0)]
+        hidden_frontier = torch.where((vc >= 1)[:, None], new_hf,
+                                      hidden_frontier)
+        emits.append(emit_w)
+        vs.append(v)
+    return (cache, hidden_frontier, last_tok, lens, finished,
+            torch.stack(emits), torch.stack(vs))
+
+
+def _spec_chunk_medusa_tree(params, medusa_params, cfg: WhisperConfig,
+                            cache: DecoderCache, tokens_buf, hidden_frontier,
+                            last_tok, lens, finished, suppress_mask,
+                            blank_mask, eot: int, n_rounds: int,
+                            n_prefix: int, max_new: int, dtype=torch.float32,
+                            tree=None):
+    """n_rounds tree-Medusa verification rounds on the device.
+
+    Each round is ``medusa_tree.tree_round``: it re-feeds each slot's last
+    K + 2 tokens from tokens_buf (as ``_spec_chunk``'s, written in place;
+    rows already in the cache are written again from the same tokens, so
+    every slot's cache is valid below lens) and verifies the tree's nodes
+    in the same forward, accepting along the running greedy token. The
+    next frontier hidden is the block entry whose logits gave the last
+    content token (``sel``). Returns (cache, hidden_frontier, last_tok,
+    lens, finished, emits, vs) as ``_spec_chunk``, K the tree's depth."""
+    params = cast_decoder_blocks(params, dtype)
+    B = last_tok.shape[0]
+    rows = torch.arange(B, device=last_tok.device)
+    emits, vs = [], []
+    for _ in range(n_rounds):
+        cache, emit, _, sel, m, hidden = tree_round(
+            params, medusa_params, cfg, cache, tokens_buf, hidden_frontier,
+            lens, suppress_mask, blank_mask, n_prefix, tree, dtype)
+        emit_w, v, vc, last_tok, new_lens, finished = _advance(
+            emit, m, last_tok, lens, finished, eot, n_prefix, max_new)
+        _write_rows(tokens_buf, emit_w, lens)
+        pick = sel.gather(1, (vc - 1).clamp_min(0)[:, None])[:, 0]
+        hidden_frontier = torch.where((vc >= 1)[:, None], hidden[rows, pick],
+                                      hidden_frontier)
+        lens = new_lens
+        emits.append(emit_w)
+        vs.append(v)
+    return (cache, hidden_frontier, last_tok, lens, finished,
+            torch.stack(emits), torch.stack(vs))
+
+
 # -- engine ---------------------------------------------------------------
 
 @dataclass
@@ -215,6 +450,14 @@ class ContinuousBatcher:
     ):
         """The reference's options, with its meanings:
 
+        draft_k > 0 turns on in-flight speculation: n-gram drafts by
+        default, or a persistent draft model when draft_params/draft_cfg
+        are given (its own slot-aligned cache, K drafts a round).
+        medusa_params: Medusa heads draft in one shot from the frontier
+        hidden state; draft_k is taken from the head count. medusa_tree: a
+        static (parent, cand) tree (``decode/medusa_tree.py``) verified in
+        the same forward; draft_k becomes max(heads, depth + 2), the tree
+        round's re-feed. The tokens are the greedy engine's in every mode.
         max_pending: bound on the waiting queue; submit() raises
         EngineOverloaded beyond it. Per-request deadlines and
         cancellation: submit(..., deadline_sec=...) and Future.cancel().
@@ -229,13 +472,31 @@ class ContinuousBatcher:
         steps_per_sync * adaptive_mult rounds (fewer host syncs; a request
         arriving meanwhile waits up to that long to join).
         """
+        if (draft_params is None) != (draft_cfg is None):
+            raise ValueError("draft_params and draft_cfg go together")
+        if medusa_params is not None and draft_params is not None:
+            raise ValueError("medusa_params excludes a draft model")
+        if medusa_tree is not None and medusa_params is None:
+            raise ValueError("medusa_tree needs medusa_params")
+        tree_k = None
+        if medusa_params is not None:
+            draft_k = len(medusa_params["heads"])
+            if medusa_tree is not None:
+                tree_k = _tree_tables(medusa_tree)[5]
+                if tree_k > draft_k:
+                    raise ValueError(
+                        f"tree depth {tree_k} exceeds {draft_k} heads")
+                draft_k = max(draft_k, tree_k + 2)  # the re-feed's headroom
+        if draft_params is not None and draft_k <= 0:
+            raise ValueError("a draft model needs draft_k > 0")
+        if draft_cfg is not None and (
+            draft_cfg.n_vocab != cfg.n_vocab
+            or draft_cfg.multilingual != cfg.multilingual
+            or draft_cfg.n_mels != cfg.n_mels
+        ):
+            raise ValueError(
+                "draft and target must share tokenizer and mel size")
         unported = {
-            "draft_k > 0 (in-flight n-gram speculation, ROADMAP queue 1 "
-            "item [16])": draft_k > 0,
-            "draft_params/draft_cfg (ROADMAP queue 1 item [16])":
-            draft_params is not None or draft_cfg is not None,
-            "medusa_params/medusa_tree (ROADMAP queue 1 item [16])":
-            medusa_params is not None or medusa_tree is not None,
             "mesh (ROADMAP queue 1 item [12])": mesh is not None,
             "tensor_parallel (ROADMAP queue 1 item [12])": tensor_parallel,
         }
@@ -251,6 +512,16 @@ class ContinuousBatcher:
         self.params = cast_decoder_blocks(params_to(params, self.device),
                                           self.dtype)
         self.cfg = cfg
+        self.draft_params = (
+            None if draft_params is None else
+            cast_decoder_blocks(params_to(draft_params, self.device),
+                                self.dtype))
+        self.draft_cfg = draft_cfg
+        self.medusa_params = (None if medusa_params is None
+                              else params_to(medusa_params, self.device))
+        self.medusa_tree = (tuple(tuple(node) for node in medusa_tree)
+                            if medusa_tree else None)
+        self.draft_k = draft_k
         self.slots = slots
         self.steps_per_sync = steps_per_sync
         self.adaptive_sync = adaptive_sync
@@ -266,8 +537,16 @@ class ContinuousBatcher:
         options = DecodingOptions(language=language, without_timestamps=True)
         self.prefix = initial_tokens(self.tokenizer, options)
         self.n_prefix = len(self.prefix)
-        self.n_ctx = min(self.n_prefix + max_new_tokens + 1, cfg.n_text_ctx)
+        # a (K + 1)-wide verification block needs K rows and positions of
+        # headroom past the frontier (the K/V writes do not clamp)
+        ctx_cap = cfg.n_text_ctx - draft_k
+        if draft_cfg is not None:
+            ctx_cap = min(ctx_cap, draft_cfg.n_text_ctx - draft_k)
+        self.n_ctx = min(self.n_prefix + max_new_tokens + 1, ctx_cap)
         self.max_new = self.n_ctx - self.n_prefix - 1
+        self._cache_len = self.n_ctx + draft_k
+        self._tree_join_width = (None if tree_k is None
+                                 else max(self.n_prefix, tree_k + 2))
         self.eot = self.tokenizer.eot
         dev = self.device
         self.suppress = torch.from_numpy(
@@ -277,12 +556,14 @@ class ContinuousBatcher:
 
         with torch.inference_mode():
             # persistent device state: an all-empty batch
-            dummy = torch.zeros((slots, cfg.n_audio_ctx, cfg.n_audio_state),
-                                dtype=self.dtype, device=dev)
-            self.cache = init_cache(self.params, cfg, dummy,
-                                    max_len=self.n_ctx, dtype=self.dtype,
-                                    cross_kv_int8=kv_int8)
-            del dummy
+            self.cache = self._empty_cache(self.params, cfg)
+            self.draft_cache = (
+                None if draft_cfg is None else
+                self._empty_cache(self.draft_params, draft_cfg))
+            self.hidden_frontier = None
+            if medusa_params is not None:
+                self.hidden_frontier = torch.zeros(
+                    (slots, cfg.n_text_state), dtype=self.dtype, device=dev)
             self.last_tok = torch.full((slots,), self.eot, dtype=torch.long,
                                        device=dev)
             self.lens = torch.full((slots,), self.n_prefix, dtype=torch.long,
@@ -301,12 +582,15 @@ class ContinuousBatcher:
         # client threads submit concurrently: the queue bound's check and
         # put, and their counts, happen under one lock
         self._submit_lock = threading.Lock()
-        # "steps": decode steps run (the reference has no such count; on
-        # CUDA, K4 launches n_text_layer times a step)
+        # counts the reference has not: "steps", the decode steps run (on
+        # CUDA, K4 launches n_text_layer times a step), and
+        # "spec_slot_rounds", the (slot, round) pairs of speculative chunks
+        # in which a slot emitted (spec_emitted over it: tokens a round)
         self._stats = {
             "requests": 0, "joins": 0, "chunks": 0, "fast_chunks": 0,
             "long_chunks": 0, "spec_rounds": 0, "spec_emitted": 0,
             "rejected": 0, "cancelled": 0, "timed_out": 0, "steps": 0,
+            "spec_slot_rounds": 0,
         }
         if prewarm:
             self._prewarm()
@@ -381,15 +665,29 @@ class ContinuousBatcher:
     def _free_slots(self) -> List[int]:
         return [i for i, s in enumerate(self._slots) if s is None]
 
+    def _empty_cache(self, params, cfg: WhisperConfig) -> DecoderCache:
+        """A cache of every slot, _cache_len rows, from all-zero features."""
+        dummy = torch.zeros((self.slots, cfg.n_audio_ctx, cfg.n_audio_state),
+                            dtype=self.dtype, device=self.device)
+        return init_cache(params, cfg, dummy, max_len=self._cache_len,
+                          dtype=self.dtype, cross_kv_int8=self.kv_int8)
+
     def _install(self, i: int, audio: np.ndarray):
         """One window's log-mel, encoder forward and cross K/V, on the
-        device, copied into slot i of the persistent cache."""
+        device, copied into slot i of the persistent cache; with a draft
+        model, its encoder forward and cross K/V from the same log-mel into
+        slot i of the draft's cache."""
         wave = torch.from_numpy(audio).to(self.device)
         mel = log_mel_spectrogram(wave[None], n_mels=self.cfg.n_mels)
-        feats = _encode_one(self.params, self.cfg, mel, dtype=self.dtype)
-        one = _cross_kv_one(self.params, self.cfg, feats, dtype=self.dtype,
-                            cross_kv_int8=self.kv_int8)
-        _scatter_slot(self.cache, one, i)
+        for params, cfg, cache in ((self.params, self.cfg, self.cache),
+                                   (self.draft_params, self.draft_cfg,
+                                    self.draft_cache)):
+            if params is None:
+                continue
+            feats = _encode_one(params, cfg, mel, dtype=self.dtype)
+            one = _cross_kv_one(params, cfg, feats, dtype=self.dtype,
+                                cross_kv_int8=self.kv_int8)
+            _scatter_slot(cache, one, i)
 
     def _admit(self) -> bool:
         """Join queued requests into free slots. Returns True if any.
@@ -428,26 +726,8 @@ class ContinuousBatcher:
 
         if not joiners:
             return False
-        # one batched prefix pass: joiners consume the SOT prefix at 0,
-        # every other slot re-feeds its latest n_prefix tokens in place
+        self._join(joiners)
         B, P = self.slots, self.n_prefix
-        lens_np = self.lens.cpu().numpy()
-        tok_rows = np.tile(self._prefix_row, (B, 1))
-        pos = np.maximum(lens_np - P, 0)
-        for b in range(B):
-            if b in joiners:
-                pos[b] = 0
-                continue
-            hist = list(self.prefix) + (
-                self._slots[b].tokens if self._slots[b] else []
-            )
-            tail = hist[pos[b]:pos[b] + P]
-            tok_rows[b, :len(tail)] = tail
-        self.cache = _join_step(
-            self.params, self.cfg, self.cache,
-            torch.from_numpy(tok_rows).to(self.device),
-            torch.from_numpy(pos).to(self.device), dtype=self.dtype,
-        )
         join_mask = np.zeros(B, bool)
         join_mask[joiners] = True
         join_mask = torch.from_numpy(join_mask).to(self.device)
@@ -457,6 +737,61 @@ class ContinuousBatcher:
         self.finished = self.finished & ~join_mask
         self._stats["joins"] += len(joiners)
         return True
+
+    def _history(self, b: int) -> List[int]:
+        """Slot b's context on the host: the prefix and its window's tokens."""
+        s = self._slots[b]
+        return list(self.prefix) + (s.tokens if s is not None else [])
+
+    def _join(self, joiners: List[int]):
+        """One batched prefix pass: joiners consume the SOT prefix at 0,
+        every other slot re-feeds its latest n_prefix tokens in place; the
+        draft model's cache takes the same rows. With Medusa heads the pass
+        also gives every slot's frontier hidden state, and in tree mode it
+        re-feeds W = max(n_prefix, tree_K + 2) rows a slot (see
+        ``_join_step_tree``)."""
+        B, P, dev = self.slots, self.n_prefix, self.device
+        lens_np = self.lens.cpu().numpy()
+        tok_rows = np.tile(self._prefix_row, (B, 1))
+        pos = np.maximum(lens_np - P, 0)
+        for b in range(B):
+            if b in joiners:
+                pos[b] = 0
+                continue
+            tail = self._history(b)[pos[b]:pos[b] + P]
+            tok_rows[b, :len(tail)] = tail
+        tok_rows = torch.from_numpy(tok_rows).to(dev)
+        pos = torch.from_numpy(pos).to(dev)
+        if self.medusa_tree is not None:
+            W = self._tree_join_width
+            rows = np.full((B, W), self.eot, np.int64)
+            starts = np.zeros(B, np.int64)
+            lens_eff = np.zeros(B, np.int64)
+            for b in range(B):
+                hist = self._history(b)
+                lens_eff[b] = len(hist)
+                starts[b] = max(len(hist) - W, 0)
+                seg = hist[starts[b]:starts[b] + W]
+                rows[b, :len(seg)] = seg
+            self.cache, self.hidden_frontier = _join_step_tree(
+                self.params, self.cfg, self.cache,
+                *(torch.from_numpy(a).to(dev)
+                  for a in (rows, starts, lens_eff)),
+                dtype=self.dtype)
+        elif self.medusa_params is not None:
+            # every slot's frontier sits at block index P - 2: joiners by
+            # construction, re-feeders because chain rounds write every
+            # accepted token's K/V
+            self.cache, self.hidden_frontier = _join_step_hidden(
+                self.params, self.cfg, self.cache, tok_rows, pos,
+                dtype=self.dtype)
+        else:
+            self.cache = _join_step(self.params, self.cfg, self.cache,
+                                    tok_rows, pos, dtype=self.dtype)
+        if self.draft_params is not None:
+            self.draft_cache = _join_step(self.draft_params, self.draft_cfg,
+                                          self.draft_cache, tok_rows, pos,
+                                          dtype=self.dtype)
 
     def _resolve(self, s: _Slot):
         """Resolve a request's Future with its final transcript."""
@@ -573,35 +908,126 @@ class ContinuousBatcher:
         """Run every device function of the path once, in __init__, so that
         every kernel it reaches is built before the engine thread starts: a
         silent window's log-mel, encoder forward and cross K/V (not
-        installed), a join of the prefix into every (empty) slot, and one
-        chunk step. Every slot stays finished, so the chunk emits -1 and
-        leaves lens, finished and last_tok as they are; the rows it writes
-        lie in empty slots, which a join rewrites before any read. The
-        stats are reset afterwards."""
+        installed; the draft model's too), a join of the prefix into every
+        (empty) slot, and one chunk step, or with draft_k > 0 one
+        speculative chunk of each variant the loop runs (steps_per_sync
+        rounds, 1 with join_fast_sync, adaptive_rounds with adaptive_sync),
+        as the reference's prewarm. Every slot stays finished, so a chunk
+        emits nothing and leaves lens, finished and last_tok as they are;
+        the rows it writes lie in empty slots, which a join rewrites before
+        any read. The stats are reset afterwards."""
         B, P = self.slots, self.n_prefix
         with torch.inference_mode():
             wave = torch.zeros((1, N_SAMPLES), device=self.device)
             mel = log_mel_spectrogram(wave, n_mels=self.cfg.n_mels)
-            feats = _encode_one(self.params, self.cfg, mel, dtype=self.dtype)
-            _cross_kv_one(self.params, self.cfg, feats, dtype=self.dtype,
-                          cross_kv_int8=self.kv_int8)
-            self.cache = _join_step(
-                self.params, self.cfg, self.cache,
-                self._prefix_dev[None].repeat(B, 1),
-                torch.zeros(B, dtype=torch.long, device=self.device),
-                dtype=self.dtype,
-            )
-            self.cache, self.last_tok, self.lens, self.finished, _, _ = (
-                _decode_chunk(
-                    self.params, self.cfg, self.cache, self.last_tok,
-                    self.lens, self.finished, self.suppress, self.blank,
-                    self.eot, 1, P, self.max_new, dtype=self.dtype,
+            for params, cfg in ((self.params, self.cfg),
+                                (self.draft_params, self.draft_cfg)):
+                if params is not None:
+                    feats = _encode_one(params, cfg, mel, dtype=self.dtype)
+                    _cross_kv_one(params, cfg, feats, dtype=self.dtype,
+                                  cross_kv_int8=self.kv_int8)
+            self._join(list(range(B)))
+            if self.draft_k > 0:
+                variants = [self.steps_per_sync]
+                if self.join_fast_sync and 1 not in variants:
+                    variants.append(1)
+                if self.adaptive_sync and self.adaptive_rounds not in variants:
+                    variants.append(self.adaptive_rounds)
+                for rounds in variants:
+                    self._spec_round([], rounds)
+            else:
+                self.cache, self.last_tok, self.lens, self.finished, _, _ = (
+                    _decode_chunk(
+                        self.params, self.cfg, self.cache, self.last_tok,
+                        self.lens, self.finished, self.suppress, self.blank,
+                        self.eot, 1, P, self.max_new, dtype=self.dtype,
+                    )
                 )
-            )
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
-        for k in ("chunks", "fast_chunks", "long_chunks", "steps"):
+        for k in ("chunks", "fast_chunks", "long_chunks", "steps",
+                  "spec_rounds", "spec_emitted", "spec_slot_rounds"):
             self._stats[k] = 0
+
+    def _tokens_buf(self):
+        """(slots, _cache_len) long on the device: each slot's history, EOT
+        past it (the n-gram and tree chunks' token buffer)."""
+        buf = np.full((self.slots, self._cache_len), self.eot, np.int64)
+        for b in range(self.slots):
+            hist = self._history(b)[:self._cache_len]
+            buf[b, :len(hist)] = hist
+        return torch.from_numpy(buf).to(self.device)
+
+    def _spec_round(self, active: List[int], rounds: int):
+        """One speculative chunk (draft_k > 0): ``rounds`` verification
+        rounds on the device (n-gram, draft model, Medusa chain or tree),
+        then one host sync that unpacks every round's emissions: the greedy
+        engine's tokens, 1 to K + 1 a round a slot."""
+        args = (self.last_tok, self.lens, self.finished, self.suppress,
+                self.blank, self.eot, rounds)
+        if self.medusa_tree is not None:
+            (self.cache, self.hidden_frontier, self.last_tok, self.lens,
+             self.finished, emits, vs) = _spec_chunk_medusa_tree(
+                self.params, self.medusa_params, self.cfg, self.cache,
+                self._tokens_buf(), self.hidden_frontier, *args,
+                self.n_prefix, self.max_new, dtype=self.dtype,
+                tree=self.medusa_tree)
+        elif self.medusa_params is not None:
+            (self.cache, self.hidden_frontier, self.last_tok, self.lens,
+             self.finished, emits, vs) = _spec_chunk_medusa(
+                self.params, self.medusa_params, self.cfg, self.cache,
+                self.hidden_frontier, *args, self.n_prefix, self.max_new,
+                dtype=self.dtype)
+        elif self.draft_params is not None:
+            (self.cache, self.draft_cache, self.last_tok, self.lens,
+             self.finished, emits, vs) = _spec_chunk_model(
+                self.params, self.draft_params, self.cfg, self.draft_cfg,
+                self.cache, self.draft_cache, *args, self.draft_k,
+                self.n_prefix, self.max_new, dtype=self.dtype)
+        else:
+            (self.cache, self.last_tok, self.lens, self.finished, emits,
+             vs) = _spec_chunk(
+                self.params, self.cfg, self.cache, self._tokens_buf(), *args,
+                self.draft_k, self.n_prefix, self.max_new, dtype=self.dtype)
+        # the host sync: every round's emissions and counts in one copy
+        host = torch.cat([emits, vs[..., None]], dim=2).cpu().numpy()
+        emits_np, vs_np = host[..., :-1], host[..., -1]
+        self._stats["chunks"] += 1
+        self._stats["spec_rounds"] += rounds
+        self._stats["spec_slot_rounds"] += int((vs_np > 0).sum())
+        for b in active:
+            s = self._slots[b]
+            done = False
+            for r in range(rounds):
+                for t in emits_np[r, b, :vs_np[r, b]].tolist():
+                    if t == self.eot:
+                        done = True
+                        break
+                    self._emit_token(s, t)
+                    self._stats["spec_emitted"] += 1
+                if done:
+                    break
+            budget_hit = len(s.tokens) >= self.max_new
+            if done or budget_hit:
+                self._retire(b, budget_hit and not done)
+
+    def _emit_token(self, s: _Slot, t: int):
+        """Append one decoded token to a request and stream it."""
+        s.tokens.append(t)
+        if not s.first_token_at:
+            s.first_token_at = time.time()
+        if s.on_token is not None:
+            try:
+                s.on_token(
+                    {
+                        "token": t,
+                        "window": len(s.window_tokens),
+                        "text_so_far": self.tokenizer.decode_text(
+                            s.all_tokens()),
+                    }
+                )
+            except Exception:
+                pass
 
     def _loop(self):
         while not self._stop.is_set():
@@ -652,6 +1078,10 @@ class ContinuousBatcher:
             rounds = self.adaptive_rounds
             self._stats["long_chunks"] += 1
 
+        if self.draft_k > 0:
+            self._spec_round(active, rounds)
+            return
+
         (
             self.cache,
             self.last_tok,
@@ -678,21 +1108,7 @@ class ContinuousBatcher:
                     break
                 if t < 0:  # halted on the device (budget frozen)
                     break
-                s.tokens.append(int(t))
-                if not s.first_token_at:
-                    s.first_token_at = time.time()
-                if s.on_token is not None:
-                    try:
-                        s.on_token(
-                            {
-                                "token": int(t),
-                                "window": len(s.window_tokens),
-                                "text_so_far": self.tokenizer.decode_text(
-                                    s.all_tokens()),
-                            }
-                        )
-                    except Exception:
-                        pass
+                self._emit_token(s, int(t))
             budget_hit = lens_np[b] - self.n_prefix >= self.max_new
             if done or budget_hit:
                 self._retire(b, budget_hit and not done)
