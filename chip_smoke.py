@@ -75,6 +75,24 @@ weights from seed 0:
             untrained drafts on the held-out split, and cli.serve
             --draft-model ngram (plain, as the reference's service) and
             medusa --medusa-tree over HTTP
+  data preparation (host, on a machine without pandas or openpyxl):
+            cli.check_vocab; cli.prepare_datasets g2p on a seeded
+            CommonVoice-style fixture of the seven G2P languages (every
+            filter's case, synthesized clips of 1-8 s), its per-language
+            counts against a prediction made from the fixture; verify;
+            timit, metu, ogi and combine on one-utterance layouts
+  zero-shot on the learning phase's held-out split: annotator sheets
+            written by utils.xlsx, cli.parse_zeroshot_test, cli.compute_iaa
+            against evaluate_batch, cli.evaluate_zeroshot on the whisper-tiny
+            checkpoint (K1 a utterance; f32, so no K2) and at its default
+            base model, large-v3 at random init, each hypothesis equal to
+            decode()'s on the same log-mels
+  tools     cli.benchmark_models (parameter counts; --measure: the f32
+            frozen-encoder step at tiny and small with MFU),
+            cli.profile_inference (decode at whisper-small, bf16, int8
+            cache: K1, K2, K4; the train step, with cached features, and at
+            tiny), each port kernel's launches as predicted, and
+            cli.calculate_real_speed on the learning run and its console
 
 make -C native builds the host library of the edit-distance and WAV
 cores first (the metrics take their NumPy paths where it does not build;
@@ -328,18 +346,23 @@ def check_attention(torch, dev):
     # unit-normal inputs, or one bf16 ulp of outputs at or above 1: both
     # sides sum in f32 and round P to bf16 before the value product, at
     # values that differ in the last bits. Whisper-small's 12 heads,
-    # whisper-tiny's 6 as phase_learn trains it (bf16, batch 16), and the
-    # test-tiny student cli.distill_draft trains (2 heads of width 32)
-    for heads, dh, dtype, tol in (
-        (12, 64, torch.bfloat16, 5e-3),
-        (12, 64, torch.float32, 2e-5),
-        (12, 32, torch.bfloat16, 5e-3),
-        (12, 32, torch.float32, 2e-5),
-        (6, 64, torch.bfloat16, 5e-3),
-        (2, 32, torch.bfloat16, 5e-3),
+    # whisper-tiny's 6 as phase_learn trains it (bf16, batch 16), the
+    # test-tiny student cli.distill_draft trains (2 heads of width 32), and
+    # cli.evaluate_zeroshot's f32 encoders (whisper-tiny at batch 8,
+    # large-v3's 20 heads at batch 4), which take K2 under
+    # use_fused_attention(True) (by default f32 takes the plain path)
+    for batch, heads, dh, dtype, tol in (
+        (MAIN_BATCH, 12, 64, torch.bfloat16, 5e-3),
+        (MAIN_BATCH, 12, 64, torch.float32, 2e-5),
+        (MAIN_BATCH, 12, 32, torch.bfloat16, 5e-3),
+        (MAIN_BATCH, 12, 32, torch.float32, 2e-5),
+        (MAIN_BATCH, 6, 64, torch.bfloat16, 5e-3),
+        (MAIN_BATCH, 2, 32, torch.bfloat16, 5e-3),
+        (8, 6, 64, torch.float32, 2e-5),
+        (4, 20, 64, torch.float32, 2e-5),
     ):
         q, k, v = (
-            torch.randn((MAIN_BATCH, heads, 1500, dh), generator=gen,
+            torch.randn((batch, heads, 1500, dh), generator=gen,
                         device=dev).to(dtype)
             for _ in range(3)
         )
@@ -354,7 +377,7 @@ def check_attention(torch, dev):
         exact = at.attention_plain(q.float(), k.float(), v.float(), scale)
         ms = cuda_ms(lambda: at.fused_attention(q, k, v, scale))
         plain_ms = cuda_ms(lambda: at.attention_plain(q, k, v, scale))
-        log(f"[K2 attention] ({MAIN_BATCH}*{heads}, 1500, {dh}) "
+        log(f"[K2 attention] ({batch}*{heads}, 1500, {dh}) "
             f"{str(dtype)[6:]}: "
             f"max|kernel-plain| {err:.3e} (bound {tol:g}); vs f32 on the "
             f"same inputs: kernel {max_abs(got, exact):.3e}, plain "
@@ -2787,6 +2810,32 @@ def add_reverb(audio: np.ndarray, rt60: float = 0.3, sr: int = 16000,
     return wet / peak * (np.max(np.abs(audio)) + 1e-9)
 
 
+class tee_stdout:
+    """Copy what is printed inside the block into ``path`` as well (the
+    console output a training run's monitor reads)."""
+
+    def __init__(self, path: str):
+        self.path = path
+
+    def __enter__(self):
+        self.file = open(self.path, "w", encoding="utf-8")
+        self.stdout = sys.stdout
+        sys.stdout = self
+        return self
+
+    def write(self, text):
+        self.file.write(text)
+        return self.stdout.write(text)
+
+    def flush(self):
+        self.file.flush()
+        self.stdout.flush()
+
+    def __exit__(self, *exc):
+        sys.stdout = self.stdout
+        self.file.close()
+
+
 def read_val_log(out: str) -> list:
     import csv
 
@@ -2869,15 +2918,17 @@ def phase_learn(torch, dev, root: str, by_path) -> dict:
               .precompute_mels(dev) for p in (train_json, heldout_json)]
     mel_batches = sum(-(-n // 16) for n in n_mels)  # precompute_mels' batch
     mel_s = time.time() - t0
-    summary = train(model_name="tiny", train_data_path=train_json,
-                    test_data_path=heldout_json, output_dir=out,
-                    num_steps=LEARN_STEPS, batch_size=LEARN_BATCH,
-                    learning_rate=LEARN_LR,
-                    validate_every=LEARN_VALIDATE_EVERY, save_every=0,
-                    freeze_encoder=False, warmup_steps=LEARN_WARMUP,
-                    compute_dtype="bfloat16", final_validate=True,
-                    final_validate_samples=LEARN_HELDOUT,
-                    mel_cache_dir=cache, device=str(dev))
+    console = os.path.join(root, "learn_console.log")  # calculate_real_speed's
+    with tee_stdout(console):
+        summary = train(model_name="tiny", train_data_path=train_json,
+                        test_data_path=heldout_json, output_dir=out,
+                        num_steps=LEARN_STEPS, batch_size=LEARN_BATCH,
+                        learning_rate=LEARN_LR,
+                        validate_every=LEARN_VALIDATE_EVERY, save_every=0,
+                        freeze_encoder=False, warmup_steps=LEARN_WARMUP,
+                        compute_dtype="bfloat16", final_validate=True,
+                        final_validate_samples=LEARN_HELDOUT,
+                        mel_cache_dir=cache, device=str(dev))
     launches = by_path["learn train"] = read_counts(torch)
     train_wall = time.time() - t0
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
@@ -3111,7 +3162,7 @@ def phase_learn(torch, dev, root: str, by_path) -> dict:
     log(f"[learn] phase passed in {wall:.1f} s")
     return dict(floor=floor, train=train_score, summary=summary, wall=wall,
                 ckpt=ckpt, params=params, tok=tok, train_json=train_json,
-                heldout=heldout, cache=cache)
+                heldout=heldout, cache=cache, run=out, console=console)
 
 
 # -- speculative decoding (decode/speculative.py, decode/medusa_tree.py) ----
@@ -3623,6 +3674,478 @@ def phase_speculative_http(torch, dev, learned, heads_path, prefix, eps):
                 f"serve {name}: texts equal the plain server's")
 
 
+# -- data preparation, zero-shot evaluation, tools (the host modules) ----------
+
+PREP_LANGS = ("ja", "pl", "mt", "hu", "fi", "el", "ta")
+PREP_GOOD = 12  # rows a language that pass every filter but the 6 s one
+PREP_SPLITS = (("train", 8, "combined_train_ipa.json"),
+               ("dev", 4, "combined_val_ipa.json"),
+               ("test", 2, "combined_test_ipa.json"))
+
+
+def prep_graphemes(lang: str) -> list:
+    """Letters of the language's converter, each of which converts alone."""
+    from whisper_ipa_torch.data.prep.g2p import japanese, languages, tamil
+
+    if lang == "ja":
+        return [k for k in japanese._BASE if k not in "ぁぃぅぇぉゐゑ"]
+    if lang == "ta":
+        return [k for k in list(tamil._INDEP) + list(tamil._CONS)
+                if k != "ச"]  # ச drops a sentence (the reference's rule)
+    return [k for k in languages.CONVERTERS[lang].table
+            if k.isalpha() and len(k) == 1]
+
+
+def write_cv_fixture(root: str, lang: str, seed: int) -> list:
+    """A CommonVoice-style language directory (<lang>/{train,dev,test}.tsv,
+    clips/ of synthesized WAVs) and its rows as (sentence, seconds, kept by
+    the filters): PREP_GOOD sentences of 1-3 words over the converter's
+    letters with clips of 1-8 s (the 6 s filter drops the longer), a
+    sentence with a quote character, and one row for each filter: a URL, a
+    duplicate, a one-character sentence, down_votes 2, an empty cell
+    (Tamil: also a sentence with ச)."""
+    from whisper_ipa_torch.audio import write_wav
+    from whisper_ipa_torch.data.synth import synthesize_phonemes
+
+    rng = np.random.default_rng(seed)
+    letters = prep_graphemes(lang)
+
+    def word():
+        return "".join(rng.choice(letters, size=int(rng.integers(2, 6))))
+
+    good = []
+    while len(good) < PREP_GOOD:
+        s = " ".join(word() for _ in range(int(rng.integers(1, 4))))
+        if s not in good:
+            good.append(s)
+    # (sentence, seconds, down_votes, kept by the quality filters)
+    rows = [(s, float(rng.uniform(1.0, 8.0)), "0", True) for s in good]
+    rows += [(good[0] + ' "' + word(), 2.0, "0", True),
+             (good[1] + " https://example.org", 2.0, "0", False),
+             (good[2], 2.0, "1", False),  # the duplicate
+             (letters[0], 2.0, "0", False),
+             (good[3] + word(), 2.0, "2", False),
+             ("", 2.0, "0", False)]
+    if lang == "ta":
+        rows.append((good[4] + " சக", 2.0, "0", True))
+    d = os.path.join(root, lang)
+    os.makedirs(os.path.join(d, "clips"), exist_ok=True)
+    for i, (_, seconds, _, _) in enumerate(rows):
+        voice = synthesize_phonemes(["a", "m", "i"], seed=seed * 100 + i)
+        audio = np.zeros(int(seconds * SAMPLE_RATE), np.float32)
+        audio[:min(len(voice), len(audio))] = voice[:len(audio)]
+        write_wav(os.path.join(d, "clips", f"{lang}{i}.wav"), audio)
+    lines = ["client_id\tpath\tsentence\tup_votes\tdown_votes"]
+    lines += [f"spk{i % 4}\t{lang}{i}.wav\t{s}\t2\t{dv}"
+              for i, (s, _, dv, _) in enumerate(rows)]
+    for split, _, _ in PREP_SPLITS:
+        with open(os.path.join(d, f"{split}.tsv"), "w", encoding="utf-8") as f:
+            f.write("\n".join(lines) + "\n")
+    return [(s, sec, ok) for s, sec, _, ok in rows]
+
+
+def write_aligned_fixtures(root: str) -> None:
+    """One utterance each of a TIMIT, a METU and an OGI layout."""
+    from whisper_ipa_torch.audio import write_wav
+
+    wav = np.zeros(SAMPLE_RATE // 10, np.float32)
+    timit = os.path.join(root, "timit")
+    for split in ("TRAIN", "TEST"):
+        d = os.path.join(timit, split, "DR1", "FAKE0")
+        os.makedirs(d)
+        write_wav(os.path.join(d, "SA1.WAV"), wav)
+        with open(os.path.join(d, "SA1.PHN"), "w") as f:
+            f.write("0 100 h#\n100 200 k\n200 300 ae\n300 400 t\n400 500 h#\n")
+    metu = os.path.join(root, "metu", "data")
+    for sub in ("speech-text", "alignments"):
+        os.makedirs(os.path.join(metu, sub, "s1"))
+    write_wav(os.path.join(metu, "speech-text", "s1", "u1.wav"), wav)
+    with open(os.path.join(metu, "alignments", "s1", "u1.phn"), "w") as f:
+        f.write("0 1 SIL\n1 2 GG\n2 3 UE\n3 4 LL\n")
+    ogi = os.path.join(root, "ogi")
+    for sub in ("handlabl", "speech"):
+        os.makedirs(os.path.join(ogi, sub, "call", "a"))
+    write_wav(os.path.join(ogi, "speech", "call", "a", "x.wav"), wav)
+    with open(os.path.join(ogi, "handlabl", "call", "a", "x.ptl"), "w") as f:
+        f.write("MillisecondsPerFrame: 3.0\nEND OF HEADER\n0 100 h#\n"
+                "100 200 k\n200 300 ao-r\n")
+
+
+def prep_prediction(lang: str, rows: list, n: int, seed: int = 42) -> int:
+    """Entries process_language writes for a split of ``n``: the rows the
+    quality and 6 s filters keep, in file order, n of them drawn as
+    DataFrame.sample(n, random_state=seed) draws them where there are
+    more, then those whose sentence converts (Tamil: none with ச)."""
+    from whisper_ipa_torch.data.prep import text_to_ipa
+
+    kept = [s for s, seconds, ok in rows if ok and seconds <= 6.0]
+    if len(kept) > n:
+        kept = [kept[i] for i in np.random.RandomState(seed).choice(
+            len(kept), n, replace=False)]
+    count = 0
+    for s in kept:
+        if lang == "ta" and "ச" in s:
+            continue
+        try:
+            count += bool(text_to_ipa(s, lang))
+        except ValueError:
+            pass
+    return count
+
+
+def phase_prep(root: str) -> None:
+    """The data-preparation CLIs on the card's machine, which has neither
+    pandas nor openpyxl: cli.check_vocab; cli.prepare_datasets g2p on a
+    seeded CommonVoice-style fixture of the seven G2P languages, its
+    per-language counts against a prediction made from the fixture; verify
+    on its output; timit, metu, ogi and combine on one-utterance layouts."""
+    from whisper_ipa_torch.cli import check_vocab, prepare_datasets
+    from whisper_ipa_torch.data.prep import analyze_dataset
+
+    t_phase = time.time()
+    require(check_vocab.main([]) == 0, "cli.check_vocab returns 0")
+    cv = os.path.join(root, "cv")
+    predicted, clips = {}, 0
+    for k, lang in enumerate(PREP_LANGS):
+        rows = write_cv_fixture(cv, lang, seed=900 + k)
+        clips += len(rows)
+        predicted[lang] = {split: prep_prediction(lang, rows, n)
+                           for split, n, _ in PREP_SPLITS}
+    out = os.path.join(root, "processed")
+    t0 = time.time()
+    prepare_datasets.main([
+        "g2p", "--dataset-root", cv, "--output-dir", out, "--languages",
+        *PREP_LANGS, "--train-n", "8", "--val-n", "4", "--test-n", "2"])
+    g2p_s = time.time() - t0
+    counts = {lang: {} for lang in PREP_LANGS}
+    files = []
+    for split, _, name in PREP_SPLITS:
+        files.append(os.path.join(out, name))
+        with open(files[-1], encoding="utf-8") as f:
+            for e in json.load(f):
+                counts[e["locale"]][split] = counts[e["locale"]].get(split, 0) + 1
+    counts = {lang: {s: c.get(s, 0) for s, _, _ in PREP_SPLITS}
+              for lang, c in counts.items()}
+    prepare_datasets.main(["verify", *files])
+    needs = [len(analyze_dataset(p)[1]) for p in files]
+
+    aligned = os.path.join(root, "aligned")
+    write_aligned_fixtures(aligned)
+    processed = os.path.join(root, "aligned_processed")
+    prepare_datasets.main(["timit", "--timit-root", os.path.join(aligned, "timit"),
+                           "--output-dir", processed])
+    prepare_datasets.main(["metu", "--metu-root", os.path.join(aligned, "metu"),
+                           "--output", os.path.join(processed,
+                                                    "metu_turkish_ipa.json")])
+    prepare_datasets.main(["ogi", "--ogi-root", os.path.join(aligned, "ogi"),
+                           "--output", os.path.join(processed,
+                                                    "ogi_spelled_ipa.json")])
+    prepare_datasets.main(["combine", "--processed-dir", processed])
+    with open(os.path.join(processed, "combined_train_ipa.json")) as f:
+        combined = json.load(f)
+    with open(os.path.join(processed, "combined_test_ipa.json")) as f:
+        combined_test = json.load(f)
+    absent = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("pandas", "openpyxl"))
+    log(f"[prep] cli.check_vocab 0; cli.prepare_datasets g2p on {clips} "
+        f"synthesized clips of {len(PREP_LANGS)} languages in {g2p_s:.1f} s: "
+        f"(train, val, test) a language {({k: tuple(v.values()) for k, v in counts.items()})}, "
+        f"predicted from the fixture "
+        f"{({k: tuple(v.values()) for k, v in predicted.items()})}; verify: "
+        f"entries needing NFC a file {needs}; combine: "
+        f"{[e['dataset_source'] for e in combined]} train, "
+        f"{len(combined_test)} test, IPA {[e['ipa_transcription'] for e in combined]}; "
+        f"pandas/openpyxl modules loaded {absent}; phase {time.time() - t_phase:.1f} s")
+    require(counts == predicted, "prepare_datasets g2p: per-language counts "
+            "as predicted from the fixture")
+    require(sum(c["train"] for c in counts.values()) > 7 * 4,
+            "prepare_datasets g2p: most languages fill their train split")
+    require([e["dataset_source"] for e in combined]
+            == ["timit", "metu_turkish", "ogi_spelled"]
+            and [e["ipa_transcription"] for e in combined]
+            == ["kæt", "ɟyɫ", "kɔɹ"] and len(combined_test) == 1,
+            "timit, metu, ogi and combine")
+    require(not absent, "the data preparation loaded neither pandas nor "
+            "openpyxl")
+
+
+ZS_POOR = (41, 75, 80)  # zeroshot.py's poor-quality ids: both, Ariga, Hamanishi
+# large-v3's entries (its --num-samples and --batch-size): 2 keeps the
+# script within two minutes of its wall before the zero-shot phase
+ZS_LARGE = 2
+
+
+def zeroshot_decode(torch, dev, params, cfg, entries, batch: int):
+    """The CLI's hypotheses computed here: each entry's log-mel on the card
+    (K1), batches of ``batch``, decode() with the CLI's options and
+    tokenizer."""
+    from whisper_ipa_torch.audio import load_audio, pad_or_trim
+    from whisper_ipa_torch.decode import DecodingOptions, decode
+    from whisper_ipa_torch.metrics import normalize_ipa_for_comparison
+    from whisper_ipa_torch.ops import log_mel_spectrogram
+    from whisper_ipa_torch.tokenizer import get_tokenizer
+
+    tok = get_tokenizer(multilingual=cfg.multilingual,
+                        num_languages=cfg.num_languages, language="en")
+
+    options = DecodingOptions(language=None, without_timestamps=True)
+    hyps = []
+    for start in range(0, len(entries), batch):
+        with torch.inference_mode():
+            mels = torch.stack([
+                log_mel_spectrogram(torch.from_numpy(pad_or_trim(load_audio(
+                    e["audio_path"]))).to(dev), n_mels=cfg.n_mels)
+                for e in entries[start:start + batch]])
+        hyps += [normalize_ipa_for_comparison(r.text.strip())
+                 for r in decode(params, cfg, mels, options, tokenizer=tok)]
+    return hyps
+
+
+def phase_zeroshot(torch, dev, root: str, learned: dict, by_path) -> None:
+    """The zero-shot pipeline on phase_learn's 48 held-out utterances: two
+    annotator sheets written with utils.xlsx (A the synthesizer's IPA, B A
+    with a seeded one-phone substitution in every fourth entry; ids 41, 75
+    and 80 poor-quality), a test_data.csv that agrees with A and a WAV dir;
+    cli.parse_zeroshot_test (A gold, usable pairs as predicted),
+    cli.compute_iaa (equal to evaluate_batch on the usable pairs), then
+    cli.evaluate_zeroshot on the card with its defaults (language
+    detected, f32, float cache, batch 8) on the whisper-tiny checkpoint,
+    and at its default --base-model, large-v3 at random init (seed 0), on
+    ZS_LARGE entries; each hypothesis equal to decode()'s on the same
+    log-mels, launches as predicted."""
+    from whisper_ipa_torch.cli import (compute_iaa, evaluate_zeroshot,
+                                       parse_zeroshot_test)
+    from whisper_ipa_torch.config import CONFIGS
+    from whisper_ipa_torch.metrics import (evaluate_batch,
+                                           normalize_ipa_for_comparison,
+                                           tokenize_ipa)
+    from whisper_ipa_torch.models import init_params
+    from whisper_ipa_torch.utils.xlsx import write_xlsx
+
+    t_phase = time.time()
+    heldout = learned["heldout"]
+    ids = list(range(1, len(heldout) + 1))
+    ids[-2:] = ZS_POOR[1:]  # 41 is already among 1..48
+    rng = np.random.default_rng(77)
+    a_rows = [["ID", "IPA", "Elapsed Time (sec)"]]
+    b_rows = [["ID", "IPA", "Elapsed Time (sec)"]]
+    wav_dir = os.path.join(root, "zeroshot_wav")
+    os.makedirs(wav_dir)
+    for i, (entry_id, e) in enumerate(zip(ids, heldout)):
+        ipa = e["ipa_transcription"]
+        phones = tokenize_ipa(ipa)
+        if i % 4 == 3:
+            j = int(rng.integers(len(phones)))
+            phones[j] = next(p for p in rng.permutation(LEARN_PHONES)
+                             if p != phones[j])
+        b_ipa = "?" if i == 5 else "".join(phones)  # "?": no annotation
+        a_rows.append([float(entry_id), ipa, float(10 + i)])
+        b_rows.append([float(entry_id), b_ipa, float(20 + i)])
+        shutil.copy(e["audio_path"], os.path.join(wav_dir,
+                                                  f"{entry_id}_utt{i}.wav"))
+    sheets = {k: os.path.join(root, f"IPA_annotation_sheet_{k}.xlsx")
+              for k in ("Ariga", "Hamanishi")}
+    write_xlsx(sheets["Ariga"], a_rows)
+    write_xlsx(sheets["Hamanishi"], b_rows)
+    csv_path = os.path.join(root, "test_data.csv")
+    with open(csv_path, "w", encoding="utf-8") as f:
+        f.write("ID,IPA,Done\n" + "".join(
+            f"{int(r[0])},{r[1]},1\n" for r in a_rows[1:]))
+    zs_json = os.path.join(root, "zeroshot_test.json")
+    data = parse_zeroshot_test.main([
+        "--ariga-xlsx", sheets["Ariga"], "--hamanishi-xlsx",
+        sheets["Hamanishi"], "--test-data-csv", csv_path, "--wav-dir",
+        wav_dir, "--output", zs_json])
+    usable = [e for e in data if e["usable_for_iaa"]]
+    want_usable = len(heldout) - len(ZS_POOR) - 1  # the poor ids, the "?"
+    require(all(e["gold_annotator"] == "ariga" for e in data)
+            and len(usable) == want_usable
+            and all(e["audio_path"] for e in data),
+            f"parse_zeroshot_test: Ariga gold, {want_usable} usable pairs, "
+            "every WAV found")
+
+    iaa = compute_iaa.main(["--input", zs_json])
+    refs = [normalize_ipa_for_comparison(e["ipa_ariga"]) for e in usable]
+    hyps = [normalize_ipa_for_comparison(e["ipa_hamanishi"]) for e in usable]
+    direct = {"ariga_ref": evaluate_batch(refs, hyps),
+              "hamanishi_ref": evaluate_batch(hyps, refs)}
+    gaps = [abs(iaa[side][k] - direct[side][m])
+            for side in direct for k, m in (("per", "per"),
+                                            ("pfer_hamming", "pfer"))]
+    log(f"[zeroshot iaa] {len(data)} entries, {len(usable)} usable: Ariga as "
+        f"reference PER {iaa['ariga_ref']['per']:.4f}% PFER-Hamming "
+        f"{iaa['ariga_ref']['pfer_hamming']:.4f}% PFER-cosine "
+        f"{iaa['ariga_ref']['pfer_cosine']:.4f}%; largest gap to "
+        f"evaluate_batch {max(gaps):.3e}")
+    require(iaa["num_pairs"] == want_usable and max(gaps) <= 1e-9,
+            "compute_iaa equals evaluate_batch on the usable pairs")
+
+    # whisper-tiny, the learned checkpoint, the CLI's defaults
+    cfg = CONFIGS["tiny"]
+    n_batches = -(-len(data) // 8)
+    want = {"K1": len(data), "K2": 0, "K4": 0}  # f32: K2 takes bf16 only
+    reset_counts(torch)
+    t0 = time.time()
+    res = evaluate_zeroshot.main(["--test-data", zs_json, "--base-model",
+                                  "tiny", "--checkpoint", learned["ckpt"]])
+    wall = time.time() - t0
+    launches = by_path["evaluate_zeroshot tiny"] = read_counts(torch)
+    ours = zeroshot_decode(torch, dev, learned["params"], cfg, [
+        e for e in data if e["gold_ipa"] and e["audio_path"]], batch=8)
+    summary = learned["summary"]
+    log(f"[zeroshot tiny] cli.evaluate_zeroshot --base-model tiny on the "
+        f"learned checkpoint, {len(res['hypotheses'])} entries in {n_batches} "
+        f"batches of 8, language detected, f32, float cache: PER "
+        f"{res['per']:.2f}% PFER {res['pfer']:.2f}% (phase_learn's clean "
+        f"held-out PER {summary['final_per']:.2f}% PFER "
+        f"{summary['final_pfer']:.2f}%), wall {wall:.2f} s; hypotheses equal "
+        f"decode()'s {res['hypotheses'] == ours}; launches "
+        f"{nonzero(launches)}, predicted {want}")
+    require(res["hypotheses"] == ours, "evaluate_zeroshot tiny: hypotheses "
+            "equal decode()'s on the same log-mels")
+    require({k: launches[k] for k in want} == want,
+            "evaluate_zeroshot tiny: K1 a entry, no K2 (f32), no K4")
+    require(res["pfer"] <= 60.0, "evaluate_zeroshot tiny: PFER <= 60%")
+
+    # large-v3 at random init: the CLI's default --base-model
+    cfg = CONFIGS["large-v3"]
+    want = {"K1": ZS_LARGE, "K2": 0, "K4": 0}
+    reset_counts(torch)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.time()
+    res = evaluate_zeroshot.main(["--test-data", zs_json, "--num-samples",
+                                  str(ZS_LARGE), "--batch-size",
+                                  str(ZS_LARGE)])
+    wall = time.time() - t0
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    launches = by_path["evaluate_zeroshot large-v3"] = read_counts(torch)
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    params = init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    entries = [e for e in data if e["gold_ipa"] and e["audio_path"]][:ZS_LARGE]
+    t0 = time.time()
+    ours = zeroshot_decode(torch, dev, params, cfg, entries, batch=ZS_LARGE)
+    decode_s = time.time() - t0
+    del params
+    torch.cuda.empty_cache()
+    log(f"[zeroshot large-v3] cli.evaluate_zeroshot at its default "
+        f"--base-model (large-v3, {cfg.n_mels} mels, {cfg.num_languages} "
+        f"languages, random init from seed 0), {ZS_LARGE} entries in one "
+        f"batch, language detected, f32: wall {wall:.2f} s (init_params on "
+        f"the host generator {init_s:.2f} s, the same decode in process "
+        f"{decode_s:.2f} s), peak {peak_gb:.2f} GB; PER {res['per']:.2f}% "
+        f"PFER {res['pfer']:.2f}%; hypothesis lengths "
+        f"{[len(h) for h in res['hypotheses']]}; equal decode()'s "
+        f"{res['hypotheses'] == ours}; launches {nonzero(launches)}, "
+        f"predicted {want}")
+    require(res["hypotheses"] == ours, "evaluate_zeroshot large-v3: "
+            "hypotheses equal decode()'s on the same log-mels")
+    require({k: launches[k] for k in want} == want,
+            "evaluate_zeroshot large-v3: K1 a entry, no K2 (f32), no K4")
+    log(f"[zeroshot] phase passed in {time.time() - t_phase:.1f} s")
+
+
+def phase_tools(torch, dev, learned: dict, by_path) -> None:
+    """cli.benchmark_models (counts; --measure at tiny and small, batch 8),
+    cli.profile_inference (decode at small, batch 8, 32 tokens; the train
+    step at small, with cached features, and at tiny batch 16) with the
+    port's kernels' launches as predicted, and cli.calculate_real_speed on
+    phase_learn's run and console log."""
+    import re
+
+    from whisper_ipa_torch.cli import (benchmark_models, calculate_real_speed,
+                                       profile_inference)
+    from whisper_ipa_torch.config import CONFIGS
+    from whisper_ipa_torch.utils.flops import peak_flops
+
+    t_phase = time.time()
+    t0 = time.time()
+    reports = benchmark_models.main(["--models", "tiny", "base", "small",
+                                     "medium"])
+    counts = {r["model"]: r["total_params"] for r in reports}
+    log(f"[tools benchmark_models] parameters {counts} in "
+        f"{time.time() - t0:.1f} s")
+    require(reports[2]["decoder_params"] == 153_580_800,
+            "benchmark_models: whisper-small's decoder has the reference's "
+            "153,580,800 parameters")
+
+    reset_counts(torch)
+    t0 = time.time()
+    reports = benchmark_models.main(["--models", "tiny", "small", "--measure",
+                                     "--batch-size", "8"])
+    launches = by_path["benchmark_models --measure"] = read_counts(torch)
+    for r in reports:
+        log(f"[tools benchmark_models --measure] {r['model']}: train step "
+            f"(frozen encoder, f32, batch 8, mean of 5 after a warm-up) "
+            f"{r['train_step_sec'] * 1e3:.2f} ms, "
+            f"{r['train_samples_per_sec']:.2f} samples/s, MFU "
+            f"{r.get('train_mfu', float('nan')):.4%} (f32 step over the "
+            f"bf16 peak)")
+    log(f"[tools benchmark_models --measure] launches {nonzero(launches)} "
+        f"in {time.time() - t0:.1f} s")
+    if peak_flops(torch.cuda.get_device_name(dev)) is not None:
+        require(all(r.get("train_mfu", 0) > 0 for r in reports),
+                "benchmark_models --measure: MFU against the card's peak")
+    require(launches["K2"] == 0 and launches["K5"] == 0,
+            "benchmark_models --measure: f32 and a frozen encoder: no K2, "
+            "no K5")
+
+    small, tiny = CONFIGS["small"], CONFIGS["tiny"]
+    for name, argv, want in (
+        ("decode", ["--model", "small", "--batch", "8", "--sample-len", "32"],
+         {"K1": 1, "K2/K10": small.n_audio_layer,
+          "K4": 31 * small.n_text_layer}),
+        ("train", ["--model", "small", "--batch", "8", "--train"],
+         {"K2/K10": small.n_audio_layer}),
+        ("train cached", ["--model", "small", "--batch", "8", "--train",
+                          "--cached-features"], {}),
+        ("train tiny", ["--model", "tiny", "--batch", "16", "--train"],
+         {"K2/K10": tiny.n_audio_layer}),
+    ):
+        reset_counts(torch)
+        t0 = time.time()
+        res = profile_inference.main(argv + ["--top", "8"])
+        counts = by_path[f"profile_inference {name}"] = read_counts(torch)
+        got = {k: v["launches"] for k, v in res["port_kernels"].items()}
+        log(f"[tools profile_inference {name}] device {res['device']}: "
+            f"profiled run {res['wall_s'] * 1e3:.2f} ms, device total "
+            f"{res['total_ms']:.2f} ms, busy {res['busy_share']:.1%}; port "
+            f"kernels {res['port_kernels']}; top "
+            f"{[(r['op'][:50], round(r['self_ms'], 3), r['occurrences']) for r in res['rows'][:5]]}; "
+            f"counters (warm-up and profiled run) {nonzero(counts)}; "
+            f"{time.time() - t0:.1f} s")
+        require(got == want, f"profile_inference {name}: the port's kernels "
+                f"{got}, predicted {want}")
+        require(res["total_ms"] / 1e3 <= res["wall_s"],
+                f"profile_inference {name}: device total within the wall")
+
+    ps = shutil.which("ps")
+    steps = LEARN_STEPS
+    est = calculate_real_speed.main([str(os.getpid()), learned["run"],
+                                     str(steps), str(LEARN_BATCH),
+                                     "--log-file", learned["console"]])
+    with open(learned["console"], encoding="utf-8") as f:
+        rates = [float(m.group(1)) for m in (
+            re.match(r"Step \d+/\d+ \|.*\| Samples/sec: ([0-9.]+)$", ln.strip())
+            for ln in f) if m][-20:]
+    log(f"[tools calculate_real_speed] ps at {ps}; estimate {est}; the "
+        f"log's last {len(rates)} Samples/sec values average "
+        f"{float(np.mean(rates)) if rates else float('nan'):.4f}")
+    if est is None:
+        log("[tools calculate_real_speed] the process runtime is unknown "
+            "(no ps): the estimate is None, as the reference's")
+        require(ps is None, "calculate_real_speed: an estimate where ps runs")
+    else:
+        require(est.get("step") == steps, "calculate_real_speed: the latest "
+                f"checkpoint is step {steps}")
+        require(len(rates) == 20 and abs(
+            est["recent_samples_per_sec"] - float(np.mean(rates))) < 1e-9,
+            "calculate_real_speed: the log's samples/s")
+    log(f"[tools] phase passed in {time.time() - t_phase:.1f} s")
+
+
 def main() -> int:
     try:
         import torch
@@ -3721,10 +4244,17 @@ def main() -> int:
     for mode, r in trained.items():
         by_path[f"train {mode}"] = r["launches"]
     phase_train_parity(torch, dev)
+    root = tempfile.mkdtemp(prefix="chip_smoke_prep_")
+    try:
+        phase_prep(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     root = tempfile.mkdtemp(prefix="chip_smoke_learn_")
     try:
         learned = phase_learn(torch, dev, root, by_path)
         phase_speculative_learned(torch, dev, root, learned, by_path)
+        phase_zeroshot(torch, dev, root, learned, by_path)
+        phase_tools(torch, dev, learned, by_path)
         del learned
     finally:
         shutil.rmtree(root, ignore_errors=True)

@@ -88,6 +88,24 @@ LEARNING_SLICE_MODULES = [
     "whisper_ipa_torch.utils.timing",
     "whisper_ipa_torch.utils.trees",
 ]
+# modules the host-tools slice added (data preparation, zero-shot, tools)
+TOOLS_SLICE_MODULES = [
+    "whisper_ipa_torch.data.prep",
+    "whisper_ipa_torch.data.prep.tables",
+    "whisper_ipa_torch.data.prep.preprocess",
+    "whisper_ipa_torch.data.prep.zeroshot",
+    "whisper_ipa_torch.data.prep.g2p.japanese",
+    "whisper_ipa_torch.data.prep.g2p.derive_ja_readings",
+    "whisper_ipa_torch.utils.flops",
+    "whisper_ipa_torch.utils.xlsx",
+    "whisper_ipa_torch.cli.evaluate_zeroshot",
+    "whisper_ipa_torch.cli.benchmark_models",
+    "whisper_ipa_torch.cli.profile_inference",
+    "whisper_ipa_torch.cli.prepare_datasets",
+    "whisper_ipa_torch.cli.calculate_real_speed",
+]
+# libraries the card's machine does not have: no port module may need them
+ABSENT_ON_THE_CARD = ("pandas", "openpyxl")
 # modules the speculative-decoding slice added
 SPECULATIVE_SLICE_MODULES = [
     "whisper_ipa_torch.decode.speculative",
@@ -100,9 +118,10 @@ SPECULATIVE_SLICE_MODULES = [
 
 def test_port_never_imports_jax():
     """Importing every module of the port loads neither jax nor any module
-    of the JAX package (not even one that holds no JAX). The two ctypes
-    modules raise on import, by design, where native/libwipa_native.so is
-    not built; they are imported whenever it is."""
+    of the JAX package (not even one that holds no JAX), nor pandas or
+    openpyxl. The two ctypes modules raise on import, by design, where
+    native/libwipa_native.so is not built; they are imported whenever it
+    is."""
     code = (
         "import importlib, os, pkgutil, sys\n"
         "import whisper_ipa_torch\n"
@@ -113,7 +132,8 @@ def test_port_never_imports_jax():
         "    if built or not n.endswith('.native'):\n"
         "        importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
-        "or m.startswith(('jax.', 'jaxlib', 'whisper_ipa_tpu')))\n"
+        "or m.startswith(('jax.', 'jaxlib', 'whisper_ipa_tpu')) "
+        "or m.split('.')[0] in ('pandas', 'openpyxl'))\n"
         "assert not bad, bad\n"
         "print('\\n'.join(names))\n"
     )
@@ -126,6 +146,7 @@ def test_port_never_imports_jax():
     assert len(names) >= 30  # every module was imported
     assert set(LEARNING_SLICE_MODULES) <= set(names)
     assert set(SPECULATIVE_SLICE_MODULES) <= set(names)
+    assert set(TOOLS_SLICE_MODULES) <= set(names)
 
 
 def _imported_modules(path):
@@ -147,3 +168,18 @@ def test_chip_smoke_imports_nothing_of_jax():
         n for n in names if n.split(".")[0] in ("jax", "jaxlib", "whisper_ipa_tpu")
     )
     assert not bad, bad
+
+
+def test_port_sources_never_import_pandas_or_openpyxl():
+    """No module of the port, and not chip_smoke.py, names pandas or
+    openpyxl in an import (at any depth): the card's machine has neither."""
+    root = os.path.join(REPO_ROOT, "whisper_ipa_torch")
+    paths = [os.path.join(REPO_ROOT, "chip_smoke.py")]
+    for d, dirs, files in os.walk(root):
+        dirs[:] = [x for x in dirs if x != "build"]  # build outputs
+        paths += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    assert len(paths) > 60
+    bad = {p: sorted(n for n in _imported_modules(p)
+                     if n.split(".")[0] in ABSENT_ON_THE_CARD)
+           for p in paths}
+    assert not {p: b for p, b in bad.items() if b}

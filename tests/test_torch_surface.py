@@ -57,7 +57,7 @@ NOT_PORTED = {
 }
 SURFACE = [
     (pkg, name)
-    for pkg in ("models", "train", "decode", "metrics", "utils")
+    for pkg in ("models", "train", "decode", "metrics", "utils", "data.prep")
     for name in importlib.import_module(f"whisper_ipa_tpu.{pkg}").__all__
 ]
 
@@ -75,6 +75,41 @@ def test_reference_surface(pkg, name):
     theirs = getattr(importlib.import_module(f"whisper_ipa_tpu.{pkg}"), name)
     assert callable(ours) == callable(theirs)
     assert isinstance(ours, type) == isinstance(theirs, type)
+
+
+# utils' submodules: their public names, defined in the module itself
+UTILS_NOT_PORTED = {
+    "TPU_PEAK_FLOPS": "TPU rates; the port keys its peaks by CUDA device "
+                      "name in GPU_PEAK_FLOPS (ROADMAP item [14])",
+}
+UTILS_SURFACE = [
+    (mod, name)
+    for mod in ("flops", "xlsx")
+    for name, value in sorted(vars(importlib.import_module(
+        f"whisper_ipa_tpu.utils.{mod}")).items())
+    if not name.startswith("_")
+    and getattr(value, "__module__", None) == f"whisper_ipa_tpu.utils.{mod}"
+    or name.isupper() and not name.startswith("_")
+]
+
+
+@pytest.mark.parametrize("mod,name", UTILS_SURFACE,
+                         ids=[f"utils.{m}.{n}" for m, n in UTILS_SURFACE])
+def test_utils_submodule_surface(mod, name):
+    port = importlib.import_module(f"whisper_ipa_torch.utils.{mod}")
+    reason = UTILS_NOT_PORTED.get(name)
+    if reason:
+        assert not hasattr(port, name), f"utils.{mod}.{name} is ported"
+        pytest.skip(f"not ported: {reason}")
+    ours = getattr(port, name)
+    theirs = getattr(importlib.import_module(
+        f"whisper_ipa_tpu.utils.{mod}"), name)
+    assert callable(ours) == callable(theirs)
+    if callable(ours):
+        import inspect
+
+        assert (list(inspect.signature(ours).parameters)
+                == list(inspect.signature(theirs).parameters))
 
 
 def test_embed_audio_is_encode():

@@ -17,6 +17,11 @@ Layout:
               best-of, timestamp rules and beam search; transcribe() for
               long-form audio; phone timestamps by DTW
   train/      single-device fine-tuning
+  data/       JSON datasets, batching and the mel cache; the formant
+              synthesizer; corpus preparation (prep/: TIMIT / METU / OGI,
+              CommonVoice G2P, the zero-shot test set and its IAA)
+  metrics/    IPA segmentation, PER, PFER
+  utils/      timers, tree inspection, the FLOP model, XLSX
   cli/        the command-line entry points
   serve.py    micro-batching TranscriptionService
   serve_continuous.py

@@ -16,6 +16,17 @@
   distill_draft       a draft model distilled from a fine-tuned target
   convert_weights     HF / MLX safetensors -> the checkpoint format
   profile_serving     device time of the serving variants (torch.profiler)
+  evaluate_zeroshot   zero-shot PER/PFER on the multipa test set
+  benchmark_models    parameter counts; --measure: train-step time and MFU
+  profile_inference   per-op self-time table of the decode or train step
+                      (torch.profiler)
+  calculate_real_speed  out-of-process training speed monitor (host only)
+  check_vocab         IPA coverage of the tokenizer (host only)
+  prepare_datasets    corpus preparation: TIMIT / METU / OGI / CommonVoice /
+                      g2p / combine / verify / analyze (host only)
+  parse_zeroshot_test the zero-shot test JSON from the annotator sheets
+                      (host only)
+  compute_iaa         inter-annotator agreement on it (host only)
 
 The model CLIs take ``--device`` ("cuda" by default; "cuda" without a card
 raises, and ``--device cpu`` runs on the CPU).
