@@ -54,7 +54,7 @@ weights from seed 0:
             split under noise and reverb
   engine    the in-flight engine (serve_continuous): test-tiny tokens on
             CUDA equal to the CPU engine's and decode()'s; at whisper-small,
-            16 slots, bf16, int8 cache, a seeded stream of 40 requests
+            16 slots, bf16, int8 cache, a seeded stream of 24 requests
             20-60 ms apart (one cancelled, one with a 0.2 s deadline), each
             window's tokens held to decode() on its K1 log-mel under the
             near-tie rule, K1/K2/K4 launches equal to the prediction from
@@ -93,6 +93,16 @@ weights from seed 0:
             cache: K1, K2, K4; the train step, with cached features, and at
             tiny), each port kernel's launches as predicted, and
             cli.calculate_real_speed on the learning run and its console
+  parallel  whisper_ipa_torch.parallel on the one card: a one-rank NCCL
+            group and the collective helpers on CUDA tensors; then two
+            ranks sharing the card over gloo (spawned after every kernel
+            is built): TP=2 greedy decoding at the serving setting (K2
+            and K4 on 6 local heads; tokens held to the one-rank run
+            under the near-tie rule), decoder-only DP=2, ZeRO-1 and FSDP
+            steps at global batch 12 and a TP=2 full fine-tune step (K5
+            on 6 local heads), each against the one-rank run, with each
+            rank's launches and local shapes; K2, K4 and K5 held to their
+            plain versions at those shapes in each rank
 
 make -C native builds the host library of the edit-distance and WAV
 cores first (the metrics take their NumPy paths where it does not build;
@@ -1528,7 +1538,8 @@ def phase_service(torch, dev, cfg, params, tok, **svc_kw):
 
 ENGINE_SLOTS = 16
 ENGINE_MAX_NEW = 64
-ENGINE_REQUESTS = 40  # the stream at the CLI's setting (bf16, int8 cache)
+ENGINE_REQUESTS = 24  # the stream at the CLI's setting (bf16, int8 cache):
+# enough to fill the 16 slots and queue the request with the deadline
 EPS_WINDOWS = 16  # windows whose step-0 logits set the bf16 near-tie bound
 ENGINE_CANCEL = 7  # cancelled right after its submit
 ENGINE_DEADLINE = 21  # submitted with a 0.2 s deadline
@@ -1827,7 +1838,7 @@ def check_stream(run, name: str):
 def phase_engine(torch, dev, cfg, params, tok, by_path):
     """The in-flight engine at whisper-small's full width and depth: the
     CLI's setting (bf16, int8 cross cache, 16 slots, 64 tokens, 4 steps a
-    sync, join fast sync, prewarmed) on a stream of 40 requests arriving
+    sync, join fast sync, prewarmed) on a stream of 24 requests arriving
     20-60 ms apart, one cancelled and one with a 0.2 s deadline; the same
     stream with joins rewriting the joiners' rows only, at 16 steps a sync
     (1 step a sync is the path of the join fast sync's chunks), adaptive,
@@ -1963,7 +1974,7 @@ def phase_engine_speculative(torch, dev, cfg, params, tok, by_path, stream):
     """The in-flight engine's speculative modes at whisper-small's full width
     and depth, at the CLI's engine setting (bf16, int8 cross cache, 16
     slots, 64 tokens, 4 rounds a sync, prewarmed, K 4) on phase_engine's
-    stream of 40 requests (one cancelled, one with a 0.2 s deadline): n-gram
+    stream of 24 requests (one cancelled, one with a 0.2 s deadline): n-gram
     drafts, a self-draft (the acceptance ceiling), a whisper-tiny draft from
     seed 1 (the floor), a Medusa chain and DEFAULT_TREE on fresh heads, and
     the tree again at 32 slots. Every window is held to decode() by the
@@ -4146,6 +4157,423 @@ def phase_tools(torch, dev, learned: dict, by_path) -> None:
     log(f"[tools] phase passed in {time.time() - t_phase:.1f} s")
 
 
+
+# -- parallel: torch.distributed over the one card ---------------------------
+
+PARALLEL_TP = 2
+PARALLEL_STEPS = 2
+PARALLEL_LR = 1e-5  # the CLI's default rate
+PARALLEL_FT_BATCH = 4  # the TP full fine-tune's batch
+PARALLEL_TIMEOUT = 900  # seconds the two ranks may take together
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def parallel_nccl_one_rank(torch, dev) -> dict:
+    """(a) ``parallel.initialize`` on cuda with world 1 and NCCL named: the
+    collective helpers' identities on CUDA tensors (f32 and bf16, the
+    coalesced ones too), then the group is destroyed."""
+    import torch.distributed as dist
+
+    from whisper_ipa_torch.parallel import distributed as D
+    from whisper_ipa_torch.parallel import initialize
+    from whisper_ipa_torch.parallel import sharded as S
+
+    initialize(f"localhost:{free_port()}", 1, 0, device=dev, backend="nccl")
+    try:
+        backend = dist.get_backend()
+        require(backend == "nccl", f"one-rank backend {backend}")
+        held = []
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn((6, 8), device=dev).to(dtype)
+            y = torch.randn((4, 6), device=dev).to(dtype)
+            for name, got in (
+                ("all_reduce", D.all_reduce(x.clone())),
+                ("all_gather", D.all_gather(x, dim=1)),
+                ("reduce_scatter", D.reduce_scatter(x.clone(), dim=0)),
+                ("broadcast", D.broadcast(x.clone(), src=0)),
+            ):
+                require(torch.equal(got, x), f"NCCL {name} {dtype} identity")
+            for got, want in zip(S.all_gather_coalesced([x, y], [1, 0], None)
+                                 + S.reduce_scatter_coalesced([x, y], [0, 1], None)
+                                 + S.all_reduce_coalesced([x, y], None),
+                                 [x, y] * 3):
+                require(torch.equal(got, want), f"NCCL coalesced {dtype} identity")
+            held.append(str(dtype)[6:])
+        torch.cuda.synchronize()
+        version = ".".join(str(v) for v in torch.cuda.nccl.version())
+    finally:
+        dist.destroy_process_group()
+    log(f"[parallel nccl] one rank on {torch.cuda.get_device_name(0)}: "
+        f"backend {backend}, NCCL {version}; all_reduce, all_gather, "
+        f"reduce_scatter ({'reduce_scatter_single' if hasattr(dist, 'reduce_scatter_single') else 'reduce_scatter_tensor'}), "
+        f"broadcast and the coalesced gather/scatter/reduce are identities "
+        f"on CUDA tensors ({', '.join(held)})")
+    return dict(backend=backend, nccl=version)
+
+
+def parallel_kernel_checks(torch, dev, heads: int) -> dict:
+    """K2, K4 and K5 held to their plain versions at the local shapes the
+    ranks' paths give them (``heads`` = whisper-small's 12 / tp): K2 at the
+    TP decode's (16 * heads, 1500, 64) and the fine-tune's (4 * heads, ...),
+    K4 at (16, heads, 1, 64) over T_pad 1536, K5 at the fine-tune's (4 *
+    heads, 1500, 64), bf16, with chip_smoke's bounds (K2 5e-3 or one bf16
+    ulp, K4 2% of max|out|, K5 1e-2 of max|grad|)."""
+    from whisper_ipa_torch.ops import attention as at
+    from whisper_ipa_torch.ops import decode_attention as da
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    bf = torch.bfloat16
+    out = {}
+    for batch in (MAIN_BATCH, PARALLEL_FT_BATCH):
+        q, k, v = (torch.randn((batch, heads, 1500, 64), generator=gen,
+                               device=dev).to(bf) for _ in range(3))
+        got = at.fused_attention(q, k, v, 0.125)
+        want = at.attention_plain(q, k, v, 0.125)
+        require(bf16_within(got, want, 5e-3), f"K2 ({batch}*{heads}) bf16")
+        out[f"K2 ({batch}*{heads}, 1500, 64)"] = max_abs(got, want)
+    q, k, v, g = (torch.randn((PARALLEL_FT_BATCH, heads, 1500, 64), generator=gen,
+                              device=dev).to(bf) for _ in range(4))
+    o, lse = at._forward_kernel(q, k, v, 0.125, with_lse=True)
+    got = at.attention_backward(q, k, v, o, g, lse, 0.125)
+    want = at.attention_backward_plain(q, k, v, g, 0.125)
+    rel = max(max_abs(a, b) / float(b.float().abs().max())
+              for a, b in zip(got, want))
+    require(rel < 1e-2, f"K5 ({PARALLEL_FT_BATCH}*{heads}) bf16")
+    out[f"K5 ({PARALLEL_FT_BATCH}*{heads}, 1500, 64)"] = rel
+    codes = lambda: torch.randint(-127, 128, (MAIN_BATCH, heads, 64, 1536),  # noqa: E731
+                                  generator=gen, device=dev).to(torch.int8)
+    scales = lambda: (0.01 + 0.02 * torch.rand(  # noqa: E731
+        (MAIN_BATCH, heads, 1536), generator=gen, device=dev)).contiguous()
+    kc, ks, vc, vs = codes(), scales(), codes(), scales()
+    ks[..., 1500:] = 0.0
+    vs[..., 1500:] = 0.0
+    q = (torch.randn((MAIN_BATCH, heads, 1, 64), generator=gen, device=dev)
+         * 0.125).to(bf)
+    got = da.decode_cross_attention_int8_tminor(q, kc, ks, vc, vs)
+    want = da.decode_attention_plain(q, kc, ks, vc, vs)
+    err = max_abs(got, want)
+    require(err <= 0.02 * float(want.float().abs().max()),
+            f"K4 ({MAIN_BATCH}, {heads}) bf16")
+    out[f"K4 ({MAIN_BATCH}, {heads}, 1, 64)"] = err
+    torch.cuda.synchronize()
+    return out
+
+
+def parallel_batch(cfg, batch: int, seed: int):
+    """Seeded log-mel-scale inputs and token rows with 2-9 text tokens
+    (the ranks' valid-token counts differ)."""
+    rng = np.random.default_rng(seed)
+    mel = rng.standard_normal((batch, 2 * cfg.n_audio_ctx, cfg.n_mels))
+    eot = 50257
+    tokens = np.full((batch, 16), eot, np.int64)
+    tokens[:, :4] = [50258, 50259, 50359, 50363]
+    for i in range(batch):
+        n = 2 + i % 8
+        tokens[i, 4:4 + n] = rng.integers(100, 5000, n)
+    return mel.astype(np.float32), tokens, eot
+
+
+def parallel_agree(got: dict, want: dict, start: dict) -> dict:
+    """How far a parallel run's parameters are from the one-rank run's,
+    against how far the one-rank run moved them: max and mean |diff| and
+    mean |update| over the trained tensors."""
+    diff = upd = mx = 0.0
+    n = 0
+    for name, w in want.items():
+        d = (got[name].float() - w.float()).abs()
+        diff += float(d.sum())
+        mx = max(mx, float(d.max()))
+        upd += float((w.float() - start[name].float()).abs().sum())
+        n += d.numel()
+    return dict(max_diff=mx, mean_diff=diff / n, mean_update=upd / n)
+
+
+def parallel_rank_body(torch, rank: int) -> dict:
+    """(b) One rank of the two sharing the card (gloo): the local-shape
+    kernel checks, then each path with its launches counted from 0."""
+    from whisper_ipa_torch.config import CONFIGS
+    from whisper_ipa_torch.decode import DecodingOptions, decode
+    from whisper_ipa_torch.decode.decoding import (build_blank_mask,
+                                                   build_suppress_mask,
+                                                   initial_tokens)
+    from whisper_ipa_torch.models import init_params
+    from whisper_ipa_torch.models.convert import flatten_params, unflatten_params
+    from whisper_ipa_torch.ops import log_mel_spectrogram
+    from whisper_ipa_torch.parallel import (fsdp_param_shardings, make_mesh,
+                                            opt_state_shardings,
+                                            param_shardings, shard_batch,
+                                            shard_params)
+    from whisper_ipa_torch.parallel import distributed as D
+    from whisper_ipa_torch.parallel.mesh import place_params, replicate
+    from whisper_ipa_torch.tokenizer import get_tokenizer
+    from whisper_ipa_torch.train import create_train_state, train_step
+    from whisper_ipa_torch.train.step import (create_train_state_zero1,
+                                              make_zero1_step)
+
+    dev = torch.device("cuda", 0)
+    cfg = CONFIGS["small"]
+    tok = get_tokenizer(multilingual=True, num_languages=cfg.num_languages,
+                        language="en")
+    host = init_params(cfg, seed=0)  # drawn once on the host, copied per path
+
+    def fresh():
+        return unflatten_params({n: t.to(dev, copy=True)
+                                 for n, t in flatten_params(host).items()})
+    heads = cfg.n_text_head // PARALLEL_TP
+    out = dict(rank=rank, checks=parallel_kernel_checks(torch, dev, heads),
+               paths={}, shapes={}, walls={})
+
+    # TP=2 greedy decoding at the serving setting
+    mesh = make_mesh(model=PARALLEL_TP)
+    params = shard_params(mesh, fresh(), tensor_parallel=True)
+    options = DecodingOptions(
+        language="en", without_timestamps=True, sample_len=MAIN_SAMPLE_LEN,
+        suppress_tokens=[-1, tok.eot], fp16=True, kv_int8=True)
+    audio = torch.from_numpy(synthetic_audio(MAIN_BATCH, 30.0, seed=1)).to(dev)
+    reset_counts(torch)
+    t0 = time.time()
+    with torch.inference_mode():
+        mel = log_mel_spectrogram(audio, n_mels=cfg.n_mels)
+    results = decode(params, cfg, mel, options, tokenizer=tok, tp=mesh.tp)
+    torch.cuda.synchronize()
+    out["walls"]["tp2 decode"] = time.time() - t0
+    out["paths"]["tp2 decode"] = read_counts(torch)
+    out["shapes"]["tp2 decode"] = dict(
+        K1=[MAIN_BATCH, 480000], K2=[MAIN_BATCH * heads, 1500, 64],
+        K4=[MAIN_BATCH, heads, 1, 64],
+        query_w=list(params["decoder"]["blocks"][0]["attn"]["query"]["w"].shape))
+    tp_tokens = [r.tokens for r in results]
+    del params
+    if rank == 0:
+        full = fresh()
+        one = [r.tokens for r in decode(full, cfg, mel, options, tokenizer=tok)]
+        prefix = initial_tokens(tok, options)
+        suppress = torch.from_numpy(build_suppress_mask(
+            tok, options, cfg.n_vocab)).to(dev)
+        blank = torch.from_numpy(build_blank_mask(tok, cfg.n_vocab)).to(dev)
+        eps = 2 * step0_delta(torch, cfg, full,
+                              [mel[i:i + 1] for i in range(EPS_WINDOWS)], prefix)
+        rows = [(f"row {i}", tp_tokens[i], one[i], mel[i:i + 1], False)
+                for i in range(MAIN_BATCH)]
+        equal, ties, gaps = hold_to_decode(torch, cfg, full, tok, rows, prefix,
+                                           suppress, blank, torch.bfloat16,
+                                           eps, "tp2 decode")
+        out["decode"] = dict(rows_equal=equal, near_ties=ties, gaps=gaps, eps=eps)
+        del full
+    torch.cuda.empty_cache()
+
+    # decoder-only training steps over data 2: DP, ZeRO-1, FSDP
+    mel_np, tokens_np, eot = parallel_batch(cfg, TRAIN_BATCH, seed=5)
+    kw = dict(learning_rate=PARALLEL_LR, freeze_encoder=True)
+    ref = {}
+    if rank == 0:  # the one-rank run on the global batch
+        state, tx = create_train_state(fresh(), **kw)
+        start = {n: t.clone() for n, t in flatten_params(state.params).items()
+                 if tx.trainable(n)}
+        losses = []
+        for _ in range(PARALLEL_STEPS):
+            state, loss = train_step(
+                state, torch.from_numpy(mel_np).to(dev, torch.bfloat16),
+                torch.from_numpy(tokens_np).to(dev), cfg, tx, eot,
+                dtype_name="bfloat16")
+            losses.append(float(loss))
+        ref = dict(losses=losses, start=start,
+                   params={n: t for n, t in flatten_params(state.params).items()
+                           if n in start})
+        del state
+    for kind in ("dp", "zero1", "fsdp"):
+        mesh = make_mesh(data=2)
+        p = fresh()
+        sh = None
+        if kind == "fsdp":
+            sh = fsdp_param_shardings(mesh, p)
+            p = place_params(replicate(mesh, p), sh)
+        else:
+            p = replicate(mesh, p)
+        if kind == "dp":
+            state, tx = create_train_state(p, **kw)
+            osh = opt_state_shardings(mesh, tx, p, zero1=False)
+        else:
+            state, tx, osh = create_train_state_zero1(mesh, p, **kw)
+        step = make_zero1_step(mesh, cfg, tx, eot, osh, param_shardings=sh,
+                               freeze_encoder=True, dtype_name="bfloat16")
+        m, t = shard_batch(mesh, torch.from_numpy(mel_np).to(torch.bfloat16),
+                           torch.from_numpy(tokens_np))
+        reset_counts(torch)
+        t0 = time.time()
+        losses = []
+        for _ in range(PARALLEL_STEPS):
+            state, loss = step(state, m, t)
+            losses.append(float(loss))
+        torch.cuda.synchronize()
+        out["walls"][f"{kind} dp2 train"] = time.time() - t0
+        out["paths"][f"{kind} dp2 train"] = read_counts(torch)
+        name = "decoder.blocks.0.mlp1.w"
+        out["shapes"][f"{kind} dp2 train"] = dict(
+            rows=list(m.shape), mu=list(state.opt_state.mu[name].shape),
+            param=list(flatten_params(state.params)[name].shape))
+        whole = {n: state.layout.params[n].gather(v)
+                 for n, v in flatten_params(state.params).items()
+                 if tx.trainable(n)}
+        if rank == 0:
+            out[f"{kind} dp2 train"] = dict(
+                losses=losses, ref_losses=ref["losses"],
+                **parallel_agree(whole, ref["params"], ref["start"]))
+        del state, whole, p
+        torch.cuda.empty_cache()
+    ref = {}
+
+    # a TP=2 full fine-tune step: K5 on the local heads
+    mel_np, tokens_np, eot = parallel_batch(cfg, PARALLEL_FT_BATCH, seed=7)
+    kw = dict(learning_rate=PARALLEL_LR, freeze_encoder=False)
+    mel_t = torch.from_numpy(mel_np).to(dev, torch.bfloat16)
+    tok_t = torch.from_numpy(tokens_np).to(dev)
+    if rank == 0:
+        state, tx = create_train_state(fresh(), **kw)
+        start = {n: t.clone() for n, t in flatten_params(state.params).items()}
+        state, loss = train_step(state, mel_t, tok_t, cfg, tx, eot,
+                                 freeze_encoder=False, dtype_name="bfloat16")
+        ref = dict(losses=[float(loss)], start=start,
+                   params=flatten_params(state.params))
+        del state
+    mesh = make_mesh(model=PARALLEL_TP)
+    p = shard_params(mesh, fresh(), tensor_parallel=True)
+    state, tx = create_train_state(p, **kw)
+    osh = opt_state_shardings(mesh, tx, p, tensor_parallel=True, zero1=False)
+    step = make_zero1_step(mesh, cfg, tx, eot, osh,
+                           param_shardings=param_shardings(mesh, p),
+                           freeze_encoder=False, dtype_name="bfloat16")
+    reset_counts(torch)
+    t0 = time.time()
+    state, loss = step(state, mel_t, tok_t)
+    torch.cuda.synchronize()
+    out["walls"]["tp2 full fine-tune"] = time.time() - t0
+    out["paths"]["tp2 full fine-tune"] = read_counts(torch)
+    out["shapes"]["tp2 full fine-tune"] = dict(
+        K2=[PARALLEL_FT_BATCH * heads, 1500, 64],
+        K5=[PARALLEL_FT_BATCH * heads, 1500, 64])
+    whole = {n: state.layout.params[n].gather(v)
+             for n, v in flatten_params(state.params).items()}
+    if rank == 0:
+        out["tp2 full fine-tune"] = dict(
+            losses=[float(loss)], ref_losses=ref["losses"],
+            **parallel_agree(whole, ref["params"], ref["start"]))
+    out["staged"] = sorted(D.STAGED)
+    return out
+
+
+def parallel_rank(rank: int, port: int, out_dir: str) -> None:
+    """A spawned rank: joins the gloo group on the card, runs its body and
+    writes its result; any error exits non-zero."""
+    import torch
+    import torch.distributed as dist
+
+    from whisper_ipa_torch.parallel import initialize
+
+    initialize(f"localhost:{port}", 2, rank, device="cuda:0", backend="gloo")
+    try:
+        result = parallel_rank_body(torch, rank)
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(result, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_parallel(torch, dev, by_path) -> None:
+    """whisper_ipa_torch.parallel on the card: (a) a one-rank NCCL group,
+    (b) two ranks sharing the card over gloo (spawned after every kernel
+    was built, so no rank builds): TP=2 greedy decoding at the serving
+    setting (tokens held to the one-rank run under the near-tie rule),
+    decoder-only DP=2, ZeRO-1 and FSDP steps at global batch 12, and a
+    TP=2 full fine-tune step (K5 on 6 local heads), each against the
+    one-rank run: losses within 2e-3 relative, parameters within a mean
+    10% of the one-rank run's mean update (bf16 activations)."""
+    import multiprocessing as mp
+
+    t_phase = time.time()
+    parallel_nccl_one_rank(torch, dev)
+    torch.cuda.empty_cache()
+    ctx = mp.get_context("spawn")  # CUDA cannot fork
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    port = free_port()
+    procs = [ctx.Process(target=parallel_rank, args=(r, port, out_dir))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    deadline = time.time() + PARALLEL_TIMEOUT
+    try:
+        while any(p.is_alive() for p in procs):
+            bad = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+            require(not bad, f"a parallel rank failed (exit codes {bad})")
+            require(time.time() < deadline, "the parallel ranks timed out")
+            time.sleep(0.5)
+        require(all(p.exitcode == 0 for p in procs),
+                f"parallel ranks exit codes {[p.exitcode for p in procs]}")
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(timeout=30)
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+    layers = 12
+    want = {
+        "tp2 decode": {"K1": 1, "K2": layers, "K4": (MAIN_SAMPLE_LEN - 1) * layers},
+        "dp dp2 train": {"K2": layers * PARALLEL_STEPS},
+        "zero1 dp2 train": {"K2": layers * PARALLEL_STEPS},
+        "fsdp dp2 train": {"K2": layers * PARALLEL_STEPS},
+        "tp2 full fine-tune": {"K2": layers, "K5": layers},
+    }
+    for r in ranks:
+        log(f"[parallel rank {r['rank']}] local-shape kernel checks "
+            f"(max|kernel-plain|; K5 relative): "
+            + ", ".join(f"{k} {v:.3e}" for k, v in r["checks"].items()))
+        for path, counts in r["paths"].items():
+            got = nonzero(counts)
+            require(got == want[path], f"rank {r['rank']} {path}: launches "
+                    f"{got}, predicted {want[path]}")
+            by_path[f"parallel rank{r['rank']} {path}"] = counts
+            log(f"[parallel rank {r['rank']}] {path}: launches {got}, local "
+                f"shapes {r['shapes'][path]}, wall {r['walls'][path]:.2f} s")
+        log(f"[parallel rank {r['rank']}] staged through host memory (gloo "
+            f"with CUDA tensors): {r['staged']}")
+    r0 = ranks[0]
+    d = r0["decode"]
+    log(f"[parallel] tp2 decode (whisper-small, bf16, int8 cache, batch "
+        f"{MAIN_BATCH} x 30 s, {MAIN_SAMPLE_LEN} tokens): {d['rows_equal']} of "
+        f"{MAIN_BATCH} rows equal to the one-rank run's, {d['near_ties']} "
+        f"left it at a near-tie (gaps {d['gaps']}, eps {d['eps']:.3e})")
+    for path in ("dp dp2 train", "zero1 dp2 train", "fsdp dp2 train",
+                 "tp2 full fine-tune"):
+        res = r0[path]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(res["losses"],
+                                                       res["ref_losses"]))
+        log(f"[parallel] {path}: losses {res['losses']} vs one rank "
+            f"{res['ref_losses']} (max relative {rel:.2e}, bound 2e-3); "
+            f"parameters max|diff| {res['max_diff']:.3e}, mean|diff| "
+            f"{res['mean_diff']:.3e} against a mean update of "
+            f"{res['mean_update']:.3e} (bound 10%)")
+        require(rel <= 2e-3, f"{path} losses")
+        require(res["mean_diff"] <= 0.1 * res["mean_update"], f"{path} parameters")
+    base = r0["dp dp2 train"]["losses"]
+    for path in ("zero1 dp2 train", "fsdp dp2 train"):
+        require(max(abs(a - b) / abs(b) for a, b in
+                    zip(r0[path]["losses"], base)) <= 1e-6,
+                f"{path}: the DP run's losses")
+    log(f"[phase_parallel] phase wall {time.time() - t_phase:.1f} s")
+
+
 def main() -> int:
     try:
         import torch
@@ -4258,6 +4686,8 @@ def main() -> int:
         del learned
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    phase_parallel(torch, dev, by_path)
     log(f"[done] all phases passed in {time.time() - t_start:.1f} s")
 
     # launches: the sum over the paths of one counted run each (the four

@@ -104,6 +104,13 @@ TOOLS_SLICE_MODULES = [
     "whisper_ipa_torch.cli.prepare_datasets",
     "whisper_ipa_torch.cli.calculate_real_speed",
 ]
+# modules the parallel slice added (torch.distributed meshes)
+PARALLEL_SLICE_MODULES = [
+    "whisper_ipa_torch.parallel",
+    "whisper_ipa_torch.parallel.distributed",
+    "whisper_ipa_torch.parallel.mesh",
+    "whisper_ipa_torch.parallel.sharded",
+]
 # libraries the card's machine does not have: no port module may need them
 ABSENT_ON_THE_CARD = ("pandas", "openpyxl")
 # modules the speculative-decoding slice added
@@ -147,6 +154,7 @@ def test_port_never_imports_jax():
     assert set(LEARNING_SLICE_MODULES) <= set(names)
     assert set(SPECULATIVE_SLICE_MODULES) <= set(names)
     assert set(TOOLS_SLICE_MODULES) <= set(names)
+    assert set(PARALLEL_SLICE_MODULES) <= set(names)
 
 
 def _imported_modules(path):

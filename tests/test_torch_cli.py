@@ -483,9 +483,9 @@ def test_serve_continuous_refusals_match_jax(setup, argv):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--dp", "2"], "item 12"),
-    (["--tp", "2"], "item 12"),
-    (["--draft-model", "ngram", "--tp", "2"], "item 12"),
+    (["--continuous", "--dp", "2"], "item 18"),
+    (["--continuous", "--tp", "2"], "item 18"),
+    (["--continuous", "--draft-model", "ngram", "--tp", "2"], "item 18"),
 ])
 def test_serve_unported_flags_exit(argv, item):
     with pytest.raises(SystemExit) as e:
@@ -632,13 +632,49 @@ def test_serve_engine_flags_parse(argv, dest, value, item, monkeypatch):
     assert seen[dest] == value
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--data-parallel"], "item 12"),
-])
-def test_evaluate_unported_flags_exit(argv, item):
+def test_evaluate_positional_order_and_one_device_data_parallel(setup):
+    """``data_parallel`` is the 8th parameter, as in the reference: a call
+    in the reference's positional order (..., "en", False) decodes
+    greedily (it once bound False to ``beam_size``, a beam of width 0),
+    with the JAX call's PER/PFER; True on one process runs the
+    single-device path, and so does ``--data-parallel``."""
+    from whisper_ipa_tpu.models.convert import load_checkpoint_auto as jax_load
+    from whisper_ipa_torch.models import load_checkpoint_auto
+    from whisper_ipa_torch.train.loop import load_or_init_params
+
+    cfg = port_config.CONFIGS[MODEL]
+    base = load_or_init_params(MODEL, cfg, setup["weights"], device="cpu")
+    params, _ = load_checkpoint_auto(setup["ckpt"], base, False)
+    greedy = evaluate_model.evaluate_model(params, cfg, setup["split"], None,
+                                           "M", 2, language="en")
+    positional = evaluate_model.evaluate_model(params, cfg, setup["split"],
+                                               None, "M", 2, "en", False)
+    assert positional["hypotheses"] == greedy["hypotheses"]
+    assert all(greedy["hypotheses"])
+    dp = evaluate_model.evaluate_model(params, cfg, setup["split"], None, "M",
+                                       2, "en", True)
+    assert dp["hypotheses"] == greedy["hypotheses"]
+    jcfg = jax_config.CONFIGS[MODEL]
+    jparams, _ = jax_load(setup["ckpt"], jax_init_params(jcfg, seed=0), False)
+    want = jax_evaluate_model.evaluate_model(jparams, jcfg, setup["split"],
+                                             None, "M", 2, "en", False)
+    assert positional["per"] == pytest.approx(want["per"], abs=1e-9)
+    assert positional["pfer"] == pytest.approx(want["pfer"], abs=1e-9)
+    argv = ["--skip-base", "--base-model", MODEL, "--weights", setup["weights"],
+            "--checkpoint", setup["ckpt"], "--test-data", setup["split"],
+            "--num-samples", "0", "--batch-size", "2", "--device", "cpu"]
+    _, flagged = _stdout(evaluate_model.main, argv + ["--data-parallel"])
+    assert flagged["hypotheses"] == greedy["hypotheses"]
+
+
+@pytest.mark.parametrize("argv", [["--dp", "2"], ["--tp", "2"],
+                                  ["--dp", "2", "--tp", "2"]])
+def test_serve_mesh_needs_the_world(argv):
+    """--dp x --tp must equal the torchrun world (1 here)."""
     with pytest.raises(SystemExit) as e:
-        evaluate_model.main(argv + ["--device", "cpu"])
-    assert f"ROADMAP queue 1 {item}" in str(e.value.code)
+        serve_cli.build_server(argv + ["--model", "test-tiny", "--device",
+                                       "cpu"])
+    assert "must equal the number of processes (1)" in str(e.value.code)
 
 
 def test_cuda_is_the_default_device():

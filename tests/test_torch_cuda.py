@@ -827,3 +827,61 @@ def test_engine_tokens_equal_the_cpu(dev, kv_int8):
     assert out["cpu"] == out[str(dev)]
     assert log_mel_power.launches > k1
     assert (decode_cross_attention_int8_tminor.launches > k4) == kv_int8
+
+
+# -- the parallel slice: local-head shapes and a one-rank NCCL group ------
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_kernels_at_tensor_parallel_local_heads(dev, tp):
+    """K2, K4 and K5 at whisper-small's local head count under tp 2 and 4
+    (12 / tp heads of width 64, T 1500, the int8 cache's T_pad 1536), bf16,
+    against their plain versions with the bounds above."""
+    gen = torch.Generator(device=dev).manual_seed(tp)
+    heads = 12 // tp
+    q, k, v, g = (torch.randn((4, heads, 1500, 64), generator=gen,
+                              device=dev).to(torch.bfloat16) for _ in range(4))
+    got = fused_attention(q, k, v, 0.125)
+    assert _bf16_close(got, attention_plain(q, k, v, 0.125), 5e-3)
+    out, lse = _forward_kernel(q, k, v, 0.125, with_lse=True)
+    grads = attention_backward(q, k, v, out, g, lse, 0.125)
+    for a, b in zip(grads, attention_backward_plain(q, k, v, g, 0.125)):
+        assert _grad_err_ok(a, b, 1e-2)
+    codes = [torch.randint(-127, 128, (16, heads, 64, 1536), generator=gen,
+                           device=dev).to(torch.int8) for _ in range(2)]
+    scales = [0.01 + 0.02 * torch.rand((16, heads, 1536), generator=gen,
+                                       device=dev) for _ in range(2)]
+    for s in scales:
+        s[..., 1500:] = 0.0
+    qd = (torch.randn((16, heads, 1, 64), generator=gen, device=dev)
+          * 0.125).to(torch.bfloat16)
+    got = decode_cross_attention_int8_tminor(qd, codes[0], scales[0], codes[1],
+                                             scales[1])
+    want = decode_attention_plain(qd, codes[0], scales[0], codes[1], scales[1])
+    assert (got.float() - want.float()).abs().max().item() <= (
+        0.02 * want.float().abs().max().item())
+
+
+def test_one_rank_nccl_collectives(dev):
+    """parallel.initialize with NCCL named at world 1: the helpers are
+    identities on CUDA tensors; the group is destroyed after."""
+    import socket
+
+    import torch.distributed as dist
+
+    from whisper_ipa_torch.parallel import distributed as D
+    from whisper_ipa_torch.parallel import initialize
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    initialize(f"localhost:{port}", 1, 0, device=dev, backend="nccl")
+    try:
+        assert dist.get_backend() == "nccl"
+        x = torch.randn((4, 6), device=dev)
+        assert torch.equal(D.all_reduce(x.clone()), x)
+        assert torch.equal(D.all_gather(x, dim=1), x)
+        assert torch.equal(D.reduce_scatter(x.clone(), dim=0), x)
+        assert torch.equal(D.broadcast(x.clone(), src=0), x)
+    finally:
+        dist.destroy_process_group()

@@ -102,10 +102,29 @@ def test_cli_trains_and_resumes_on_cpu(inputs, tmp_path):
     "flags", [["--zero1"], ["--fsdp"], ["--tensor-parallel", "2"],
               ["--steps-per-call", "4"]],
 )
-def test_cli_refuses_multi_device_flags(flags, capsys):
-    with pytest.raises(SystemExit):
-        cli.main(flags + ["--device", "cpu"])
-    assert "ROADMAP" in capsys.readouterr().err
+def test_cli_refuses_multi_device_flags(flags, inputs, tmp_path, capsys):
+    """On one process, as in the reference on one device: --zero1 and
+    --fsdp have no data axis and are ignored with its message (the run
+    trains), --tensor-parallel 2 does not divide one device, and
+    --steps-per-call > 1 is not ported. The multi-process runs are
+    tests/test_torch_multirank.py's."""
+    data, weights = inputs
+    argv = flags + ["--device", "cpu", "--model", "test-tiny", "--train-data",
+                    data, "--test-data", data, "--output-dir", str(tmp_path),
+                    "--steps", "1", "--batch-size", "2", "--validate-every",
+                    "0", "--save-every", "0", "--weights", weights]
+    if flags[0] == "--steps-per-call":
+        with pytest.raises(SystemExit):
+            cli.main(argv)
+        assert "ROADMAP" in capsys.readouterr().err
+    elif flags[0] == "--tensor-parallel":
+        with pytest.raises(ValueError, match="model=2 does not divide 1"):
+            cli.main(argv)
+    else:
+        cli.main(argv)
+        name = "ZeRO-1" if flags[0] == "--zero1" else "FSDP"
+        assert (f"{name} requested but no data-parallel mesh axis; ignoring"
+                in capsys.readouterr().out)
 
 
 def test_train_needs_a_card_unless_told_cpu(inputs, tmp_path, monkeypatch):

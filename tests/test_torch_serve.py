@@ -7,6 +7,8 @@ pads it), greedy, with beam search and with a draft model.
 
 from dataclasses import replace
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -90,17 +92,30 @@ def test_requests_resolve_and_match_decode(service, params, tok):
     assert stats["batches"] == 2
 
 
+def _mesh(data, model):
+    return SimpleNamespace(shape={"data": data, "model": model})
+
+
 @pytest.mark.parametrize(
-    "kw",
+    "kw,error,match",
     [
-        dict(mesh=object()),
-        dict(mesh=object(), draft_params={}, draft_cfg=CFG),
-        dict(tensor_parallel=True),
-        dict(tensor_parallel=True, medusa_params={"heads": []}),
+        (dict(mesh=_mesh(1, 2), tensor_parallel=True, draft_params={},
+              draft_cfg=CFG), NotImplementedError, r"item \[18\]"),
+        (dict(mesh=_mesh(1, 2), tensor_parallel=True,
+              medusa_params={"heads": []}), NotImplementedError,
+         r"item \[18\]"),
+        (dict(mesh=_mesh(3, 1), batch_size=4), ValueError,
+         "divisible by the mesh's data axis"),
+        (dict(mesh=_mesh(1, 2), tensor_parallel=True, quant_bits=8),
+         ValueError, "not supported"),
     ],
 )
-def test_unported_options_raise(params, kw):
-    with pytest.raises(NotImplementedError, match=r"item \[12\]"):
+def test_unported_options_raise(params, kw, error, match):
+    """Over a mesh the service refuses what the reference refuses (a
+    batch the data axis does not divide, quantized TP) and speculative
+    decoding over a TP mesh (not ported); the multi-rank service runs in
+    tests/test_torch_multirank.py."""
+    with pytest.raises(error, match=match):
         TranscriptionService(params, CFG, device="cpu", **kw)
 
 

@@ -576,7 +576,7 @@ def test_engine_thread_failure_fails_pending_futures(params, tok, monkeypatch):
 ])
 def test_unported_options_raise(params, kw):
     before = threading.active_count()
-    with pytest.raises(NotImplementedError, match=r"item \[12\]"):
+    with pytest.raises(NotImplementedError, match=r"item \[18\]"):
         ContinuousBatcher(params, CFG, device="cpu", **kw)
     assert threading.active_count() == before  # no engine thread started
 

@@ -43,9 +43,6 @@ NOT_PORTED = {
     "train": {
         "train_chunk": "steps_per_call > 1 amortized a remote-device "
                        "dispatch (ROADMAP item [14])",
-        "create_train_state_zero1": "ZeRO-1 needs several devices (ROADMAP "
-                                    "item [12])",
-        "make_zero1_step": "ZeRO-1 needs several devices (ROADMAP item [12])",
         "clip_by_per_tensor_norm": "an optax GradientTransformation; the port "
                                    "has no optax: train.optimizer.Optimizer "
                                    "clips per tensor (ROADMAP item [14])",
@@ -57,7 +54,8 @@ NOT_PORTED = {
 }
 SURFACE = [
     (pkg, name)
-    for pkg in ("models", "train", "decode", "metrics", "utils", "data.prep")
+    for pkg in ("models", "train", "decode", "metrics", "utils", "data.prep",
+                "parallel")
     for name in importlib.import_module(f"whisper_ipa_tpu.{pkg}").__all__
 ]
 

@@ -1,27 +1,33 @@
 """CLI: evaluate a checkpoint (and optionally the base model) with PER/PFER.
 
 Counterpart of ``whisper_ipa_tpu/cli/evaluate_model.py`` (the reference's
-scripts/evaluate_model.py:271-346), on one device, with the same printed
-report. Decoding is batched greedy, or beam search with ``--beam-size``;
-unlike the reference, a decode error is not swallowed into empty
-hypotheses but raised.
+scripts/evaluate_model.py:271-346), with the same printed report.
+Decoding is batched greedy, or beam search with ``--beam-size``; unlike
+the reference, a decode error is not swallowed into empty hypotheses but
+raised. ``--data-parallel`` shards each batch over the data ranks of a
+torchrun world (one process a device); on one device it runs the
+single-device path.
 
   python -m whisper_ipa_torch.cli.evaluate_model --base-model small \\
       --checkpoint run/checkpoint-1000 --test-data test.json --skip-base
-
-Not ported: ``--data-parallel`` (ROADMAP queue 1 item 12); it exits with a
-message.
+  torchrun --nproc-per-node 4 -m whisper_ipa_torch.cli.evaluate_model \\
+      --data-parallel ...
 """
 
 import argparse
 import os
 from typing import Dict, List, Optional
 
+import torch.distributed as dist
+
+
 from ..config import get_config
 from ..data.dataset import create_data_loader
 from ..decode import DecodingOptions, decode
 from ..metrics import evaluate_batch, phone_error_rate, phone_feature_error_rate
 from ..models import load_checkpoint_auto
+from ..parallel import distributed as D
+from ..parallel.mesh import gather_rows, make_mesh, replicate, shard_padded_batch
 from ..tokenizer import get_tokenizer
 from ..train.checkpoints import check_vocab_provenance
 from ..train.loop import load_or_init_params, resolve_device
@@ -42,15 +48,27 @@ def evaluate_model(
     model_name: str = "Model",
     batch_size: int = 8,
     language: str = "en",
+    data_parallel: bool = False,
     beam_size: Optional[int] = None,
 ) -> Dict:
     """Decode the split in batches on the parameters' device (greedy, or
     beam search of width ``beam_size``) and score it; returns
     ``evaluate_batch``'s metrics plus the "references" and "hypotheses" it
-    scored."""
+    scored.
+
+    data_parallel: shard each decode batch over the mesh's 'data' axis
+    (every rank of the world calls this; params replicated from rank 0),
+    token-identical to one device; with one process it changes nothing."""
     print("=" * 70)
     print(f"Evaluating {model_name}")
     print("=" * 70)
+
+    mesh = None
+    if data_parallel:
+        mesh = make_mesh()
+        if mesh is not None:
+            params = replicate(mesh, params)
+            print(f"Data-parallel evaluation over {mesh.size} devices")
 
     tokenizer = get_tokenizer(
         multilingual=cfg.multilingual,
@@ -71,11 +89,11 @@ def evaluate_model(
     for start in range(0, n, batch_size):
         indices = list(range(start, min(start + batch_size, n)))
         batch = dataset.get_batch(indices)
-        results = decode(
-            params, cfg, batch["mel_features"], options, tokenizer=tokenizer
-        )
+        mel, n_real = shard_padded_batch(mesh, batch["mel_features"])
+        results = decode(params, cfg, mel, options, tokenizer=tokenizer)
         references.extend(t.strip() for t in batch["ipa_texts"])
-        hypotheses.extend(r.text.strip() for r in results)
+        hypotheses.extend(
+            gather_rows(mesh, [r.text.strip() for r in results], n_real))
         for i in range(start, min(start + len(indices), 3)):
             per = phone_error_rate(references[i], hypotheses[i])
             pfer = phone_feature_error_rate(references[i], hypotheses[i])
@@ -158,16 +176,17 @@ def main(argv=None) -> Dict:
     )
     p.add_argument("--weights", type=str, default=None)
     p.add_argument("--data-parallel", action="store_true",
-                   help="not ported (ROADMAP queue 1 item 12)")
+                   help="shard each batch over the data ranks of a "
+                   "torchrun world (one process a device)")
     add_overlay_flags(p)
     add_device_flag(p)
     args = p.parse_args(argv)
-    if args.data_parallel:
-        raise SystemExit("--data-parallel: multi-device evaluation is not "
-                         "ported to the PyTorch package yet (ROADMAP queue 1 "
-                         "item 12)")
 
     device = resolve_device(args.device)
+    if args.data_parallel and int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        if not dist.is_initialized():
+            D.initialize(device=device)  # torchrun: one process a device
+        device = D.default_device()
     num_samples = None if args.num_samples == 0 else args.num_samples
     cfg = get_config(args.base_model)
     base_params = load_or_init_params(args.base_model, cfg, args.weights,
@@ -178,7 +197,7 @@ def main(argv=None) -> Dict:
         base_results = evaluate_model(
             base_params, cfg, args.test_data, num_samples,
             model_name="Base Whisper Model", batch_size=args.batch_size,
-            beam_size=args.beam_size,
+            data_parallel=args.data_parallel, beam_size=args.beam_size,
         )
 
     if os.path.isdir(args.checkpoint):
@@ -194,7 +213,7 @@ def main(argv=None) -> Dict:
     trained_results = evaluate_model(
         trained_params, cfg, args.test_data, num_samples,
         model_name="Trained Checkpoint", batch_size=args.batch_size,
-        beam_size=args.beam_size,
+        data_parallel=args.data_parallel, beam_size=args.beam_size,
     )
 
     if base_results:

@@ -168,8 +168,13 @@ def main(argv=None):
     if device.type == "cuda":
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     # one traced warm-up step first: the tracer can miss the kernels of the
-    # first moments after it starts; the table reads the second run only
+    # first moments after it starts; the table reads the second run only.
+    # The read run also keeps a pause from each edge of its window: the
+    # tracer drops a kernel whose device timestamp falls outside the window,
+    # and the first kernel launched right after the window opens (K1 in
+    # decode) has been dropped so.
     schedule = torch.profiler.schedule(wait=0, warmup=1, active=1)
+    edge_pause_s = 0.05
     traced = {}
 
     def ready(prof):
@@ -183,10 +188,12 @@ def main(argv=None):
         run()
         _sync(device)
         prof.step()
+        time.sleep(edge_pause_s)
         t0 = time.perf_counter()
         run()
         _sync(device)
         wall = time.perf_counter() - t0
+        time.sleep(edge_pause_s)
         prof.step()
 
     events = traced["events"]

@@ -45,17 +45,27 @@ one).
   python -m whisper_ipa_torch.cli.serve --model small --continuous \
       --draft-model medusa --medusa-weights heads.safetensors --medusa-tree
 
-Not ported, it exits with a message: ``--dp`` / ``--tp`` > 1 (ROADMAP
-queue 1 item 12). The reference's ``--no-aot-cache`` parses and does
-nothing: CUDA has no executable cache to switch off (item 14).
+``--dp`` / ``--tp`` serve the micro-batch service over a mesh: launch
+``--dp x --tp`` processes with torchrun (one a device); rank 0 binds the
+server and the others follow its batches (``TranscriptionService``).
+
+  torchrun --nproc-per-node 2 -m whisper_ipa_torch.cli.serve \
+      --model small --tp 2 --port 8080
+
+Not ported, it exits with a message: ``--continuous`` with ``--dp`` /
+``--tp`` > 1 (the engine over a mesh, ROADMAP queue 1 item 18). The
+reference's ``--no-aot-cache`` parses and does nothing: CUDA has no
+executable cache to switch off (item 14).
 """
 
 import argparse
 import json
+import os
 import queue
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
+import torch.distributed as dist
 
 from ..audio import load_audio_bytes
 from ..config import get_config
@@ -63,6 +73,7 @@ from ..decode.medusa_tree import DEFAULT_TREE, tree_for_heads
 from ..models import load_checkpoint_auto
 from ..models.medusa import init_medusa_params, load_medusa
 from ..ops.quant import quantize_params
+from ..parallel import initialize, make_mesh
 from ..serve import TranscriptionService
 from ..serve_continuous import ContinuousBatcher, EngineOverloaded
 from ..train.loop import load_or_init_params, resolve_device
@@ -228,10 +239,16 @@ def build_parser() -> argparse.ArgumentParser:
         help="continuous engine: answer 503 when this many requests are "
         "already waiting (backpressure over unbounded queueing latency)",
     )
-    p.add_argument("--dp", type=int, default=1,
-                   help="not ported (ROADMAP queue 1 item 12)")
-    p.add_argument("--tp", type=int, default=1,
-                   help="not ported (ROADMAP queue 1 item 12)")
+    p.add_argument(
+        "--dp", type=int, default=1,
+        help="data-parallel ways: shard each batch over the mesh's 'data' "
+        "axis (a torchrun world of --dp x --tp processes)",
+    )
+    p.add_argument(
+        "--tp", type=int, default=1,
+        help="tensor-parallel ways: shard the weights over the mesh's "
+        "'model' axis",
+    )
     add_overlay_flags(p)
     add_device_flag(p)
     return p
@@ -254,14 +271,34 @@ def _refuse_continuous(args) -> None:
 
 
 def _refuse_unported(args) -> None:
-    if args.dp * args.tp > 1:
-        raise SystemExit("--dp / --tp: multi-device serving is not ported to "
-                         "the PyTorch package yet (ROADMAP queue 1 item 12)")
+    if args.continuous and args.dp * args.tp > 1:
+        raise SystemExit("--continuous --dp / --tp: the in-flight engine over "
+                         "a mesh is not ported to the PyTorch package yet "
+                         "(ROADMAP queue 1 item 18)")
+
+
+def _mesh(args, device):
+    """The --dp x --tp mesh over the torchrun world (None for one
+    process): checks the world size and joins the process group."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if args.dp * args.tp != world:
+        raise SystemExit(
+            f"--dp {args.dp} x --tp {args.tp} must equal the number of "
+            f"processes ({world}); launch with torchrun --nproc-per-node "
+            f"{args.dp * args.tp}"
+        )
+    if world == 1:
+        return None
+    if not dist.is_initialized():
+        initialize(device=device)
+    return make_mesh(data=args.dp, model=args.tp)
 
 
 def build_server(argv=None):
     """Parse the flags, load the model, start the service and bind the
-    server; returns (server, service) without serving."""
+    server; returns (server, service) without serving. Over a mesh only
+    rank 0 binds a server: the other ranks get (None, service) and run
+    ``service.follow()``."""
     args = build_parser().parse_args(argv)
     if args.continuous:
         _refuse_continuous(args)
@@ -269,6 +306,9 @@ def build_server(argv=None):
     if args.medusa_tree and args.draft_model != "medusa":
         raise SystemExit("--medusa-tree requires --draft-model medusa")
     device = resolve_device(args.device)
+    mesh = _mesh(args, device)
+    if mesh is not None:
+        device = mesh.device
     cfg = get_config(args.model)
     params = load_or_init_params(args.model, cfg, args.weights, device=device)
     if args.checkpoint:
@@ -341,7 +381,11 @@ def build_server(argv=None):
             draft_k=args.draft_k,
             medusa_params=medusa_params,
             medusa_tree=medusa_tree,
+            mesh=mesh,
+            tensor_parallel=args.tp > 1,
         )
+    if mesh is not None and dist.get_rank() != 0:
+        return None, service
     try:
         if args.warmup:
             print("Warming up (one dummy batch)...")
@@ -360,6 +404,9 @@ def build_server(argv=None):
 
 def main(argv=None):
     server, service = build_server(argv)
+    if server is None:
+        service.follow()  # a follower rank, until rank 0 closes
+        return
     try:
         server.serve_forever()
     except KeyboardInterrupt:

@@ -1,19 +1,29 @@
-"""CLI: Whisper IPA fine-tuning on one device (PyTorch).
+"""CLI: Whisper IPA fine-tuning (PyTorch).
 
 The flags of ``whisper_ipa_tpu/cli/train_whisper_ipa.py`` plus --device
-("cuda" by default, "cpu" to train on the CPU). The flags that need
-several devices (--tensor-parallel > 1, --zero1, --fsdp) and
---steps-per-call > 1 exit with an error naming the ROADMAP item.
+("cuda" by default, "cpu" to train on the CPU). --steps-per-call > 1 exits
+with an error naming the ROADMAP item.
+
+Several devices: launch one process a device with torchrun; each joins the
+process group from torchrun's environment (NCCL on cuda, gloo on cpu) and
+the mesh is data x --tensor-parallel over the world, with --zero1 / --fsdp
+sharding the optimizer state / the parameters over 'data'.
 
 Usage:
   python -m whisper_ipa_torch.cli.train_whisper_ipa \
       --model small --train-data data/processed/combined_train_ipa.json \
       --test-data data/processed/combined_test_ipa.json \
       --output-dir checkpoints/whisper-ipa --steps 10000 --batch-size 12
+  torchrun --nproc-per-node 4 -m whisper_ipa_torch.cli.train_whisper_ipa \
+      --model small --tensor-parallel 2 --zero1 ...
 """
 
 import argparse
+import os
 
+import torch.distributed as dist
+
+from ..parallel import initialize
 from ..train.loop import train
 
 
@@ -111,18 +121,20 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--tensor-parallel", type=int, default=1,
-        help="Megatron tensor-parallel degree; only 1 is ported "
-        "(ROADMAP queue 1 item 12)",
+        help="Megatron tensor-parallel degree: shard qkv/mlp weights over "
+        "the mesh 'model' axis (processes = data x model); single-host",
     )
     p.add_argument(
         "--zero1", action="store_true",
-        help="ZeRO-1 optimizer-state sharding; not ported "
-        "(ROADMAP queue 1 item 12)",
+        help="ZeRO-1: shard the optimizer state over the data-parallel "
+        "mesh axis (each rank holds 1/dp of the AdamW moments)",
     )
     p.add_argument(
         "--fsdp", action="store_true",
-        help="FSDP parameter sharding; not ported "
-        "(ROADMAP queue 1 item 12)",
+        help="FSDP (ZeRO-3): shard the parameters over the data-parallel "
+        "mesh axis too (implies --zero1 moments); each layer's slices are "
+        "all-gathered where it runs and their gradients reduce-scattered; "
+        "composes with --tensor-parallel",
     )
     p.add_argument(
         "--preset",
@@ -141,11 +153,8 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.tensor_parallel > 1 or args.zero1 or args.fsdp:
-        parser.error(
-            "--tensor-parallel > 1, --zero1 and --fsdp need several devices "
-            "and are not ported yet (ROADMAP queue 1 item 12)"
-        )
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1 and not dist.is_initialized():
+        initialize(device=args.device)  # torchrun: one process a device
     if args.steps_per_call > 1:
         parser.error(
             "--steps-per-call > 1 is not ported (ROADMAP queue 1 item 14)"

@@ -104,6 +104,7 @@ def _beam_decode(
     cross_kv_int8: bool,
     cross_kv_int4: bool,
     dtype: torch.dtype,
+    tp=None,
 ):
     """The reorder-free beam loop; returns (tokens (B, K, max_len),
     sum_logprobs (B, K), lengths (B, K), pool_scores, pool_sums, pool_lens
@@ -131,9 +132,9 @@ def _beam_decode(
     # row holds the same prefix, so anc[b, j, p] = j is right from the start)
     cache = init_cache(params, cfg, audio_features, max_len=max_len,
                        dtype=dtype, cross_kv_int8=cross_kv_int8,
-                       cross_kv_int4=cross_kv_int4)
+                       cross_kv_int4=cross_kv_int4, tp=tp)
     prefix_logits, cache = decode_step(params, cfg, prefix_tokens, cache, 0,
-                                       dtype=dtype)
+                                       dtype=dtype, tp=tp)
     cache = cache._replace(self_k=cache.self_k.repeat_interleave(K, dim=1),
                            self_v=cache.self_v.repeat_interleave(K, dim=1))
     anc = beam_rows[None, :, None].repeat(B, 1, max_len)
@@ -163,7 +164,7 @@ def _beam_decode(
                              device=device)
 
     logits, cache = decode_step_beam(params, cfg, prev_tok, cache, n_prefix,
-                                     anc, dtype=dtype)
+                                     anc, dtype=dtype, tp=tp)
 
     def pools_full():
         return ((pool_scores > neg_inf).sum(dim=1) >= n_pool).all()
@@ -218,7 +219,7 @@ def _beam_decode(
                 new_state)
         )
         logits, cache = decode_step_beam(params, cfg, prev_tok, cache, pos,
-                                         anc, dtype=dtype)
+                                         anc, dtype=dtype, tp=tp)
     return (tokens, sum_logprobs, lengths, pool_scores, pool_sums, pool_lens,
             pool_tokens, sot_logits)
 
@@ -236,6 +237,7 @@ def beam_decode(
     sot_index: int = 0,
     max_initial_ts_index: int = 50,
     detected_langs: Optional[List[str]] = None,
+    tp=None,
 ) -> List[DecodingResult]:
     """Beam-search ``audio_features`` (B, T_a, d) on their device; one
     DecodingResult a row. ``decode()`` calls it when ``beam_size`` is set."""
@@ -261,6 +263,7 @@ def beam_decode(
             max_initial_ts_index=max_initial_ts_index, sot_index=sot_index,
             cross_kv_int8=options.kv_int8, cross_kv_int4=options.kv_int4,
             dtype=torch.bfloat16 if options.fp16 else torch.float32,
+            tp=tp,
         )
         no_speech = torch.softmax(out[-1], dim=-1)[:, tokenizer.no_speech]
         (tokens_np, sums_np, lengths_np, pool_scores_np, pool_sums_np,

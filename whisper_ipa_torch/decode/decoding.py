@@ -82,6 +82,7 @@ def detect_language(
     cfg: WhisperConfig,
     audio_features,
     tokenizer: Optional[WhisperTokenizer] = None,
+    tp=None,
 ):
     """Identify the spoken language from encoder output.
 
@@ -95,11 +96,11 @@ def detect_language(
     device = _device_of(params)
     with torch.inference_mode(), full_fp32():
         feats = torch.as_tensor(audio_features).to(device)
-        cache = init_cache(params, cfg, feats, max_len=8)
+        cache = init_cache(params, cfg, feats, max_len=8, tp=tp)
         sot = torch.full(
             (feats.shape[0], 1), tokenizer.sot, dtype=torch.long, device=device
         )
-        logits, _ = decode_step(params, cfg, sot, cache, 0)
+        logits, _ = decode_step(params, cfg, sot, cache, 0, tp=tp)
         logits = logits[:, 0].float().cpu().numpy()
     lang_logits = logits[:, np.asarray(tokenizer.all_language_tokens)]
     probs = np.exp(lang_logits - lang_logits.max(axis=-1, keepdims=True))
@@ -303,6 +304,7 @@ def _greedy_decode(
     timestamp_rules: bool,
     timestamp_begin: int,
     max_initial_ts_index: int,
+    tp=None,
 ):
     """Batched greedy/temperature decode; returns (tokens (B, n_prefix +
     sample_len), sum_logprobs (B,), sot_logits (B, n_vocab)).
@@ -317,10 +319,10 @@ def _greedy_decode(
     max_len = n_prefix + sample_len
     cache = init_cache(
         params, cfg, audio_features, max_len=max_len, dtype=dtype,
-        cross_kv_int8=cross_kv_int8, cross_kv_int4=cross_kv_int4,
+        cross_kv_int8=cross_kv_int8, cross_kv_int4=cross_kv_int4, tp=tp,
     )
     prefix_logits, cache = decode_step(
-        params, cfg, prefix_tokens, cache, 0, dtype=dtype
+        params, cfg, prefix_tokens, cache, 0, dtype=dtype, tp=tp
     )
     sot_logits = prefix_logits[:, sot_index]
     logits = prefix_logits[:, -1]
@@ -366,7 +368,7 @@ def _greedy_decode(
         tokens[:, pos] = next_tok
         if step + 1 < sample_len:  # the last token's logits are never read
             step_logits, cache = decode_step(
-                params, cfg, next_tok[:, None], cache, pos, dtype=dtype
+                params, cfg, next_tok[:, None], cache, pos, dtype=dtype, tp=tp
             )
             logits = step_logits[:, 0]
     return tokens, sum_logprobs, sot_logits
@@ -384,12 +386,19 @@ def decode(
     audio_input,
     options: DecodingOptions = DecodingOptions(),
     tokenizer: Optional[WhisperTokenizer] = None,
+    *,
+    tp=None,
 ) -> List[DecodingResult]:
     """Decode log-mel spectrograms or encoder output to text.
 
     audio_input: (B, 2 * n_audio_ctx, n_mels) mel or (B, n_audio_ctx, d)
     encoder output, a tensor or array; it is moved to the parameters'
     device. Returns one DecodingResult per batch element.
+
+    tp: the tensor-parallel group (``mesh.tp``) when ``params`` are the
+    rank's Megatron blocks (``parallel.shard_params``); every rank of the
+    group runs the same call on the same rows and gets the same tokens.
+    The reference reads the sharding from its arrays; here it is named.
     """
     if tokenizer is None:
         tokenizer = get_tokenizer(
@@ -410,7 +419,8 @@ def decode(
         if audio_input.dim() == 2:
             audio_input = audio_input[None]
         if audio_input.shape[-1] == cfg.n_mels:
-            audio_features = encode(params, cfg, audio_input, dtype=dtype)
+            audio_features = encode(params, cfg, audio_input, dtype=dtype,
+                                    tp=tp)
         else:
             audio_features = audio_input
 
@@ -422,7 +432,7 @@ def decode(
         detected_langs = None
         if options.language is None and cfg.multilingual:
             detected_langs, _ = detect_language(
-                params, cfg, audio_features, tokenizer
+                params, cfg, audio_features, tokenizer, tp=tp
             )
             prefix_tokens[:, 1] = torch.tensor(
                 [tokenizer.language_token(c) for c in detected_langs],
@@ -453,7 +463,7 @@ def decode(
                 params, cfg, audio_features, prefix, options, tokenizer,
                 suppress_mask, blank_mask, prefix_tokens=prefix_tokens,
                 sot_index=sot_index, max_initial_ts_index=max_initial_ts_index,
-                detected_langs=detected_langs,
+                detected_langs=detected_langs, tp=tp,
             )
 
         # best_of: at temperature > 0, n candidates an input, tiled in the
@@ -479,6 +489,7 @@ def decode(
             timestamp_rules=not options.without_timestamps,
             timestamp_begin=tokenizer.timestamp_begin,
             max_initial_ts_index=max_initial_ts_index,
+            tp=tp,
         )
         no_speech_probs = torch.softmax(sot_logits, dim=-1)[:, tokenizer.no_speech]
         tokens_np = tokens.cpu().numpy()

@@ -39,6 +39,7 @@ from ..ops.decode_attention import (
 )
 from ..ops.precision import full_fp32
 from ..ops.quant_matmul import int4_halves, int4_matmul, int8_matmul
+from ..parallel.sharded import copy_to_tp, reduce_from_tp
 
 # Minimum query length for the fused encoder-attention kernel, as in the
 # reference (``_FUSED_MIN_QLEN``): decode steps and short cross-attention
@@ -309,9 +310,25 @@ def multi_head_attention_int8kv(q, k_i8, k_scale, v_i8, v_scale, n_head: int):
     return merge_heads(out)
 
 
-def attention_block(x, p, n_head: int, mask=None, kv=None):
+def row_linear(x, p, tp=None):
+    """A row-parallel product (attention ``out``, ``mlp2``). With ``tp``
+    (a ``parallel.sharded.TensorParallel``) ``x`` and ``p["w"]`` are the
+    rank's columns and rows: the partial products meet in one all-reduce
+    over 'model', and the replicated bias is added once, after it."""
+    if tp is None:
+        return linear(x, p)
+    y = reduce_from_tp(linear(x, {"w": p["w"]}), tp)
+    if p.get("b") is not None:
+        y = y + p["b"].to(x.dtype)
+    return y
+
+
+def attention_block(x, p, n_head: int, mask=None, kv=None, tp=None):
     """Self- or cross-attention through a Whisper attention param group;
-    kv, when given, is the pair of already-projected (k, v)."""
+    kv, when given, is the pair of already-projected (k, v). With ``tp``
+    the projections are the rank's column blocks and ``n_head`` its local
+    head count (Megatron: ``copy_to_tp`` in, ``row_linear`` out)."""
+    x = copy_to_tp(x, tp)
     q = linear(x, p["query"])
     if kv is None:
         k = linear(x, p["key"])
@@ -319,8 +336,9 @@ def attention_block(x, p, n_head: int, mask=None, kv=None):
     else:
         k, v = kv
     out = multi_head_attention(q, k, v, n_head, mask)
-    return linear(out, p["out"]), (k, v)
+    return row_linear(out, p["out"], tp), (k, v)
 
 
-def mlp_block(x, p):
-    return linear(gelu(linear(x, p["mlp1"])), p["mlp2"])
+def mlp_block(x, p, tp=None):
+    h = gelu(linear(copy_to_tp(x, tp), p["mlp1"]))
+    return row_linear(h, p["mlp2"], tp)

@@ -11,6 +11,15 @@ K/V into the cache buffers in place (the reference returns an updated
 cache; here the returned cache is the same object, updated). ``remat``
 wraps each layer in ``torch.utils.checkpoint`` where the reference wraps
 its scan body in ``jax.checkpoint``.
+
+Tensor parallelism: the functions that take ``tp`` (a
+``parallel.sharded.TensorParallel``, None without it) run on the rank's
+Megatron blocks of the parameters (``parallel.shard_params``) with the
+rank's share of the heads, ``cfg``'s head count over ``tp.size``; the
+head width stays ``cfg``'s. The layer norms, the embeddings and the f32
+logits are replicated, so every rank computes the same logits. A layer
+whose parameters are FSDP slices (``parallel.sharded.FSDPBlock``)
+gathers them where it runs, and again when its backward recomputes it.
 """
 
 from __future__ import annotations
@@ -24,6 +33,7 @@ from torch.utils.checkpoint import checkpoint
 from ..config import WhisperConfig
 from ..ops.kv_init import fused_kv_init_int8, quantize_kv_heads
 from ..ops.precision import div_ieee, full_fp32
+from ..parallel.sharded import FSDPBlock, copy_to_tp, local_heads
 from .convert import flatten_params, params_to
 from .layers import (
     attention_block,
@@ -34,6 +44,7 @@ from .layers import (
     linear,
     mlp_block,
     merge_heads,
+    row_linear,
     multi_head_attention,
     multi_head_attention_beam_cache,
     multi_head_attention_int8kv,
@@ -126,27 +137,37 @@ def init_params(cfg: WhisperConfig, seed: int = 0, device=None) -> Params:
 # -- encoder --------------------------------------------------------------
 
 def _layer(body, remat: bool, *args):
-    """One layer, rematerialized in the backward when ``remat``."""
+    """One layer, rematerialized in the backward when ``remat`` (always
+    for a layer of FSDP slices, so the backward gathers them again)."""
+    if any(isinstance(a, FSDPBlock) for a in args):
+        def gathered(*a):
+            return body(*[x.materialize() if isinstance(x, FSDPBlock) else x
+                          for x in a])
+
+        if torch.is_grad_enabled():
+            return checkpoint(gathered, *args, use_reentrant=False)
+        return gathered(*args)
     if remat:
         return checkpoint(body, *args, use_reentrant=False)
     return body(*args)
 
 
 def encode(params: Params, cfg: WhisperConfig, mel, dtype=torch.float32,
-           remat: bool = False):
+           remat: bool = False, tp=None):
     """Audio encoder: (B, 2 * n_audio_ctx, n_mels) -> (B, n_audio_ctx, d).
 
     remat=True checkpoints each encoder layer (only relevant to a full
     fine-tune: a frozen encoder runs without autograd).
     """
     enc = params["encoder"]
+    H = local_heads(cfg.n_audio_head, tp)
 
     def body(x, block):
         h, _ = attention_block(
-            layer_norm(x, block["attn_ln"]), block["attn"], cfg.n_audio_head
+            layer_norm(x, block["attn_ln"]), block["attn"], H, tp=tp
         )
         x = x + h
-        return x + mlp_block(layer_norm(x, block["mlp_ln"]), block)
+        return x + mlp_block(layer_norm(x, block["mlp_ln"]), block, tp)
 
     with full_fp32():
         x = mel.to(dtype)
@@ -166,7 +187,7 @@ embed_audio = encode
 # -- decoder (teacher forcing / full sequence) ----------------------------
 
 def decoder_hidden(params: Params, cfg: WhisperConfig, tokens, audio_features,
-                   dtype=torch.float32, remat: bool = False):
+                   dtype=torch.float32, remat: bool = False, tp=None):
     """Decoder final hidden states (B, T, d), before the logits product.
 
     remat=True checkpoints each layer, its cross K/V projections included
@@ -174,27 +195,29 @@ def decoder_hidden(params: Params, cfg: WhisperConfig, tokens, audio_features,
     """
     dec = params["decoder"]
     T = tokens.shape[1]
+    H = local_heads(cfg.n_text_head, tp)
 
     def body(x, block, audio_features, mask):
         xa_k = linear(audio_features, block["cross_attn"]["key"])
         xa_v = linear(audio_features, block["cross_attn"]["value"])
         h, _ = attention_block(
             layer_norm(x, block["attn_ln"]), block["attn"],
-            cfg.n_text_head, mask=mask,
+            H, mask=mask, tp=tp,
         )
         x = x + h
         h, _ = attention_block(
             layer_norm(x, block["cross_attn_ln"]), block["cross_attn"],
-            cfg.n_text_head, kv=(xa_k, xa_v),
+            H, kv=(xa_k, xa_v), tp=tp,
         )
         x = x + h
-        return x + mlp_block(layer_norm(x, block["mlp_ln"]), block)
+        return x + mlp_block(layer_norm(x, block["mlp_ln"]), block, tp)
 
     with full_fp32():
         x = dec["token_embedding"][tokens].to(dtype)
         x = x + dec["positional_embedding"][:T].to(dtype)
         mask = causal_mask(T, device=x.device)
-        audio_features = audio_features.to(dtype)
+        # the cross K/V are column-parallel products of the features
+        audio_features = copy_to_tp(audio_features.to(dtype), tp)
         for block in dec["blocks"]:
             x = _layer(body, remat, x, block, audio_features, mask)
         return layer_norm(x, dec["ln"])
@@ -202,7 +225,7 @@ def decoder_hidden(params: Params, cfg: WhisperConfig, tokens, audio_features,
 
 def decoder_logits(params: Params, cfg: WhisperConfig, tokens, audio_features,
                    dtype=torch.float32, remat: bool = False,
-                   bf16_head: bool = False):
+                   bf16_head: bool = False, tp=None):
     """Teacher-forced decoder: (B, T) x (B, T_a, d) -> (B, T, n_vocab) f32.
 
     bf16_head: round the logits product's two operands to bfloat16 and
@@ -210,7 +233,7 @@ def decoder_logits(params: Params, cfg: WhisperConfig, tokens, audio_features,
     ``preferred_element_type=float32`` (the logits stay float32).
     """
     x = decoder_hidden(params, cfg, tokens, audio_features, dtype=dtype,
-                       remat=remat)
+                       remat=remat, tp=tp)
     emb = params["decoder"]["token_embedding"]
     with full_fp32():
         if bf16_head:
@@ -356,14 +379,18 @@ def init_cache(
     dtype=torch.float32,
     cross_kv_int8: bool = False,
     cross_kv_int4: bool = False,
+    tp=None,
 ) -> DecoderCache:
     """Allocate the self-attention buffers and project the cross K/V once
     per layer (int8- or int4-quantized when ``cross_kv_int8`` /
-    ``cross_kv_int4``)."""
+    ``cross_kv_int4``). With ``tp`` the cache holds the rank's heads: the
+    quantization is per (position, head), so a local head's codes equal
+    the unsharded ones."""
     B = audio_features.shape[0]
     L = cfg.n_text_layer
     n_ctx = max_len or cfg.n_text_ctx
-    d = cfg.n_text_state
+    H = local_heads(cfg.n_text_head, tp)
+    d = cfg.n_text_state * H // cfg.n_text_head
     device = audio_features.device
     audio_features = audio_features.to(dtype)
     quantized = cross_kv_int8 or cross_kv_int4
@@ -382,14 +409,14 @@ def init_cache(
                     and "w" in pk and "w" in pv):
                 k, k_s, v, v_s = fused_kv_init_int8(
                     audio_features, pk["w"], pk.get("b"), pv["w"],
-                    pv.get("b"), cfg.n_text_head, out_dtype=dtype,
+                    pv.get("b"), H, out_dtype=dtype,
                 )
             else:
                 k = linear(audio_features, pk)
                 v = linear(audio_features, pv)
                 if quantized:
-                    k, k_s = quantize(k, cfg.n_text_head)
-                    v, v_s = quantize(v, cfg.n_text_head)
+                    k, k_s = quantize(k, H)
+                    v, v_s = quantize(v, H)
             if quantized:
                 k_scales.append(k_s)
                 v_scales.append(v_s)
@@ -405,22 +432,21 @@ def init_cache(
     )
 
 
-def _cross_attn_default(cfg: WhisperConfig):
+def _cross_attn_default(cfg: WhisperConfig, tp=None):
     """Cross-attention policy: the quantized T-minor cache when scales are
     present, full precision otherwise."""
+    H = local_heads(cfg.n_text_head, tp)
 
     def cross_attn(qc, xk, xv, k_scale, v_scale):
         if k_scale is not None:
-            return multi_head_attention_int8kv(
-                qc, xk, k_scale, xv, v_scale, cfg.n_text_head
-            )
-        return multi_head_attention(qc, xk, xv, cfg.n_text_head)
+            return multi_head_attention_int8kv(qc, xk, k_scale, xv, v_scale, H)
+        return multi_head_attention(qc, xk, xv, H)
 
     return cross_attn
 
 
 def _run_decoder_layers(dec, cfg: WhisperConfig, x, cache: DecoderCache,
-                        self_attn, cross_attn):
+                        self_attn, cross_attn, tp=None):
     """The decoder layers with pluggable attention policies.
 
     self_attn(q, k_cache, v_cache, k_new, v_new) and
@@ -434,7 +460,7 @@ def _run_decoder_layers(dec, cfg: WhisperConfig, x, cache: DecoderCache,
         k_new = linear(xn, block["attn"]["key"])
         v_new = linear(xn, block["attn"]["value"])
         h = self_attn(q, cache.self_k[i], cache.self_v[i], k_new, v_new)
-        x = x + linear(h, block["attn"]["out"])
+        x = x + row_linear(h, block["attn"]["out"], tp)
 
         xn = layer_norm(x, block["cross_attn_ln"])
         qc = linear(xn, block["cross_attn"]["query"])
@@ -444,9 +470,9 @@ def _run_decoder_layers(dec, cfg: WhisperConfig, x, cache: DecoderCache,
             else (None, None)
         )
         h = cross_attn(qc, cache.cross_k[i], cache.cross_v[i], *scales)
-        x = x + linear(h, block["cross_attn"]["out"])
+        x = x + row_linear(h, block["cross_attn"]["out"], tp)
 
-        x = x + mlp_block(layer_norm(x, block["mlp_ln"]), block)
+        x = x + mlp_block(layer_norm(x, block["mlp_ln"]), block, tp)
         news.append((k_new, v_new))
     return x, news
 
@@ -464,6 +490,7 @@ def decode_step(
     cache: DecoderCache,
     pos: int,
     dtype=torch.float32,
+    tp=None,
 ) -> Tuple[torch.Tensor, DecoderCache]:
     """One decoder step: tokens (B, S) at positions [pos, pos + S).
 
@@ -490,14 +517,15 @@ def decode_step(
         blk = torch.arange(S, device=device)
         mask_new = torch.where(blk[None, :] <= blk[:, None], zero, neg)
 
+        H = local_heads(cfg.n_text_head, tp)
+
         def self_attn(q, k_cache, v_cache, k_new, v_new):
             return multi_head_attention_two_part(
-                q, k_cache, v_cache, k_new, v_new,
-                cfg.n_text_head, mask_cache, mask_new,
+                q, k_cache, v_cache, k_new, v_new, H, mask_cache, mask_new,
             )
 
         x, news = _run_decoder_layers(
-            dec, cfg, x, cache, self_attn, _cross_attn_default(cfg)
+            dec, cfg, x, cache, self_attn, _cross_attn_default(cfg, tp), tp
         )
         for i, (k_new, v_new) in enumerate(news):
             cache.self_k[i, :, pos:pos + S] = k_new
@@ -514,6 +542,7 @@ def decode_step_beam(
     pos: int,
     anc,
     dtype=torch.float32,
+    tp=None,
 ) -> Tuple[torch.Tensor, DecoderCache]:
     """One beam step over the unreordered self cache: tokens (B, J), one new
     token a beam at position ``pos``; anc (B, J, n_ctx), the physical row
@@ -531,7 +560,7 @@ def decode_step_beam(
     B, J = tokens.shape
     n_ctx = cache.self_k.shape[2]
     device = tokens.device
-    H = cfg.n_text_head
+    H = local_heads(cfg.n_text_head, tp)
     with full_fp32():
         x = dec["token_embedding"][tokens.reshape(B * J)].to(dtype)
         x = (x + dec["positional_embedding"][pos].to(dtype)).reshape(B * J, 1, -1)
@@ -559,7 +588,8 @@ def decode_step_beam(
                 hc = multi_head_attention(qc, xk, xv, H)
             return hc.reshape(B * J, 1, -1)
 
-        x, news = _run_decoder_layers(dec, cfg, x, cache, self_attn, cross_attn)
+        x, news = _run_decoder_layers(dec, cfg, x, cache, self_attn,
+                                      cross_attn, tp)
         for i, (k_new, v_new) in enumerate(news):
             cache.self_k[i, :, pos] = k_new[:, 0]
             cache.self_v[i, :, pos] = v_new[:, 0]

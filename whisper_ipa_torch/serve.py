@@ -20,8 +20,16 @@ differs) or ``medusa_params`` (Medusa heads, chain, or tree with
 ``beam_size`` and each other; ``draft_k`` alone is inert. The service has
 no n-gram mode, as the reference's has none: n-gram drafts serve in the
 in-flight engine.
-Not ported yet (the constructor raises ``NotImplementedError`` naming the
-ROADMAP item): multi-device meshes and tensor-parallel serving.
+
+Over a mesh (``parallel.make_mesh``, one process a device), every rank
+builds the service with the same arguments: the parameters are
+replicated, or Megatron-sharded over 'model' with ``tensor_parallel``
+(draft parameters replicated). Rank 0 owns the queue and the scheduler;
+each batch's windows are broadcast to the other ranks, which run
+``follow()``. Every rank computes the log-mel of its data block of rows
+(K1) and decodes it, and rank 0 gathers the results in row order.
+Speculative decoding over a tensor-parallel mesh is not ported (ROADMAP
+item [18]).
 The HTTP front end over it is ``cli/serve.py``.
 """
 
@@ -43,6 +51,8 @@ from .decode import (DecodingOptions, decode, medusa_tree_decode,
                      speculative_decode)
 from .models.convert import params_to
 from .ops.mel_kernel import log_mel_spectrogram
+from .parallel import distributed as D
+from .parallel.mesh import batch_sharding, gather_rows, replicate, shard_params
 from .ops.quant import quantize_params
 from .tokenizer import WhisperTokenizer, get_tokenizer
 from .train.loop import resolve_device
@@ -91,15 +101,25 @@ class TranscriptionService:
         tensor_parallel: bool = False,
         tokenizer: Optional[WhisperTokenizer] = None,
     ):
-        unported = {
-            "mesh (ROADMAP queue 1 item [12])": mesh is not None,
-            "tensor_parallel (ROADMAP queue 1 item [12])": tensor_parallel,
-        }
-        missing = [name for name, used in unported.items() if used]
-        if missing:
-            raise NotImplementedError(
-                "not ported to the PyTorch service yet: " + ", ".join(missing)
-            )
+        if mesh is not None:
+            n_data = mesh.shape.get("data", 1)
+            if batch_size % n_data != 0:
+                raise ValueError(
+                    f"batch_size={batch_size} must be divisible by the "
+                    f"mesh's data axis ({n_data})"
+                )
+            if quant_bits is not None and tensor_parallel:
+                raise ValueError(
+                    "tensor_parallel serving with quant_bits is not "
+                    "supported (TP sharding rules address unquantized "
+                    "weight paths)"
+                )
+            if tensor_parallel and (draft_params is not None
+                                    or medusa_params is not None):
+                raise NotImplementedError(
+                    "speculative decoding over a tensor-parallel mesh is "
+                    "not ported (ROADMAP queue 1 item [18])"
+                )
         if (draft_params is not None or medusa_params is not None) and (
             beam_size is not None
         ):
@@ -112,7 +132,11 @@ class TranscriptionService:
             raise ValueError("draft_params requires draft_cfg")
         if medusa_tree is not None and medusa_params is None:
             raise ValueError("medusa_tree needs medusa_params")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.tp = (mesh.tp if mesh is not None and tensor_parallel
+                   else None)
+        self.device = (mesh.device if mesh is not None
+                       else resolve_device(device))
         self.draft_cfg = draft_cfg
         self.draft_k = draft_k
         self.draft_params = (None if draft_params is None
@@ -122,6 +146,13 @@ class TranscriptionService:
         self.medusa_tree = tuple(medusa_tree) if medusa_tree else None
         if quant_bits is not None:
             params = quantize_params(params, bits=quant_bits)
+        if mesh is not None:
+            params = shard_params(mesh, params,
+                                  tensor_parallel=tensor_parallel)
+            if self.draft_params is not None:
+                self.draft_params = replicate(mesh, self.draft_params)
+            if self.medusa_params is not None:
+                self.medusa_params = replicate(mesh, self.medusa_params)
         self.params = params_to(params, self.device)
         self.cfg = cfg
         self.batch_size = batch_size
@@ -143,8 +174,12 @@ class TranscriptionService:
         self._stop = threading.Event()
         self._stats_lock = threading.Lock()
         self._stats = {"requests": 0, "batches": 0, "windows": 0}
-        self._thread = threading.Thread(target=self._scheduler, daemon=True)
-        self._thread.start()
+        self._thread = None
+        self._leader = mesh is None or torch.distributed.get_rank() == 0
+        if self._leader:
+            self._thread = threading.Thread(target=self._scheduler,
+                                            daemon=True)
+            self._thread.start()
 
     # -- client API -------------------------------------------------------
 
@@ -178,7 +213,28 @@ class TranscriptionService:
 
     def close(self):
         self._stop.set()
-        self._thread.join(timeout=5)
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+
+    # -- over a mesh: rank 0 leads, the others follow ----------------------
+
+    _STOP, _NOOP, _BATCH = 0, 1, 2
+    IDLE_BEAT_SEC = 5.0  # an idle leader's heartbeat to the followers
+
+    def _command(self, cmd: int) -> int:
+        """Rank 0's command to every rank (a broadcast over the world)."""
+        t = torch.tensor([cmd], dtype=torch.long, device=self.device)
+        return int(D.broadcast(t, src=0)[0])
+
+    def follow(self) -> None:
+        """A follower rank's loop: run each batch rank 0 broadcasts, until
+        it stops (``close()`` on rank 0)."""
+        while True:
+            cmd = self._command(self._NOOP)
+            if cmd == self._STOP:
+                return
+            if cmd == self._BATCH:
+                self._decode_windows(None)
 
     # -- scheduler --------------------------------------------------------
 
@@ -204,9 +260,24 @@ class TranscriptionService:
             n_windows += len(req.chunks)
         return batch
 
-    def _decode_windows(self, group: List[np.ndarray]):
-        """One fixed-size batch of 30 s windows -> DecodingResults."""
-        audio = torch.from_numpy(np.stack(group)).to(self.device)
+    def _decode_windows(self, group: Optional[List[np.ndarray]]):
+        """One fixed-size batch of 30 s windows -> DecodingResults. Over a
+        mesh every rank calls it (a follower with ``group`` None): rank
+        0's windows are broadcast, each rank decodes its data block, and
+        rank 0 gets every row's result."""
+        if self.mesh is None:
+            return self._decode_rows(
+                torch.from_numpy(np.stack(group)).to(self.device))
+        audio = torch.empty((self.batch_size, N_SAMPLES), dtype=torch.float32,
+                            device=self.device)
+        if group is not None:
+            audio.copy_(torch.from_numpy(np.stack(group)))
+        D.broadcast(audio, src=0)
+        mine = batch_sharding(self.mesh, 2).local_block(audio)
+        results = self._decode_rows(mine)
+        return gather_rows(self.mesh, results, self.batch_size)
+
+    def _decode_rows(self, audio: torch.Tensor):
         with torch.inference_mode():
             mels = log_mel_spectrogram(audio, n_mels=self.cfg.n_mels)
         if self.medusa_tree is not None:
@@ -231,20 +302,30 @@ class TranscriptionService:
                 draft_mel=draft_mels, tokenizer=self.tokenizer,
             )
         return decode(
-            self.params, self.cfg, mels, self.options, tokenizer=self.tokenizer
+            self.params, self.cfg, mels, self.options, tokenizer=self.tokenizer,
+            tp=self.tp,
         )
 
     def _scheduler(self):
+        beat = time.time()
         while not self._stop.is_set():
             batch = self._collect()
             if not batch:
+                if self.mesh is not None and time.time() - beat > self.IDLE_BEAT_SEC:
+                    self._command(self._NOOP)
+                    beat = time.time()
                 continue
+            beat = time.time()
             try:
                 self._run_batch(batch)
             except Exception as e:  # resolve the futures with the error
                 for req in batch:
                     if not req.future.done():
                         req.future.set_exception(e)
+                if self.mesh is not None:
+                    raise  # the followers cannot be told: stop the leader
+        if self.mesh is not None:
+            self._command(self._STOP)
 
     def _run_batch(self, batch: List[_Request]):
         windows: List[np.ndarray] = []
@@ -261,6 +342,8 @@ class TranscriptionService:
             group = group + [np.zeros(N_SAMPLES, np.float32)] * (
                 self.batch_size - n_real
             )
+            if self.mesh is not None:
+                self._command(self._BATCH)
             results = self._decode_windows(group)
             with self._stats_lock:
                 self._stats["batches"] += 1

@@ -40,7 +40,7 @@ reference's fixed ``lax.scan`` does, with no all-halted check, so
 ``spec_rounds`` counts the rounds asked for, as the reference's.
 
 Not ported (the constructor raises ``NotImplementedError`` naming the
-ROADMAP item): slot or tensor sharding over a mesh (item [12]). The
+ROADMAP item): slot or tensor sharding over a mesh (item [18]). The
 reference's executable cache (``aot_call``) has no counterpart (item
 [14]).
 """
@@ -497,8 +497,8 @@ class ContinuousBatcher:
             raise ValueError(
                 "draft and target must share tokenizer and mel size")
         unported = {
-            "mesh (ROADMAP queue 1 item [12])": mesh is not None,
-            "tensor_parallel (ROADMAP queue 1 item [12])": tensor_parallel,
+            "mesh (ROADMAP queue 1 item [18])": mesh is not None,
+            "tensor_parallel (ROADMAP queue 1 item [18])": tensor_parallel,
         }
         missing = [name for name, used in unported.items() if used]
         if missing:

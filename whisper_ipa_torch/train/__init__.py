@@ -1,4 +1,5 @@
-"""Single-device fine-tuning: loss, optimizer, step, checkpoints, loop."""
+"""Fine-tuning: loss, optimizer, step (one device or a mesh), checkpoints,
+loop."""
 
 from .checkpoints import (
     check_vocab_provenance,
@@ -16,7 +17,13 @@ from .logger import (
 from .loop import train, validate
 from .loss import compute_loss, eot_loss_mask, masked_cross_entropy
 from .optimizer import Optimizer, OptState, make_schedule
-from .step import TrainState, create_train_state, train_step
+from .step import (
+    TrainState,
+    create_train_state,
+    create_train_state_zero1,
+    make_zero1_step,
+    train_step,
+)
 
 __all__ = [
     "OptState",
@@ -27,10 +34,12 @@ __all__ = [
     "compute_loss",
     "console_step_line",
     "create_train_state",
+    "create_train_state_zero1",
     "eot_loss_mask",
     "get_hardware_info",
     "latest_checkpoint",
     "make_schedule",
+    "make_zero1_step",
     "masked_cross_entropy",
     "restore_checkpoint",
     "save_best_checkpoint",

@@ -18,6 +18,12 @@ under ``.inner_opt_state`` beside ``.mini_step``, ``.gradient_step`` and
 ``.acc_grads`` with gradient accumulation (``optax.MultiSteps``). A file
 whose keys do not match this run's layout raises. Orbax checkpoints are
 not ported.
+
+A sharded state (``state.layout``: TP blocks, ZeRO-1 moment slices, FSDP
+parameter slices) saves the same files one rank would: every rank joins
+the all-gathers of its blocks, rank 0 writes, and the others wait on a
+barrier. Restore reads the file on the host and moves each rank's block
+to its device, so no device holds the whole tree.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from datetime import datetime
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..models import safetensors_io
 from ..models.convert import (
@@ -38,8 +45,40 @@ from ..models.convert import (
     params_from_flat,
     save_safetensors,
 )
+from ..models.convert import unflatten_params
+from ..parallel.mesh import place_params
 from .optimizer import OptState
 from .step import TrainState
+
+
+def _gathered_params(state: TrainState):
+    lay = state.layout
+    return unflatten_params({
+        n: lay.params[n].gather(t)
+        for n, t in flatten_params(state.params).items()
+    })
+
+
+def _gathered(state: TrainState) -> TrainState:
+    """The whole state from the ranks' blocks (a collective)."""
+    lay, opt = state.layout, state.opt_state
+
+    def table(values, shardings):
+        return {n: shardings[n].gather(t) for n, t in values.items()}
+
+    return TrainState(
+        step=state.step,
+        params=_gathered_params(state),
+        opt_state=OptState(
+            count=opt.count,
+            mu=table(opt.mu, lay.opt.mu),
+            nu=table(opt.nu, lay.opt.nu),
+            schedule_count=opt.schedule_count,
+            mini_step=opt.mini_step,
+            gradient_step=opt.gradient_step,
+            acc_grads=table(opt.acc_grads, lay.opt.acc_grads),
+        ),
+    )
 
 
 def _keypath(name: str) -> str:
@@ -98,8 +137,20 @@ def save_checkpoint(
     save_opt_state: bool = True,
     vocab_provenance: Optional[str] = None,
 ) -> str:
-    """Write checkpoint-{step}/ with weights, metadata, and opt state."""
+    """Write checkpoint-{step}/ with weights, metadata, and opt state
+    (a collective for a sharded state: rank 0 writes)."""
     checkpoint_dir = os.path.join(output_dir, f"checkpoint-{step}")
+    if state.layout is not None:
+        whole = _gathered(state)
+        if dist.get_rank() == 0:
+            save_checkpoint(
+                whole, step, loss, output_dir, logger=logger,
+                start_time=start_time, learning_rate=learning_rate,
+                save_opt_state=save_opt_state,
+                vocab_provenance=vocab_provenance,
+            )
+        dist.barrier()
+        return checkpoint_dir
     os.makedirs(checkpoint_dir, exist_ok=True)
     save_safetensors(
         os.path.join(checkpoint_dir, "model.safetensors"), state.params
@@ -135,8 +186,16 @@ def save_checkpoint(
 def save_best_checkpoint(
     state: TrainState, step: int, pfer: float, per: float, output_dir: str
 ) -> str:
-    """Overwrite best-checkpoint/ (weights + training_state.json)."""
+    """Overwrite best-checkpoint/ (weights + training_state.json); a
+    collective for a sharded state, as ``save_checkpoint``."""
     best_dir = os.path.join(output_dir, "best-checkpoint")
+    if state.layout is not None:
+        params = _gathered_params(state)
+        if dist.get_rank() == 0:
+            save_best_checkpoint(TrainState(step, params, state.opt_state),
+                                 step, pfer, per, output_dir)
+        dist.barrier()
+        return best_dir
     if os.path.isdir(best_dir):
         shutil.rmtree(best_dir)
     os.makedirs(best_dir, exist_ok=True)
@@ -179,7 +238,9 @@ def restore_checkpoint(
     """Resume: rebuild the TrainState (params, optimizer state, step) and
     read the metadata. The optimizer layout (frozen encoder, accumulation,
     schedule) is the template's; a file written for another layout raises
-    ``ValueError``."""
+    ``ValueError``. A sharded template (``layout``) gets each rank's
+    blocks, cut on the host."""
+    layout = state_template.layout
     device = flatten_params(state_template.params)[
         "decoder.token_embedding"
     ].device
@@ -188,8 +249,11 @@ def restore_checkpoint(
             os.path.join(checkpoint_dir, "model.safetensors")
         ),
         fmt="mlx",
-        device=device,
+        device="cpu" if layout is not None else device,
     )
+    global_shapes = {n: t.shape for n, t in flatten_params(params).items()}
+    if layout is not None:
+        params = place_params(params, unflatten_params(layout.params))
     meta_path = os.path.join(checkpoint_dir, "training_state.json")
     meta: Dict[str, Any] = {}
     if os.path.isfile(meta_path):
@@ -230,10 +294,16 @@ def restore_checkpoint(
             if name not in table:
                 continue  # a frozen tensor's (zero) accumulator
             like = table[name]
+            if layout is not None:
+                block = getattr(layout.opt, fld)[name].local_block(
+                    saved.reshape(global_shapes[name]))
+                table[name] = block.to(device=like.device, dtype=like.dtype)
+                continue
             table[name] = saved.reshape(like.shape).to(
                 device=like.device, dtype=like.dtype
             )
-    return TrainState(step=step, params=params, opt_state=opt), meta
+    return TrainState(step=step, params=params, opt_state=opt,
+                      layout=layout), meta
 
 
 def check_vocab_provenance(

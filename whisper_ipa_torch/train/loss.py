@@ -49,19 +49,22 @@ def compute_loss(
     remat: bool = False,
     blockwise: bool = False,
     bf16_head: bool = False,
+    tp=None,
 ):
     """CE loss for a batch.
 
     mel: (B, 2 * n_audio_ctx, n_mels); tokens: (B, S) with the SOT
     sequence + IPA + EOT padding. ``audio_features`` (B, n_audio_ctx, d)
     replaces the encoder when given (cached frozen-encoder features).
+    ``tp``: the tensor-parallel group when ``params`` are Megatron blocks.
     """
     if audio_features is None:
         if freeze_encoder:
             with torch.no_grad():
-                audio_features = encode(params, cfg, mel, dtype=dtype)
+                audio_features = encode(params, cfg, mel, dtype=dtype, tp=tp)
         else:
-            audio_features = encode(params, cfg, mel, dtype=dtype, remat=remat)
+            audio_features = encode(params, cfg, mel, dtype=dtype, remat=remat,
+                                    tp=tp)
 
     decoder_input = tokens[:, :-1]
     target_tokens = tokens[:, 1:]
@@ -71,7 +74,7 @@ def compute_loss(
         # memory-efficient path: never materializes (B, T, V) logits
         hidden = decoder_hidden(
             params, cfg, decoder_input, audio_features, dtype=dtype,
-            remat=remat,
+            remat=remat, tp=tp,
         )
         B, T, d = hidden.shape
         return blockwise_cross_entropy(
@@ -83,7 +86,7 @@ def compute_loss(
 
     logits = decoder_logits(
         params, cfg, decoder_input, audio_features, dtype=dtype,
-        remat=remat, bf16_head=bf16_head,
+        remat=remat, bf16_head=bf16_head, tp=tp,
     )
     return masked_cross_entropy(logits, target_tokens, mask)
 

@@ -143,9 +143,15 @@ class Optimizer:
 
     @torch.no_grad()
     def step(self, flat_params: Dict[str, torch.Tensor],
-             grads: Dict[str, torch.Tensor], state: OptState) -> None:
+             grads: Dict[str, torch.Tensor], state: OptState,
+             reduce_sq: Optional[Callable] = None) -> bool:
         """Apply one call's gradients: update ``state`` and, on an update
-        call, the trainable tensors of ``flat_params`` in place."""
+        call, the trainable tensors of ``flat_params`` in place. Returns
+        whether this call updated them.
+
+        reduce_sq: for sharded tensors, a function from {name: the local
+        block's sum of squared gradients} to the whole tensor's (the
+        clip's norm is the whole tensor's, ``train/step.py``)."""
         if self.accum_steps > 1:
             n = state.mini_step
             for name, g in grads.items():
@@ -153,14 +159,16 @@ class Optimizer:
                 acc.copy_(acc + (g - acc) / float(n + 1))
             state.mini_step = (n + 1) % self.accum_steps
             if n != self.accum_steps - 1:
-                return
+                return False
             grads = {k: v.clone() for k, v in state.acc_grads.items()}
             for acc in state.acc_grads.values():
                 acc.zero_()
             state.gradient_step += 1
-        self._adamw(flat_params, grads, state)
+        self._adamw(flat_params, grads, state, reduce_sq)
+        return True
 
-    def _adamw(self, flat_params, grads, state: OptState) -> None:
+    def _adamw(self, flat_params, grads, state: OptState,
+               reduce_sq: Optional[Callable] = None) -> None:
         count = state.count + 1
         device = next(iter(grads.values())).device
         f32 = dict(dtype=torch.float32, device=device)
@@ -171,10 +179,14 @@ class Optimizer:
             state.schedule_count += 1
         else:
             lr = self.learning_rate
+        if self.max_grad_norm is not None:
+            sq = {name: (g * g).sum() for name, g in grads.items()}
+            if reduce_sq is not None:
+                sq = reduce_sq(sq)
         for name, g in grads.items():
             p = flat_params[name]
             if self.max_grad_norm is not None:
-                norm = torch.sqrt((g * g).sum())
+                norm = torch.sqrt(sq[name])
                 g = g * torch.clamp_max(self.max_grad_norm / (norm + 1e-6), 1.0)
             # b1 * mu in the moment's dtype, b1 rounded to it too (a bf16
             # moment decays by bf16(0.9) = 0.8984375), as optax does
