@@ -59,10 +59,9 @@ weights from seed 0:
             window's tokens held to decode() on its K1 log-mel under the
             near-tie rule, K1/K2/K4 launches equal to the prediction from
             the engine's joins and steps; the stream again with joins that
-            rewrite the joiners' rows only, at 1 and 16 steps a sync,
-            adaptive, in f32 and with int4 weights (K7); the join rewrite's
-            drift; cli.serve --continuous over HTTP, with 503s past
-            --max-pending
+            rewrite the joiners' rows only, adaptive, in f32 and with int4
+            weights (K7); the join rewrite's drift; cli.serve --continuous
+            over HTTP, with 503s past --max-pending
   speculative decoding at whisper-small on the serving batch (bf16, int8
             cache, K 4): a self-draft, a whisper-tiny draft, n-gram, a
             Medusa chain and tree, each held to decode() under the
@@ -101,8 +100,15 @@ weights from seed 0:
             under the near-tie rule), decoder-only DP=2, ZeRO-1 and FSDP
             steps at global batch 12 and a TP=2 full fine-tune step (K5
             on 6 local heads), each against the one-rank run, with each
-            rank's launches and local shapes; K2, K4 and K5 held to their
-            plain versions at those shapes in each rank
+            rank's launches and local shapes; then the in-flight engine
+            at TP=2 (also with adaptive sync, whose long chunks the
+            all-halted check stops at the same step on both ranks), at
+            DP=2 (4 slots a rank) and at TP=2 with a Medusa tree, and the service's whisper-tiny draft speculation at
+            TP=2, on a seeded stream of 6 requests, each held to decode()
+            under the near-tie rule beside the engine alone on one rank,
+            launches as predicted from each rank's installs, steps and
+            batches; K2, K4 and K5 held to their plain versions at those
+            shapes in each rank
 
 make -C native builds the host library of the edit-distance and WAV
 cores first (the metrics take their NumPy paths where it does not build;
@@ -1581,14 +1587,14 @@ class JoinDrift:
         self.slots = len(self.eng._slots)
         self.eng = None  # the engine's cache is freed with the engine
 
-    def step(self, params, cfg, cache, tokens, pos, dtype):
+    def step(self, params, cfg, cache, tokens, pos, dtype, tp=None):
         n = tokens.shape[1] - 1
         starts = pos.tolist()
         saved = [(b, p, cache.self_k[:, b, p:p + n].clone(),
                   cache.self_v[:, b, p:p + n].clone())
                  for b, p in enumerate(starts)
                  if p > 0 and self.eng._slots[b] is not None]
-        cache = self.orig(params, cfg, cache, tokens, pos, dtype=dtype)
+        cache = self.orig(params, cfg, cache, tokens, pos, dtype=dtype, tp=tp)
         for b, p, k, v in saved:
             dk = float((cache.self_k[:, b, p:p + n].float() - k.float()).abs().max())
             dv = float((cache.self_v[:, b, p:p + n].float() - v.float()).abs().max())
@@ -1840,12 +1846,11 @@ def phase_engine(torch, dev, cfg, params, tok, by_path):
     CLI's setting (bf16, int8 cross cache, 16 slots, 64 tokens, 4 steps a
     sync, join fast sync, prewarmed) on a stream of 24 requests arriving
     20-60 ms apart, one cancelled and one with a 0.2 s deadline; the same
-    stream with joins rewriting the joiners' rows only, at 16 steps a sync
-    (1 step a sync is the path of the join fast sync's chunks), adaptive,
-    in f32 (both rewrites) and with int4 weights; then cli.serve
-    --continuous over HTTP. Returns the stream, its bf16 oracle, mels and
-    near-tie bound and the bf16 run's numbers, for
-    phase_engine_speculative."""
+    stream with joins rewriting the joiners' rows only, with adaptive sync
+    (long chunks of 16 steps while nothing waits to join), in f32 (both
+    rewrites) and with int4 weights; then cli.serve --continuous over
+    HTTP. Returns the stream, its bf16 oracle, mels and near-tie bound and
+    the bf16 run's numbers, for phase_engine_speculative."""
     import whisper_ipa_torch.serve_continuous as sc
     from whisper_ipa_torch.models import params_to
     from whisper_ipa_torch.ops.quant import quantize_params
@@ -1904,11 +1909,12 @@ def phase_engine(torch, dev, cfg, params, tok, by_path):
     for name, kw in (
         ("engine bf16", {}),
         ("engine bf16 joiners-only rewrite", dict(restore=True)),
-        ("engine bf16 steps_per_sync 16", dict(steps_per_sync=16)),
         ("engine bf16 adaptive", dict(adaptive_sync=True)),
     ):
         runs[name] = serve_stream(name, params, oracle, mels, eps_bf16, **kw)
     by_path["engine bf16"] = runs["engine bf16"]["launches"]
+    require(runs["engine bf16 adaptive"]["stats"]["long_chunks"] > 0,
+            "engine bf16 adaptive: long chunks ran")
 
     f32_oracle, f32_mels = engine_oracle(torch, dev, cfg, params, tok, clips,
                                          False)
@@ -3290,16 +3296,16 @@ class TreeDrift:
     def __exit__(self, *exc):
         self.mt.tree_round = self.orig
 
-    def round(self, *args):
+    def round(self, *args, **kw):
         # (params, heads, cfg, cache, tokens_buf, hidden, lens, suppress,
-        #  blank, n_prefix, tree, dtype), as _tree_decode passes them
+        #  blank, n_prefix, tree, dtype) and tp, as _tree_decode passes them
         cache, lens, tree = args[3], args[6].tolist(), args[10]
         R = self.mt._tree_tables(tuple(tuple(n) for n in tree))[5] + 2
         prev = self.prev or lens
         saved = [(b, max(n - R, 0), p, cache.self_k[:, b, max(n - R, 0):p].clone(),
                   cache.self_v[:, b, max(n - R, 0):p].clone())
                  for b, (n, p) in enumerate(zip(lens, prev)) if p > max(n - R, 0)]
-        out = self.orig(*args)
+        out = self.orig(*args, **kw)
         for b, lo, hi, k, v in saved:
             dk = float((out[0].self_k[:, b, lo:hi].float() - k.float()).abs().max())
             dv = float((out[0].self_v[:, b, lo:hi].float() - v.float()).abs().max())
@@ -4165,6 +4171,14 @@ PARALLEL_STEPS = 2
 PARALLEL_LR = 1e-5  # the CLI's default rate
 PARALLEL_FT_BATCH = 4  # the TP full fine-tune's batch
 PARALLEL_TIMEOUT = 900  # seconds the two ranks may take together
+PARALLEL_SLOTS = 8  # the engine over two ranks: 8 slots (4 a rank at DP=2)
+PARALLEL_MAX_NEW = 24  # tokens a window in the engine and service paths
+PARALLEL_REQUESTS = 6  # the seeded stream the mesh paths share
+PARALLEL_SVC_BATCH = 4  # the service's batch: its first 4 requests
+# the adaptive engine's long chunk: 8 x 4 = 32 steps; a slot has at most
+# PARALLEL_MAX_NEW - 1 = 23 tokens left after its join's 1-step chunk, so
+# the all-halted check (every 4th step) stops every long chunk early
+PARALLEL_ADAPTIVE_MULT = 8
 
 
 def free_port() -> int:
@@ -4221,23 +4235,27 @@ def parallel_nccl_one_rank(torch, dev) -> dict:
 def parallel_kernel_checks(torch, dev, heads: int) -> dict:
     """K2, K4 and K5 held to their plain versions at the local shapes the
     ranks' paths give them (``heads`` = whisper-small's 12 / tp): K2 at the
-    TP decode's (16 * heads, 1500, 64) and the fine-tune's (4 * heads, ...),
-    K4 at (16, heads, 1, 64) over T_pad 1536, K5 at the fine-tune's (4 *
-    heads, 1500, 64), bf16, with chip_smoke's bounds (K2 5e-3 or one bf16
-    ulp, K4 2% of max|out|, K5 1e-2 of max|grad|)."""
+    TP decode's (16 * heads, 1500, 64), the fine-tune's (4 * heads, ...),
+    and a joining window's under TP and DP (1 * heads and 1 * 12), K4 at
+    the TP decode's (16, heads, 1, 64) and the engine's (8, heads), (4,
+    12) and (4, heads) over T_pad 1536, K5 at the fine-tune's (4 * heads,
+    1500, 64), bf16, with chip_smoke's bounds (K2 5e-3 or one bf16 ulp, K4
+    2% of max|out|, K5 1e-2 of max|grad|)."""
     from whisper_ipa_torch.ops import attention as at
     from whisper_ipa_torch.ops import decode_attention as da
 
     gen = torch.Generator(device=dev).manual_seed(3)
     bf = torch.bfloat16
     out = {}
-    for batch in (MAIN_BATCH, PARALLEL_FT_BATCH):
-        q, k, v = (torch.randn((batch, heads, 1500, 64), generator=gen,
+    full = heads * PARALLEL_TP
+    for batch, h in ((MAIN_BATCH, heads), (PARALLEL_FT_BATCH, heads),
+                     (1, heads), (1, full)):
+        q, k, v = (torch.randn((batch, h, 1500, 64), generator=gen,
                                device=dev).to(bf) for _ in range(3))
         got = at.fused_attention(q, k, v, 0.125)
         want = at.attention_plain(q, k, v, 0.125)
-        require(bf16_within(got, want, 5e-3), f"K2 ({batch}*{heads}) bf16")
-        out[f"K2 ({batch}*{heads}, 1500, 64)"] = max_abs(got, want)
+        require(bf16_within(got, want, 5e-3), f"K2 ({batch}*{h}) bf16")
+        out[f"K2 ({batch}*{h}, 1500, 64)"] = max_abs(got, want)
     q, k, v, g = (torch.randn((PARALLEL_FT_BATCH, heads, 1500, 64), generator=gen,
                               device=dev).to(bf) for _ in range(4))
     o, lse = at._forward_kernel(q, k, v, 0.125, with_lse=True)
@@ -4247,21 +4265,22 @@ def parallel_kernel_checks(torch, dev, heads: int) -> dict:
               for a, b in zip(got, want))
     require(rel < 1e-2, f"K5 ({PARALLEL_FT_BATCH}*{heads}) bf16")
     out[f"K5 ({PARALLEL_FT_BATCH}*{heads}, 1500, 64)"] = rel
-    codes = lambda: torch.randint(-127, 128, (MAIN_BATCH, heads, 64, 1536),  # noqa: E731
-                                  generator=gen, device=dev).to(torch.int8)
-    scales = lambda: (0.01 + 0.02 * torch.rand(  # noqa: E731
-        (MAIN_BATCH, heads, 1536), generator=gen, device=dev)).contiguous()
-    kc, ks, vc, vs = codes(), scales(), codes(), scales()
-    ks[..., 1500:] = 0.0
-    vs[..., 1500:] = 0.0
-    q = (torch.randn((MAIN_BATCH, heads, 1, 64), generator=gen, device=dev)
-         * 0.125).to(bf)
-    got = da.decode_cross_attention_int8_tminor(q, kc, ks, vc, vs)
-    want = da.decode_attention_plain(q, kc, ks, vc, vs)
-    err = max_abs(got, want)
-    require(err <= 0.02 * float(want.float().abs().max()),
-            f"K4 ({MAIN_BATCH}, {heads}) bf16")
-    out[f"K4 ({MAIN_BATCH}, {heads}, 1, 64)"] = err
+    for b, h in ((MAIN_BATCH, heads), (PARALLEL_SLOTS, heads),
+                 (PARALLEL_SLOTS // 2, full), (PARALLEL_SLOTS // 2, heads)):
+        kc, vc = (torch.randint(-127, 128, (b, h, 64, 1536), generator=gen,
+                                device=dev).to(torch.int8) for _ in range(2))
+        ks, vs = (0.01 + 0.02 * torch.rand((b, h, 1536), generator=gen,
+                                           device=dev) for _ in range(2))
+        ks[..., 1500:] = 0.0
+        vs[..., 1500:] = 0.0
+        q = (torch.randn((b, h, 1, 64), generator=gen, device=dev)
+             * 0.125).to(bf)
+        got = da.decode_cross_attention_int8_tminor(q, kc, ks, vc, vs)
+        want = da.decode_attention_plain(q, kc, ks, vc, vs)
+        err = max_abs(got, want)
+        require(err <= 0.02 * float(want.float().abs().max()),
+                f"K4 ({b}, {h}) bf16")
+        out[f"K4 ({b}, {h}, 1, 64)"] = err
     torch.cuda.synchronize()
     return out
 
@@ -4465,8 +4484,230 @@ def parallel_rank_body(torch, rank: int) -> dict:
         out["tp2 full fine-tune"] = dict(
             losses=[float(loss)], ref_losses=ref["losses"],
             **parallel_agree(whole, ref["params"], ref["start"]))
+    del state, whole, p, ref
+    torch.cuda.empty_cache()
+
+    parallel_engine_paths(torch, rank, dev, cfg, tok, fresh, out)
     out["staged"] = sorted(D.STAGED)
     return out
+
+
+def parallel_mesh_run(torch, eng, clips, gaps) -> dict:
+    """Rank 0 submits the stream at its gaps (tokens streamed by window)
+    while the other ranks follow; each rank counts its launches from 0
+    before its first command (no barrier: rank 0's engine thread may
+    broadcast an idle beat at any time). Returns the launches, the wall
+    and stats, and on rank 0 the results and each request's tokens by
+    window."""
+    reset_counts(torch)
+    t0 = time.time()
+    out = {}
+    if eng._thread is None:
+        eng.follow()
+    else:
+        futs, streamed = [], []
+        for clip, gap in zip(clips, gaps):
+            by_window = {}
+
+            def on_token(d, by_window=by_window):
+                by_window.setdefault(d["window"], []).append(d["token"])
+
+            futs.append(eng.submit(clip, on_token=on_token))
+            streamed.append(by_window)
+            time.sleep(float(gap))
+        out["results"] = [f.result(timeout=600) for f in futs]
+        out["streamed"] = streamed
+        eng.close()
+        require(not eng._thread.is_alive(), "the mesh engine's thread stopped")
+    torch.cuda.synchronize()
+    out.update(wall=time.time() - t0, launches=read_counts(torch),
+               stats=eng.stats())
+    return out
+
+
+ENGINE_MESH_STATS = ("joins", "installs", "steps", "chunks", "fast_chunks",
+                     "long_chunks", "spec_rounds", "spec_emitted",
+                     "spec_slot_rounds")
+
+
+def engine_mesh_cases(torch, cfg, tok, fresh, cases, clips, gaps,
+                      out) -> dict:
+    """The in-flight engine over a mesh, once for each (name, data, model,
+    engine keywords) of ``cases``: ``fresh()`` parameters, bf16, the int8
+    cross cache, PARALLEL_SLOTS slots, PARALLEL_MAX_NEW tokens a window,
+    TP-sharded where model > 1, on the stream ``clips`` at ``gaps``
+    (``parallel_mesh_run``). Records in ``out`` each case's launches
+    ("paths"), their prediction from the rank's installs and steps ("want":
+    K1 once an installed window, K2 once an encoder layer of one, K4 once
+    a decoder layer a single-query step), wall, stats, local shapes and,
+    on rank 0, the steps it asked for ("asked"). Returns the runs by
+    name."""
+    from whisper_ipa_torch.parallel import make_mesh
+    from whisper_ipa_torch.serve_continuous import ContinuousBatcher
+
+    runs = {}
+    for key in ("paths", "want", "walls", "stats", "shapes", "asked"):
+        out.setdefault(key, {})
+    for name, data, model, extra in cases:
+        eng = ContinuousBatcher(
+            fresh(), cfg, mesh=make_mesh(data=data, model=model),
+            tensor_parallel=model > 1, slots=PARALLEL_SLOTS,
+            max_new_tokens=PARALLEL_MAX_NEW, bf16=True, kv_int8=True,
+            tokenizer=tok, **extra)
+        out["shapes"][name] = dict(
+            self_k=list(eng.cache.self_k.shape),
+            K2=[cfg.n_audio_head // model, 1500, 64],
+            K4=[PARALLEL_SLOTS // data, cfg.n_text_head // model, 1, 64])
+        run = parallel_mesh_run(torch, eng, clips, gaps)
+        st = run["stats"]
+        out["want"][name] = {"K1": st["installs"],
+                             "K2": cfg.n_audio_layer * st["installs"],
+                             "K4": cfg.n_text_layer * st["steps"]}
+        out["paths"][name] = run["launches"]
+        out["walls"][name] = run["wall"]
+        out["stats"][name] = {k: st[k] for k in ENGINE_MESH_STATS}
+        if eng._leader:  # the one rank that counts its chunks by kind
+            plain = st["chunks"] - st["fast_chunks"] - st["long_chunks"]
+            out["asked"][name] = (st["fast_chunks"]
+                                  + plain * eng.steps_per_sync
+                                  + st["long_chunks"] * eng.adaptive_rounds)
+        runs[name] = run
+        del eng
+        torch.cuda.empty_cache()
+    return runs
+
+
+def engine_mesh_agree(torch, dev, cfg, tok, fresh, clips, gaps, runs):
+    """Rank 0, after ``engine_mesh_cases``: the engine alone on its card
+    on the same stream (``runs["engine one rank"]``), then decode() of
+    every window with the one-rank parameters, and every run's tokens held
+    to it under the near-tie rule. Returns (agreement by run: windows,
+    equal, near-ties, gaps, tokens, wall, tokens a second; eps; the oracle
+    and its mels by (request, window); ``hold(name, rows)``, which holds
+    more rows to decode() alike)."""
+    from whisper_ipa_torch.serve_continuous import ContinuousBatcher
+
+    full = fresh()
+    eng = ContinuousBatcher(full, cfg, device=dev, slots=PARALLEL_SLOTS,
+                            max_new_tokens=PARALLEL_MAX_NEW, bf16=True,
+                            kv_int8=True, tokenizer=tok)
+    try:
+        runs["engine one rank"] = run_engine(torch, dev, eng, clips, gaps)
+    finally:
+        eng.close()
+    oracle, mels = engine_oracle(torch, dev, cfg, full, tok, clips, bf16=True)
+    oracle = {k: v[:PARALLEL_MAX_NEW] for k, v in oracle.items()}
+    eps = 2 * step0_delta(torch, cfg, full, list(mels.values()), eng.prefix)
+
+    def hold(name, rows):
+        return hold_to_decode(torch, cfg, full, tok, rows, eng.prefix,
+                              eng.suppress, eng.blank, eng.dtype, eps, name)
+
+    agree = {}
+    for name, run in runs.items():
+        rows = [(f"request {i} window {w}", run["streamed"][i].get(w, []), want,
+                 mels[(i, w)], False) for (i, w), want in oracle.items()]
+        equal, near, at = hold(name, rows)
+        emitted = sum(len(r["tokens"]) for r in run["results"])
+        agree[name] = dict(windows=len(rows), equal=equal, near_ties=near,
+                           gaps=at, tokens=emitted, wall=run["wall"],
+                           tokens_per_s=emitted / run["wall"])
+    return agree, eps, oracle, mels, hold
+
+
+def parallel_engine_paths(torch, rank: int, dev, cfg, tok, fresh, out) -> None:
+    """The in-flight engine and the service's speculation over two ranks
+    on the card (gloo), at whisper-small, bf16, the int8 cross cache, 8
+    slots, 24 tokens a window, on a seeded stream of 6 requests (5-40 s,
+    two windows past 30 s) 20-60 ms apart (``engine_mesh_cases``): (a) the
+    engine at TP=2, then at TP=2 with adaptive sync (long chunks of
+    PARALLEL_ADAPTIVE_MULT * 4 steps, each of which the all-halted check
+    stops early), (b) at DP=2 (4 slots a rank), (c) at TP=2 with
+    DEFAULT_TREE on untrained heads; (d) the micro-batch service at TP=2
+    with a whisper-tiny draft (seed 1, replicated), its first 4 requests
+    in one batch. Rank 0 also runs the engine alone on the same stream
+    (tokens a second against the mesh runs) and holds every run's tokens
+    to decode() on the one-rank parameters under the near-tie rule
+    (``engine_mesh_agree``). Each rank's launches are held to the
+    prediction from its own installs, steps and batches."""
+    import torch.distributed as dist
+
+    from whisper_ipa_torch.config import CONFIGS
+    from whisper_ipa_torch.decode.medusa_tree import DEFAULT_TREE
+    from whisper_ipa_torch.models import init_params
+    from whisper_ipa_torch.models.medusa import init_medusa_params
+    from whisper_ipa_torch.parallel import make_mesh
+    from whisper_ipa_torch.serve import TranscriptionService
+
+    clips, gaps = engine_stream(PARALLEL_REQUESTS, seed=70)
+    runs = engine_mesh_cases(torch, cfg, tok, fresh, (
+        ("engine tp2", 1, 2, {}),
+        ("engine tp2 adaptive", 1, 2, dict(
+            adaptive_sync=True, adaptive_mult=PARALLEL_ADAPTIVE_MULT)),
+        ("engine dp2", 2, 1, {}),
+        ("engine tp2 medusa tree", 1, 2, dict(
+            medusa_params=init_medusa_params(cfg, SPEC_K, seed=0, device=dev),
+            medusa_tree=DEFAULT_TREE)),
+    ), clips, gaps, out)
+
+    # (d) the service's draft-model speculation at TP=2, on the first
+    # window of the stream's first requests (one batch)
+    svc_clips = [c[:SAMPLE_RATE * 30] for c in clips[:PARALLEL_SVC_BATCH]]
+    mesh = make_mesh(model=2)
+    tiny = CONFIGS["tiny"]
+    svc = TranscriptionService(
+        fresh(), cfg, device=dev, batch_size=PARALLEL_SVC_BATCH,
+        max_wait_ms=2000, mesh=mesh, tensor_parallel=True,
+        draft_params=init_params(tiny, seed=1, device=dev), draft_cfg=tiny,
+        draft_k=SPEC_K, tokenizer=tok)
+    svc.options = replace(svc.options, sample_len=PARALLEL_MAX_NEW)
+    decoded = []
+    rows = svc._decode_rows
+
+    def spy(audio):  # the rows' DecodingResults, for their tokens
+        res = rows(audio)
+        decoded.extend(r.tokens for r in res)
+        return res
+
+    svc._decode_rows = spy
+    reset_counts(torch)
+    t0 = time.time()
+    if svc._thread is None:
+        svc.follow()
+    else:
+        futs = [svc.submit(c) for c in svc_clips]
+        for f in futs:
+            f.result(timeout=600)
+        svc.close()
+    torch.cuda.synchronize()
+    name = "service tp2 draft"
+    batches = 1
+    out["paths"][name] = read_counts(torch)
+    out["walls"][name] = time.time() - t0
+    out["want"][name] = {"K1": batches, "K2": (cfg.n_audio_layer
+                                               + tiny.n_audio_layer) * batches}
+    out["shapes"][name] = dict(K2=[PARALLEL_SVC_BATCH * cfg.n_audio_head // 2,
+                                   1500, 64])
+    require(len(decoded) == PARALLEL_SVC_BATCH * batches,
+            f"rank {rank}: the service decoded {len(decoded)} rows")
+    out["service_tokens"] = decoded[:PARALLEL_SVC_BATCH]
+    del svc
+    torch.cuda.empty_cache()
+
+    if rank == 0:
+        agree, out["eps"], oracle, mels, hold = engine_mesh_agree(
+            torch, dev, cfg, tok, fresh, clips, gaps, runs)
+        # the service's rows against decode() of their windows
+        rows = [(f"service request {i}", out["service_tokens"][i],
+                 oracle[(i, 0)], mels[(i, 0)], False)
+                for i in range(PARALLEL_SVC_BATCH)]
+        equal, near, at = hold(name, rows)
+        agree[name] = dict(windows=len(rows), equal=equal, near_ties=near,
+                           gaps=at)
+        out["agree"] = agree
+        del hold
+        torch.cuda.empty_cache()
+    dist.barrier()
 
 
 def parallel_rank(rank: int, port: int, out_dir: str) -> None:
@@ -4494,7 +4735,11 @@ def phase_parallel(torch, dev, by_path) -> None:
     decoder-only DP=2, ZeRO-1 and FSDP steps at global batch 12, and a
     TP=2 full fine-tune step (K5 on 6 local heads), each against the
     one-rank run: losses within 2e-3 relative, parameters within a mean
-    10% of the one-rank run's mean update (bf16 activations)."""
+    10% of the one-rank run's mean update (bf16 activations); then the
+    engine and the service's speculation over the two ranks
+    (``parallel_engine_paths``), every window held to decode() under the
+    near-tie rule, the service's two TP ranks decoding equal tokens, each
+    window installed on the ranks that own its slot."""
     import multiprocessing as mp
 
     t_phase = time.time()
@@ -4541,11 +4786,15 @@ def phase_parallel(torch, dev, by_path) -> None:
             + ", ".join(f"{k} {v:.3e}" for k, v in r["checks"].items()))
         for path, counts in r["paths"].items():
             got = nonzero(counts)
-            require(got == want[path], f"rank {r['rank']} {path}: launches "
-                    f"{got}, predicted {want[path]}")
+            # the engine and service paths: from the rank's own installs,
+            # steps and batches
+            pred = nonzero(r["want"].get(path, want.get(path, {})))
+            require(got == pred, f"rank {r['rank']} {path}: launches "
+                    f"{got}, predicted {pred}")
             by_path[f"parallel rank{r['rank']} {path}"] = counts
             log(f"[parallel rank {r['rank']}] {path}: launches {got}, local "
-                f"shapes {r['shapes'][path]}, wall {r['walls'][path]:.2f} s")
+                f"shapes {r['shapes'][path]}, wall {r['walls'][path]:.2f} s"
+                + (f", stats {r['stats'][path]}" if path in r["stats"] else ""))
         log(f"[parallel rank {r['rank']}] staged through host memory (gloo "
             f"with CUDA tensors): {r['staged']}")
     r0 = ranks[0]
@@ -4571,6 +4820,35 @@ def phase_parallel(torch, dev, by_path) -> None:
         require(max(abs(a - b) / abs(b) for a, b in
                     zip(r0[path]["losses"], base)) <= 1e-6,
                 f"{path}: the DP run's losses")
+    one = r0["agree"]["engine one rank"]
+    for path, a in r0["agree"].items():
+        rate = ""
+        if "tokens_per_s" in a:
+            rate = (f"; {a['tokens']} tokens in {a['wall']:.2f} s, "
+                    f"{a['tokens_per_s']:.1f} tokens/s "
+                    f"({a['tokens_per_s'] / one['tokens_per_s']:.3f}x one rank)")
+        log(f"[parallel] {path} (whisper-small, bf16, int8 cache, "
+            f"{PARALLEL_MAX_NEW} tokens): {a['equal']} of {a['windows']} "
+            f"windows equal decode()'s, {a['near_ties']} left it at a "
+            f"near-tie (gaps {a['gaps']}, eps {r0['eps']:.3e}){rate}")
+    require(ranks[0]["service_tokens"] == ranks[1]["service_tokens"],
+            "service tp2 draft: both TP ranks decode the same tokens")
+    # the adaptive TP run: both TP ranks stop each long chunk at the same
+    # step, before the rounds rank 0 asked for
+    path = "engine tp2 adaptive"
+    st = [r["stats"][path] for r in ranks]
+    asked = r0["asked"][path]
+    log(f"[parallel] {path}: {st[0]['long_chunks']} long chunks, steps run "
+        f"{[s['steps'] for s in st]} by rank of {asked} asked")
+    require(st[0]["long_chunks"] > 0 and st[0]["steps"] == st[1]["steps"]
+            < asked, f"{path}: long chunks stopped early on both ranks alike")
+    for path in ("engine tp2", "engine tp2 adaptive", "engine dp2",
+                 "engine tp2 medusa tree"):
+        st = [r["stats"][path] for r in ranks]
+        require(all(s["installs"] for s in st) and sum(
+            s["installs"] for s in st) == (1 if "dp2" in path else 2)
+            * st[0]["joins"], f"{path}: each window installed on the ranks "
+            "that own its slot")
     log(f"[phase_parallel] phase wall {time.time() - t_phase:.1f} s")
 
 

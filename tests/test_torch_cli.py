@@ -482,15 +482,19 @@ def test_serve_continuous_refusals_match_jax(setup, argv):
     assert "--continuous" in str(got.value.code)
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--continuous", "--dp", "2"], "item 18"),
-    (["--continuous", "--tp", "2"], "item 18"),
-    (["--continuous", "--draft-model", "ngram", "--tp", "2"], "item 18"),
+@pytest.mark.parametrize("argv,message", [
+    (["--continuous", "--dp", "2"], "must equal the number of processes"),
+    (["--continuous", "--tp", "2", "--kv-int4"], "int8 cross-KV only"),
+    (["--continuous", "--draft-model", "ngram", "--tp", "2", "--quant-bits",
+      "4"], "--continuous --tp shards float weights"),
 ])
-def test_serve_unported_flags_exit(argv, item):
+def test_serve_unported_flags_exit(argv, message):
+    """``--continuous`` over a mesh runs (tests/test_torch_engine_mesh.py);
+    what still exits: a mesh larger than the torchrun world, and the
+    reference's refusals of the engine's flags, before any rank joins."""
     with pytest.raises(SystemExit) as e:
         serve_cli.build_server(argv + ["--device", "cpu"])
-    assert f"ROADMAP queue 1 {item}" in str(e.value.code)
+    assert message in str(e.value.code)
 
 
 # the reference's engine and speculative-decoding options, with what the
@@ -585,7 +589,7 @@ def test_serve_engine_flags_parse(argv, dest, value, item, monkeypatch):
                     join_fast_sync=True, max_pending=None)
     args = serve_cli.build_parser().parse_args(argv)
     assert {k: getattr(args, k) for k in defaults} == defaults | {dest: value}
-    serve_cli._refuse_unported(args)  # alone: accepted
+    serve_cli._refuse_continuous(args)  # alone: accepted
     if item == "item 10":
         seen = {}
         load = serve_cli.load_or_init_params

@@ -99,11 +99,12 @@ def _mesh(data, model):
 @pytest.mark.parametrize(
     "kw,error,match",
     [
-        (dict(mesh=_mesh(1, 2), tensor_parallel=True, draft_params={},
-              draft_cfg=CFG), NotImplementedError, r"item \[18\]"),
+        (dict(mesh=_mesh(2, 2), tensor_parallel=True, draft_params={},
+              draft_cfg=CFG, batch_size=3), ValueError,
+         "divisible by the mesh's data axis"),
         (dict(mesh=_mesh(1, 2), tensor_parallel=True,
-              medusa_params={"heads": []}), NotImplementedError,
-         r"item \[18\]"),
+              medusa_params={"heads": []}, quant_bits=4), ValueError,
+         "not supported"),
         (dict(mesh=_mesh(3, 1), batch_size=4), ValueError,
          "divisible by the mesh's data axis"),
         (dict(mesh=_mesh(1, 2), tensor_parallel=True, quant_bits=8),
@@ -111,10 +112,11 @@ def _mesh(data, model):
     ],
 )
 def test_unported_options_raise(params, kw, error, match):
-    """Over a mesh the service refuses what the reference refuses (a
-    batch the data axis does not divide, quantized TP) and speculative
-    decoding over a TP mesh (not ported); the multi-rank service runs in
-    tests/test_torch_multirank.py."""
+    """Over a mesh the service refuses what the reference refuses, with
+    speculative decoding as without it: a batch the data axis does not
+    divide, quantized TP. The multi-rank service runs in
+    tests/test_torch_multirank.py, speculation over TP in
+    tests/test_torch_engine_mesh.py."""
     with pytest.raises(error, match=match):
         TranscriptionService(params, CFG, device="cpu", **kw)
 

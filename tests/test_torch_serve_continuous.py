@@ -13,6 +13,7 @@ greedy decode. The engine cases are the JAX package's own
 import threading
 import time
 from dataclasses import replace
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -570,13 +571,20 @@ def test_engine_thread_failure_fails_pending_futures(params, tok, monkeypatch):
     eng.close()
 
 
-@pytest.mark.parametrize("kw", [
-    dict(mesh=object()),
-    dict(tensor_parallel=True),
+def _mesh(data, model):
+    return SimpleNamespace(shape={"data": data, "model": model})
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(mesh=_mesh(1, 1), tensor_parallel=True), "'model' axis > 1"),
+    (dict(mesh=_mesh(3, 1), slots=4), "must divide by the mesh data axis"),
 ])
-def test_unported_options_raise(params, kw):
+def test_unported_options_raise(params, kw, match):
+    """The mesh options the reference refuses: TP without a 'model' axis
+    and slots the 'data' axis does not divide (the engine over a mesh
+    runs in tests/test_torch_engine_mesh.py)."""
     before = threading.active_count()
-    with pytest.raises(NotImplementedError, match=r"item \[18\]"):
+    with pytest.raises(ValueError, match=match):
         ContinuousBatcher(params, CFG, device="cpu", **kw)
     assert threading.active_count() == before  # no engine thread started
 

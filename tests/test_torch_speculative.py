@@ -226,10 +226,11 @@ def test_rows_run_to_the_budget_stay_in_the_buffer(models, mel, toks,
     for name in ("decode_step_multipos", "decode_step_multipos_hidden"):
         inner = getattr(spec_module, name)
 
-        def spy(params, cfg, tokens, cache, pos, dtype=torch.float32, inner=inner):
+        def spy(params, cfg, tokens, cache, pos, dtype=torch.float32, tp=None,
+                inner=inner):
             highest.append((int(pos.max()) + tokens.shape[1] - 1,
                             cache.self_k.shape[2]))
-            return inner(params, cfg, tokens, cache, pos, dtype=dtype)
+            return inner(params, cfg, tokens, cache, pos, dtype=dtype, tp=tp)
 
         monkeypatch.setattr(spec_module, name, spy)
     opts = dict(sample_len=40, suppress_tokens=[-1, EOT])

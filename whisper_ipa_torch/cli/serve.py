@@ -3,7 +3,7 @@ in-flight engine.
 
 Counterpart of ``whisper_ipa_tpu/cli/serve.py`` over the port's
 ``serve.TranscriptionService`` or, with ``--continuous``,
-``serve_continuous.ContinuousBatcher`` on one device.
+``serve_continuous.ContinuousBatcher``, on one device or over a mesh.
 
 POST /transcribe with a WAV body (or JSON {"path": ...}) returns the
 service's result: {"text", "segments", "latency_sec"}, or the engine's
@@ -45,16 +45,19 @@ one).
   python -m whisper_ipa_torch.cli.serve --model small --continuous \
       --draft-model medusa --medusa-weights heads.safetensors --medusa-tree
 
-``--dp`` / ``--tp`` serve the micro-batch service over a mesh: launch
-``--dp x --tp`` processes with torchrun (one a device); rank 0 binds the
-server and the others follow its batches (``TranscriptionService``).
+``--dp`` / ``--tp`` serve over a mesh: launch ``--dp x --tp`` processes
+with torchrun (one a device); rank 0 binds the server and the others
+follow its batches (``TranscriptionService``) or its engine's commands
+(``--continuous``: the slots shard over 'data', and with ``--tp`` the
+weights over 'model'; ``--batch-size`` must divide by ``--dp``). With
+``--dp`` and ``--quant-bits`` every rank holds the quantized weights.
 
   torchrun --nproc-per-node 2 -m whisper_ipa_torch.cli.serve \
       --model small --tp 2 --port 8080
+  torchrun --nproc-per-node 2 -m whisper_ipa_torch.cli.serve \
+      --model small --continuous --tp 2 --port 8080
 
-Not ported, it exits with a message: ``--continuous`` with ``--dp`` /
-``--tp`` > 1 (the engine over a mesh, ROADMAP queue 1 item 18). The
-reference's ``--no-aot-cache`` parses and does nothing: CUDA has no
+The reference's ``--no-aot-cache`` parses and does nothing: CUDA has no
 executable cache to switch off (item 14).
 """
 
@@ -270,13 +273,6 @@ def _refuse_continuous(args) -> None:
         )
 
 
-def _refuse_unported(args) -> None:
-    if args.continuous and args.dp * args.tp > 1:
-        raise SystemExit("--continuous --dp / --tp: the in-flight engine over "
-                         "a mesh is not ported to the PyTorch package yet "
-                         "(ROADMAP queue 1 item 18)")
-
-
 def _mesh(args, device):
     """The --dp x --tp mesh over the torchrun world (None for one
     process): checks the world size and joins the process group."""
@@ -302,7 +298,6 @@ def build_server(argv=None):
     args = build_parser().parse_args(argv)
     if args.continuous:
         _refuse_continuous(args)
-    _refuse_unported(args)
     if args.medusa_tree and args.draft_model != "medusa":
         raise SystemExit("--medusa-tree requires --draft-model medusa")
     device = resolve_device(args.device)
@@ -362,6 +357,8 @@ def build_server(argv=None):
             medusa_params=medusa_params,
             medusa_tree=medusa_tree,
             max_pending=args.max_pending,
+            mesh=mesh,
+            tensor_parallel=args.tp > 1,
             # a long-lived server builds every kernel before binding
             prewarm=args.warmup,
         )

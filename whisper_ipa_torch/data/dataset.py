@@ -18,7 +18,8 @@ files, batches and sampling order:
     ``np.random.default_rng(seed)`` and padding tokens to power-of-two
     buckets
   - ``precompute_features`` caches the frozen encoder's outputs, computed
-    by this package's encoder
+    by this package's encoder (over a mesh: each rank its rows, TP groups
+    together, files written without assuming a shared filesystem)
 """
 
 from __future__ import annotations
@@ -153,51 +154,75 @@ class IPADataset:
 
     def precompute_features(
         self, params, cfg, cache_dir: str, batch_size: int = 16,
-        dtype_name: str = "bfloat16",
+        dtype_name: str = "bfloat16", *, mesh=None,
+        rows: Optional[Sequence[int]] = None,
     ) -> int:
-        """Run the frozen encoder once over the whole dataset and cache the
+        """Run the frozen encoder once over the dataset and cache the
         outputs (float16 on disk, ~4.6 MB/sample for whisper-small).
 
         The encoder is frozen during fine-tuning, so its activations are
         constant per sample — caching them removes ~2/3 of each train
         step's FLOPs (the reference recomputes the encoder every step).
         Returns the number of samples encoded (skips existing entries).
-        The encoder runs on the parameters' device.
+        The encoder runs on the device of ``params["encoder"]``.
+
+        Over a mesh every rank calls it: ``rows`` are the indices this
+        rank reads (its data block; all by default). With a 'model' axis
+        the parameters are the rank's TP blocks, and the ranks of a
+        tensor-parallel group encode the same rows together (the union of
+        the files any of them lacks). Model rank 0 of each group writes the files; after a
+        barrier over the group, a rank that still lacks one (no shared
+        filesystem) writes its own copy. Each file lands under a
+        temporary name and is renamed.
         """
         import torch
+        import torch.distributed as dist
 
         from ..models.convert import flatten_params
         from ..models.whisper import encode
+        from ..parallel import distributed as D
 
-        device = flatten_params(params)["decoder.token_embedding"].device
+        device = next(iter(flatten_params(params["encoder"]).values())).device
         dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[
             dtype_name
         ]
 
         os.makedirs(cache_dir, exist_ok=True)
         self.feature_cache_dir = cache_dir
-        todo = [
-            i for i in range(len(self.data))
-            if not os.path.isfile(
-                self._feature_path(self.data[i]["audio_path"])
-            )
-        ]
-        if not todo:
-            return 0
+        rows = range(len(self.data)) if rows is None else rows
+        paths = {i: self._feature_path(self.data[i]["audio_path"])
+                 for i in rows}
+        todo = [i for i in rows if not os.path.isfile(paths[i])]
+        group = tp = None
+        if mesh is not None and mesh.shape["model"] > 1:
+            group, tp = mesh.model_group, mesh.tp
+            todo = sorted(set().union(*D.all_gather_object(todo, group)))
+        writer = group is None or mesh.model_rank == 0
+        rank = dist.get_rank() if dist.is_initialized() else 0
+
+        def save(i, feat):
+            tmp = f"{paths[i][:-len('.npy')]}.tmp{rank}.npy"
+            np.save(tmp, feat)
+            os.replace(tmp, paths[i])
+
         done = 0
         for start in range(0, len(todo), batch_size):
             idxs = todo[start : start + batch_size]
             mels = np.stack([self.mel(i) for i in idxs])
-            n_real = len(idxs)
             with torch.inference_mode():
                 feats = encode(
-                    params, cfg, torch.from_numpy(mels).to(device), dtype=dtype
+                    params, cfg, torch.from_numpy(mels).to(device),
+                    dtype=dtype, tp=tp,
                 ).to(torch.float16).cpu().numpy()
-            for k, i in enumerate(idxs):
-                np.save(
-                    self._feature_path(self.data[i]["audio_path"]), feats[k]
-                )
-            done += n_real
+            if writer:
+                for k, i in enumerate(idxs):
+                    save(i, feats[k])
+            if group is not None:
+                dist.barrier(group=group)
+                for k, i in enumerate(idxs):
+                    if not os.path.isfile(paths[i]):
+                        save(i, feats[k])
+            done += len(idxs)
             if done % (batch_size * 8) == 0 or done == len(todo):
                 print(f"  encoder cache: {done}/{len(todo)}")
         return done

@@ -152,6 +152,7 @@ def tree_round(
     n_prefix: int,
     tree,
     dtype,
+    tp=None,
 ):
     """One tree verification forward and the greedy acceptance walk.
 
@@ -195,7 +196,7 @@ def tree_round(
 
     logits, cache, hidden = decode_step_block(
         params, cfg, block_tok, cache, block_pos, start, mask_new,
-        write_len=R, dtype=dtype,
+        write_len=R, dtype=dtype, tp=tp,
     )
 
     # -- the greedy choice at every entry (suppress + first-token blank)
@@ -249,6 +250,7 @@ def _tree_decode(
     cross_kv_int8: bool,
     cross_kv_int4: bool,
     tree: Tree,
+    tp=None,
 ):
     """The batched round loop; returns (tokens, sum_logprobs, sot_logits,
     rounds, emitted) as ``speculative._spec_decode`` does."""
@@ -260,13 +262,13 @@ def _tree_decode(
 
     cache = init_cache(
         params, cfg, audio_features, max_len=buf_len, dtype=dtype,
-        cross_kv_int8=cross_kv_int8, cross_kv_int4=cross_kv_int4,
+        cross_kv_int8=cross_kv_int8, cross_kv_int4=cross_kv_int4, tp=tp,
     )
     # the prefix pass; the heads draft from the hidden of the input at
     # lens - 2
     prefix_logits, cache, prefix_hidden = decode_step_multipos_hidden(
         params, cfg, prefix_tokens, cache,
-        torch.zeros(B, dtype=torch.long, device=device), dtype=dtype,
+        torch.zeros(B, dtype=torch.long, device=device), dtype=dtype, tp=tp,
     )
     sot_logits = prefix_logits[:, sot_index]
     hidden_frontier = prefix_hidden[:, n_prefix - 2]
@@ -286,7 +288,7 @@ def _tree_decode(
         rounds = rounds + (~finished).any()
         cache, emit, emit_lp, sel, m, hidden = tree_round(
             params, medusa_params, cfg, cache, tokens_buf, hidden_frontier,
-            lens, suppress_mask, blank_mask, n_prefix, tree, dtype,
+            lens, suppress_mask, blank_mask, n_prefix, tree, dtype, tp=tp,
         )
         # EOT and budget: the chain's contract
         v, has_eot = _accept(emit, m, lens, finished, n_prefix, sample_len,
@@ -313,11 +315,14 @@ def medusa_tree_decode(
     tree: Tree = DEFAULT_TREE,
     tokenizer: Optional[WhisperTokenizer] = None,
     return_stats: bool = False,
+    *,
+    tp=None,
 ) -> List[DecodingResult]:
     """Greedy decode accelerated by tree-verified Medusa drafts; the tokens
     are exactly ``decode(params, cfg, mel, options)``'s. The restrictions
     of chain speculation apply, and the tree may be no deeper than the
-    heads. With ``return_stats`` returns (results, SpeculativeStats)."""
+    heads. With ``return_stats`` returns (results, SpeculativeStats).
+    ``tp`` as in ``speculative_decode`` (the heads stay whole)."""
     check_greedy_options(options, "medusa_tree_decode")
     tree = tuple(tuple(node) for node in tree)
     K = _tree_tables(tree)[5]
@@ -326,14 +331,14 @@ def medusa_tree_decode(
         raise ValueError(f"tree depth {K} exceeds the {n_heads} trained heads")
 
     with torch.inference_mode(), full_fp32():
-        setup = _Setup(params, cfg, mel, options, tokenizer)
+        setup = _Setup(params, cfg, mel, options, tokenizer, tp=tp)
         sample_len = options.sample_len or (cfg.n_text_ctx // 2)
         sample_len = min(sample_len, cfg.n_text_ctx - setup.n_prefix - K - 2)
         tokens, sum_logprobs, sot_logits, rounds, emitted = _tree_decode(
             params, medusa_params, cfg, setup.audio_features,
             setup.prefix_tokens, setup.suppress_mask, setup.blank_mask,
             setup.tokenizer.eot, int(sample_len), setup.dtype,
-            setup.sot_index, options.kv_int8, options.kv_int4, tree,
+            setup.sot_index, options.kv_int8, options.kv_int4, tree, tp=tp,
         )
         results = setup.results(options, tokens, sum_logprobs, sot_logits,
                                 sample_len)

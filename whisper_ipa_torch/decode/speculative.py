@@ -30,6 +30,12 @@ eager loop on device tensors, with no host read inside a round. As in
 only every ``FINISHED_CHECK_EVERY`` rounds; the rounds past the end emit
 nothing, and ``rounds`` counts only rounds in which some row was active,
 so ``SpeculativeStats`` is the reference's.
+
+Over a tensor-parallel group (``tp``) the target's forwards run on the
+rank's Megatron blocks while the draft model and the heads run whole on
+every rank (replicated, as the reference replicates them); the logits and
+the frontier hidden are all-reduced, so every rank drafts, accepts and
+stops alike.
 """
 
 from __future__ import annotations
@@ -156,10 +162,12 @@ def _spec_decode(
     cross_kv_int4: bool,
     ngram: bool,
     medusa_params,
+    tp=None,
 ):
     """The batched round loop; returns (tokens (B, buf_len), sum_logprobs
     (B,), sot_logits (B, n_vocab), rounds, emitted), the last two 0-d
-    device tensors."""
+    device tensors. ``tp``: the target's tensor-parallel group; the draft
+    model and the heads are replicated and run whole on every rank."""
     medusa = medusa_params is not None
     params = cast_decoder_blocks(params, dtype)
     if draft_params is not None:
@@ -171,19 +179,20 @@ def _spec_decode(
 
     tcache = init_cache(
         params, cfg, audio_features, max_len=buf_len, dtype=dtype,
-        cross_kv_int8=cross_kv_int8, cross_kv_int4=cross_kv_int4,
+        cross_kv_int8=cross_kv_int8, cross_kv_int4=cross_kv_int4, tp=tp,
     )
     if medusa:
         prefix_logits, tcache, prefix_hidden = decode_step_multipos_hidden(
             params, cfg, prefix_tokens, tcache,
             torch.zeros(B, dtype=torch.long, device=device), dtype=dtype,
+            tp=tp,
         )
         # head k on h_t proposes token t + k + 2: the first round drafts
         # slots n_prefix.., so it starts from h at n_prefix - 2
         hidden_frontier = prefix_hidden[:, n_prefix - 2]
     else:
         prefix_logits, tcache = decode_step(
-            params, cfg, prefix_tokens, tcache, 0, dtype=dtype
+            params, cfg, prefix_tokens, tcache, 0, dtype=dtype, tp=tp
         )
     dcache = None
     if not (ngram or medusa):
@@ -234,7 +243,7 @@ def _spec_decode(
         # -- target: verify the K drafts in one (K + 1)-query forward
         block = torch.cat([last_tok[:, None], drafts], dim=1)
         tlogits, tcache, block_hidden = decode_step_multipos_hidden(
-            params, cfg, block, tcache, lens - 1, dtype=dtype
+            params, cfg, block, tcache, lens - 1, dtype=dtype, tp=tp
         )
         # tlogits[:, i] predicts the token at slot lens + i
         lg = tlogits + suppress_mask
@@ -287,7 +296,7 @@ class _Setup:
     tokenizer, dtype, the target's encoder output, the prefix (language
     detected per row when asked), the masks."""
 
-    def __init__(self, params, cfg, mel, options, tokenizer):
+    def __init__(self, params, cfg, mel, options, tokenizer, tp=None):
         if tokenizer is None:
             tokenizer = get_tokenizer(
                 multilingual=cfg.multilingual,
@@ -299,7 +308,7 @@ class _Setup:
         self.dtype = torch.bfloat16 if options.fp16 else torch.float32
         self.device = device = _device_of(params)
         self.audio_features = encode(params, cfg, _as_mel(mel, device),
-                                     dtype=self.dtype)
+                                     dtype=self.dtype, tp=tp)
         prefix = initial_tokens(tokenizer, options)
         self.n_prefix = len(prefix)
         self.sot_index = prefix.index(tokenizer.sot)
@@ -308,7 +317,7 @@ class _Setup:
         self.detected_langs = None
         if options.language is None and cfg.multilingual:
             self.detected_langs, _ = detect_language(
-                params, cfg, self.audio_features, tokenizer
+                params, cfg, self.audio_features, tokenizer, tp=tp
             )
             self.prefix_tokens[:, 1] = torch.tensor(
                 [tokenizer.language_token(c) for c in self.detected_langs],
@@ -365,6 +374,8 @@ def speculative_decode(
     tokenizer: Optional[WhisperTokenizer] = None,
     return_stats: bool = False,
     medusa_params=None,
+    *,
+    tp=None,
 ) -> List[DecodingResult]:
     """Greedy decode of ``mel`` with ``params``, accelerated by speculation;
     the tokens are exactly ``decode(params, cfg, mel, options)``'s.
@@ -376,6 +387,11 @@ def speculative_decode(
     is then the number of heads). Requires greedy decoding without
     timestamps: ``temperature == 0``, ``without_timestamps=True``, no beam
     or best-of. With ``return_stats`` returns (results, SpeculativeStats).
+
+    tp: the target's tensor-parallel group (``mesh.tp``) when ``params``
+    are the rank's Megatron blocks, as in ``decode()``; the draft model
+    and the heads stay whole (replicated), so every rank of the group
+    drafts alike, and every rank gets the same tokens.
     """
     medusa = medusa_params is not None
     ngram = draft_params is None and not medusa
@@ -395,7 +411,7 @@ def speculative_decode(
         )
 
     with torch.inference_mode(), full_fp32():
-        setup = _Setup(params, cfg, mel, options, tokenizer)
+        setup = _Setup(params, cfg, mel, options, tokenizer, tp=tp)
         draft_features = None
         if not (ngram or medusa):
             if draft_mel is None:
@@ -420,7 +436,7 @@ def speculative_decode(
             draft_features, setup.prefix_tokens, setup.suppress_mask,
             setup.blank_mask, setup.tokenizer.eot, int(sample_len),
             int(draft_k), setup.dtype, setup.sot_index, options.kv_int8,
-            options.kv_int4, ngram, medusa_params,
+            options.kv_int4, ngram, medusa_params, tp=tp,
         )
         results = setup.results(options, tokens, sum_logprobs, sot_logits,
                                 sample_len)

@@ -604,10 +604,11 @@ def decode_step_multipos(
     cache: DecoderCache,
     pos,
     dtype=torch.float32,
+    tp=None,
 ) -> Tuple[torch.Tensor, DecoderCache]:
     """``decode_step`` with a per-element position vector: pos (B,) long."""
     logits, cache, _ = decode_step_multipos_hidden(
-        params, cfg, tokens, cache, pos, dtype=dtype
+        params, cfg, tokens, cache, pos, dtype=dtype, tp=tp
     )
     return logits, cache
 
@@ -619,6 +620,7 @@ def decode_step_multipos_hidden(
     cache: DecoderCache,
     pos,
     dtype=torch.float32,
+    tp=None,
 ) -> Tuple[torch.Tensor, DecoderCache, torch.Tensor]:
     """One decoder step where element b's S tokens sit at positions
     [pos[b], pos[b] + S); pos is a (B,) long tensor on the tokens' device.
@@ -629,8 +631,10 @@ def decode_step_multipos_hidden(
     reference's ``dynamic_update_slice``, the write does not clamp a start
     that runs off the end: an index past n_ctx raises on the CPU and trips
     a device assert on CUDA (the in-flight engine's budget freeze keeps
-    every write in range). Returns (logits (B, S, n_vocab) f32, cache, the
-    final-LN hidden states (B, S, d)).
+    every write in range). With ``tp`` the cache holds the rank's heads
+    and the hidden states are the all-reduced ones, equal on every rank.
+    Returns (logits (B, S, n_vocab) f32, cache, the final-LN hidden states
+    (B, S, d)).
     """
     dec = params["decoder"]
     B, S = tokens.shape
@@ -651,14 +655,15 @@ def decode_step_multipos_hidden(
         blk = torch.arange(S, device=device)
         mask_new = torch.where(blk[None, :] <= blk[:, None], zero, neg)
 
+        H = local_heads(cfg.n_text_head, tp)
+
         def self_attn(q, k_cache, v_cache, k_new, v_new):
             return multi_head_attention_two_part(
-                q, k_cache, v_cache, k_new, v_new,
-                cfg.n_text_head, mask_cache, mask_new,
+                q, k_cache, v_cache, k_new, v_new, H, mask_cache, mask_new,
             )
 
         x, news = _run_decoder_layers(
-            dec, cfg, x, cache, self_attn, _cross_attn_default(cfg)
+            dec, cfg, x, cache, self_attn, _cross_attn_default(cfg, tp), tp
         )
         rows = torch.arange(B, device=device)[:, None]
         for i, (k_new, v_new) in enumerate(news):
@@ -680,6 +685,7 @@ def decode_step_block(
     mask_new,
     write_len: int,
     dtype=torch.float32,
+    tp=None,
 ) -> Tuple[torch.Tensor, DecoderCache, torch.Tensor]:
     """The general block step of tree verification: per-token positions,
     an explicit in-block mask and a partial K/V write.
@@ -691,8 +697,8 @@ def decode_step_block(
     pos[b, 0] + arange(write_len) (they must be consecutive; the read-only
     draft nodes follow them). As in ``decode_step_multipos_hidden`` the
     write does not clamp a start that runs off the end; callers keep it in
-    range. Returns (logits (B, S, n_vocab) f32, cache, the final-LN hidden
-    states (B, S, d)).
+    range. ``tp`` as in ``decode_step_multipos_hidden``. Returns (logits
+    (B, S, n_vocab) f32, cache, the final-LN hidden states (B, S, d)).
     """
     dec = params["decoder"]
     B, S = tokens.shape
@@ -712,14 +718,15 @@ def decode_step_block(
         if mask_new.dim() == 3:
             mask_new = mask_new[:, None]  # (B, 1, S, S)
 
+        H = local_heads(cfg.n_text_head, tp)
+
         def self_attn(q, k_cache, v_cache, k_new, v_new):
             return multi_head_attention_two_part(
-                q, k_cache, v_cache, k_new, v_new,
-                cfg.n_text_head, mask_cache, mask_new,
+                q, k_cache, v_cache, k_new, v_new, H, mask_cache, mask_new,
             )
 
         x, news = _run_decoder_layers(
-            dec, cfg, x, cache, self_attn, _cross_attn_default(cfg)
+            dec, cfg, x, cache, self_attn, _cross_attn_default(cfg, tp), tp
         )
         rows = torch.arange(B, device=device)[:, None]
         write_pos = pos[:, :1] + torch.arange(write_len, device=device)[None, :]

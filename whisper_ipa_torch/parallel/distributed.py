@@ -229,6 +229,37 @@ def reduce_scatter(t: torch.Tensor, group=None, dim: int = 0) -> torch.Tensor:
     return out.movedim(0, dim)
 
 
+def broadcast_object(obj, src: int = 0):
+    """Global rank ``src``'s picklable ``obj`` on every rank."""
+    box = [obj]
+    dist.broadcast_object_list(box, src=src)
+    return box[0]
+
+
+def broadcast_tensors(named: Optional[dict], src: int = 0) -> dict:
+    """Global rank ``src``'s {name: tensor} as host tensors on every rank
+    of the world (the others pass None): the names, shapes and dtypes
+    pickled, then each tensor's bytes, through the rank's device when the
+    group is NCCL's."""
+    meta = None
+    if dist.get_rank() == src:
+        meta = [(n, tuple(t.shape), t.dtype) for n, t in named.items()]
+    meta = broadcast_object(meta, src)
+    dev = (default_device() if dist.get_backend() == "nccl"
+           else torch.device("cpu"))
+    out = {}
+    for name, shape, dtype in meta:
+        size = int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
+        if dist.get_rank() == src:
+            buf = named[name].detach().contiguous().reshape(-1).view(
+                torch.uint8).to(dev)
+        else:
+            buf = torch.empty(size, dtype=torch.uint8, device=dev)
+        broadcast(buf, src=src)
+        out[name] = buf.cpu().view(dtype).reshape(shape).clone()
+    return out
+
+
 def all_gather_object(obj, group=None) -> list:
     """Every rank's ``obj``, in group-rank order (pickled over the group)."""
     out = [None] * group_size(group)

@@ -24,12 +24,14 @@ in-flight engine.
 Over a mesh (``parallel.make_mesh``, one process a device), every rank
 builds the service with the same arguments: the parameters are
 replicated, or Megatron-sharded over 'model' with ``tensor_parallel``
-(draft parameters replicated). Rank 0 owns the queue and the scheduler;
-each batch's windows are broadcast to the other ranks, which run
-``follow()``. Every rank computes the log-mel of its data block of rows
-(K1) and decodes it, and rank 0 gathers the results in row order.
-Speculative decoding over a tensor-parallel mesh is not ported (ROADMAP
-item [18]).
+(the draft model's parameters and the Medusa heads replicated, so every
+rank of a tensor-parallel group drafts alike). Rank 0 owns the queue and
+the scheduler; each batch's windows are broadcast to the other ranks,
+which run ``follow()`` (the command channel is ``parallel.leader.Leader``,
+as the in-flight engine's). Every rank computes the log-mel of its data block
+of rows (K1; the draft's own log-mel too when its ``n_mels`` differs) and
+decodes it, speculatively or not, and rank 0 gathers the results in row
+order.
 The HTTP front end over it is ``cli/serve.py``.
 """
 
@@ -52,6 +54,7 @@ from .decode import (DecodingOptions, decode, medusa_tree_decode,
 from .models.convert import params_to
 from .ops.mel_kernel import log_mel_spectrogram
 from .parallel import distributed as D
+from .parallel.leader import Leader
 from .parallel.mesh import batch_sharding, gather_rows, replicate, shard_params
 from .ops.quant import quantize_params
 from .tokenizer import WhisperTokenizer, get_tokenizer
@@ -114,12 +117,6 @@ class TranscriptionService:
                     "supported (TP sharding rules address unquantized "
                     "weight paths)"
                 )
-            if tensor_parallel and (draft_params is not None
-                                    or medusa_params is not None):
-                raise NotImplementedError(
-                    "speculative decoding over a tensor-parallel mesh is "
-                    "not ported (ROADMAP queue 1 item [18])"
-                )
         if (draft_params is not None or medusa_params is not None) and (
             beam_size is not None
         ):
@@ -137,6 +134,7 @@ class TranscriptionService:
                    else None)
         self.device = (mesh.device if mesh is not None
                        else resolve_device(device))
+        self._lead = Leader(self.device, enabled=mesh is not None)
         self.draft_cfg = draft_cfg
         self.draft_k = draft_k
         self.draft_params = (None if draft_params is None
@@ -218,23 +216,15 @@ class TranscriptionService:
 
     # -- over a mesh: rank 0 leads, the others follow ----------------------
 
-    _STOP, _NOOP, _BATCH = 0, 1, 2
-    IDLE_BEAT_SEC = 5.0  # an idle leader's heartbeat to the followers
-
-    def _command(self, cmd: int) -> int:
-        """Rank 0's command to every rank (a broadcast over the world)."""
-        t = torch.tensor([cmd], dtype=torch.long, device=self.device)
-        return int(D.broadcast(t, src=0)[0])
+    _BATCH = 0  # rank 0's command to the other ranks (``follow()``)
 
     def follow(self) -> None:
         """A follower rank's loop: run each batch rank 0 broadcasts, until
-        it stops (``close()`` on rank 0)."""
-        while True:
-            cmd = self._command(self._NOOP)
-            if cmd == self._STOP:
-                return
-            if cmd == self._BATCH:
-                self._decode_windows(None)
+        it stops (``close()`` on rank 0). Without a mesh there is nothing
+        to follow."""
+        if not self._leader:
+            self._lead.follow(
+                {self._BATCH: lambda _: self._decode_windows(None)})
 
     # -- scheduler --------------------------------------------------------
 
@@ -284,11 +274,13 @@ class TranscriptionService:
             return medusa_tree_decode(
                 self.params, self.cfg, self.medusa_params, mels,
                 self.options, tree=self.medusa_tree, tokenizer=self.tokenizer,
+                tp=self.tp,
             )
         if self.medusa_params is not None:
             return speculative_decode(
                 self.params, self.cfg, None, None, mels, self.options,
                 tokenizer=self.tokenizer, medusa_params=self.medusa_params,
+                tp=self.tp,
             )
         if self.draft_params is not None:
             draft_mels = None
@@ -299,7 +291,7 @@ class TranscriptionService:
             return speculative_decode(
                 self.params, self.cfg, self.draft_params, self.draft_cfg,
                 mels, self.options, draft_k=self.draft_k,
-                draft_mel=draft_mels, tokenizer=self.tokenizer,
+                draft_mel=draft_mels, tokenizer=self.tokenizer, tp=self.tp,
             )
         return decode(
             self.params, self.cfg, mels, self.options, tokenizer=self.tokenizer,
@@ -307,15 +299,11 @@ class TranscriptionService:
         )
 
     def _scheduler(self):
-        beat = time.time()
         while not self._stop.is_set():
             batch = self._collect()
             if not batch:
-                if self.mesh is not None and time.time() - beat > self.IDLE_BEAT_SEC:
-                    self._command(self._NOOP)
-                    beat = time.time()
+                self._lead.beat()
                 continue
-            beat = time.time()
             try:
                 self._run_batch(batch)
             except Exception as e:  # resolve the futures with the error
@@ -323,9 +311,9 @@ class TranscriptionService:
                     if not req.future.done():
                         req.future.set_exception(e)
                 if self.mesh is not None:
-                    raise  # the followers cannot be told: stop the leader
-        if self.mesh is not None:
-            self._command(self._STOP)
+                    self._lead.fail()  # release the followers
+                    raise  # and stop the leader
+        self._lead.stop()
 
     def _run_batch(self, batch: List[_Request]):
         windows: List[np.ndarray] = []
@@ -342,9 +330,8 @@ class TranscriptionService:
             group = group + [np.zeros(N_SAMPLES, np.float32)] * (
                 self.batch_size - n_real
             )
-            if self.mesh is not None:
-                self._command(self._BATCH)
-            results = self._decode_windows(group)
+            with self._lead.command(self._BATCH):
+                results = self._decode_windows(group)
             with self._stats_lock:
                 self._stats["batches"] += 1
                 self._stats["windows"] += n_real

@@ -39,9 +39,25 @@ on the frontier hidden state (``_spec_chunk_medusa``) or a Medusa tree
 reference's fixed ``lax.scan`` does, with no all-halted check, so
 ``spec_rounds`` counts the rounds asked for, as the reference's.
 
-Not ported (the constructor raises ``NotImplementedError`` naming the
-ROADMAP item): slot or tensor sharding over a mesh (item [18]). The
-reference's executable cache (``aot_call``) has no counterpart (item
+Over a mesh (``parallel.make_mesh``, one process a device) every rank
+builds the engine with the same arguments. The slots shard over 'data':
+data rank d holds slots [d S / n, (d + 1) S / n) of the persistent cache,
+last_tok, lens, finished and the frontier hidden. With
+``tensor_parallel`` the target's weights are Megatron-sharded over
+'model' and its caches hold the rank's heads; the draft model and the
+Medusa heads stay replicated. Rank 0 owns the queue, the slots' host
+state, deadlines, cancels and stats, and broadcasts one command a step of
+its loop (stop, an idle beat, a slot's halt, a join with the joiners'
+windows, or a chunk with rank 0's token buffer) through
+``parallel.leader.Leader``, which also releases the followers if rank 0's
+loop fails; the others run ``follow()``. A joining window's log-mel,
+encoder and cross K/V run on the ranks that own its slot; the join pass
+and the chunks run on every rank's slots, and the sync all-gathers the
+data ranks' fixed-size token blocks to rank 0. Host decisions inside a
+chunk (the all-halted check) read state that is equal across a
+tensor-parallel group, so its ranks run the same collectives.
+
+The reference's executable cache (``aot_call``) has no counterpart (item
 [14]).
 """
 
@@ -56,6 +72,7 @@ from typing import Callable, List, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .audio import N_SAMPLES, load_audio, pad_or_trim
 from .config import WhisperConfig
@@ -79,6 +96,9 @@ from .models.whisper import (
     init_cache,
 )
 from .ops.mel_kernel import log_mel_spectrogram
+from .parallel import distributed as D
+from .parallel.leader import Leader
+from .parallel.mesh import replicate, shard_params
 from .tokenizer import WhisperTokenizer, get_tokenizer
 from .train.loop import resolve_device
 
@@ -89,15 +109,16 @@ HALTED_CHECK_EVERY = 4
 
 # -- device functions -----------------------------------------------------
 
-def _encode_one(params, cfg: WhisperConfig, mel, dtype=torch.float32):
-    return encode(params, cfg, mel, dtype=dtype)
+def _encode_one(params, cfg: WhisperConfig, mel, dtype=torch.float32,
+                tp=None):
+    return encode(params, cfg, mel, dtype=dtype, tp=tp)
 
 
 def _cross_kv_one(params, cfg: WhisperConfig, features, n_ctx: int = 8,
-                  dtype=torch.float32, cross_kv_int8: bool = False):
+                  dtype=torch.float32, cross_kv_int8: bool = False, tp=None):
     """Cross K/V (+ empty self buffers) for one utterance's features."""
     return init_cache(params, cfg, features, max_len=n_ctx, dtype=dtype,
-                      cross_kv_int8=cross_kv_int8)
+                      cross_kv_int8=cross_kv_int8, tp=tp)
 
 
 def _scatter_slot(cache: DecoderCache, one: DecoderCache, slot: int):
@@ -112,20 +133,23 @@ def _scatter_slot(cache: DecoderCache, one: DecoderCache, slot: int):
 
 
 def _join_step(params, cfg: WhisperConfig, cache: DecoderCache, tokens, pos,
-               dtype=torch.float32):
+               dtype=torch.float32, tp=None):
     """Consume the SOT prefix for joining slots; re-feed everyone else.
 
     tokens (B, n_prefix): joiners get their prefix, others their last
-    n_prefix tokens; pos (B,): 0 for joiners, lens - n_prefix otherwise."""
+    n_prefix tokens; pos (B,): 0 for joiners, lens - n_prefix otherwise.
+    ``tp``: the tensor-parallel group of sharded ``params``, as every
+    device function here takes it."""
     _, cache = decode_step_multipos(params, cfg, tokens, cache, pos,
-                                    dtype=dtype)
+                                    dtype=dtype, tp=tp)
     return cache
 
 
 def _decode_chunk(params, cfg: WhisperConfig, cache: DecoderCache, last_tok,
                   lens, finished, suppress_mask, blank_mask, eot: int,
                   n_steps: int, n_prefix: int, max_new: int,
-                  dtype=torch.float32, check_every: int = HALTED_CHECK_EVERY):
+                  dtype=torch.float32, check_every: int = HALTED_CHECK_EVERY,
+                  tp=None):
     """Advance every slot by up to n_steps tokens (frozen once halted).
 
     Each step re-feeds the slot's latest token at its frontier and picks
@@ -136,7 +160,9 @@ def _decode_chunk(params, cfg: WhisperConfig, cache: DecoderCache, last_tok,
     while their K/V row at lens - 1 is rewritten as the reference's does.
     Before every ``check_every``-th step after the first, the host asks
     whether every slot has halted and stops if so (the tokens are -1
-    either way). Returns (cache, last_tok, lens, finished, tokens (n_steps,
+    either way); under ``tp`` the ranks of the group hold equal lens and
+    finished (the logits are all-reduced), so they stop at the same step.
+    Returns (cache, last_tok, lens, finished, tokens (n_steps,
     B) long, the number of steps run).
     """
     params = cast_decoder_blocks(params, dtype)
@@ -149,7 +175,8 @@ def _decode_chunk(params, cfg: WhisperConfig, cache: DecoderCache, last_tok,
             break
         steps_run += 1
         logits, cache = decode_step_multipos(
-            params, cfg, last_tok[:, None], cache, lens - 1, dtype=dtype
+            params, cfg, last_tok[:, None], cache, lens - 1, dtype=dtype,
+            tp=tp,
         )
         lg = logits[:, 0] + suppress_mask
         lg = torch.where((lens == n_prefix)[:, None], lg + blank_mask, lg)
@@ -165,7 +192,7 @@ def _decode_chunk(params, cfg: WhisperConfig, cache: DecoderCache, last_tok,
 # -- speculative device functions (draft_k > 0) ---------------------------
 
 def _join_step_hidden(params, cfg: WhisperConfig, cache: DecoderCache, tokens,
-                      pos, dtype=torch.float32):
+                      pos, dtype=torch.float32, tp=None):
     """``_join_step`` that also returns each slot's frontier hidden state.
 
     Medusa heads draft from the final-LN hidden of the input at lens - 2
@@ -173,12 +200,12 @@ def _join_step_hidden(params, cfg: WhisperConfig, cache: DecoderCache, tokens,
     input sits at block index n_prefix - 2 for joiners (pos 0, lens becomes
     n_prefix) and for re-feeders (pos = lens - n_prefix) alike."""
     _, cache, hidden = decode_step_multipos_hidden(params, cfg, tokens, cache,
-                                                   pos, dtype=dtype)
+                                                   pos, dtype=dtype, tp=tp)
     return cache, hidden[:, tokens.shape[1] - 2]
 
 
 def _join_step_tree(params, cfg: WhisperConfig, cache: DecoderCache, tokens,
-                    start, lens_eff, dtype=torch.float32):
+                    start, lens_eff, dtype=torch.float32, tp=None):
     """The join of tree-Medusa mode, W = max(n_prefix, tree_K + 2) wide.
 
     A tree round accepts up to K + 1 tokens whose K/V it never writes (tree
@@ -197,7 +224,7 @@ def _join_step_tree(params, cfg: WhisperConfig, cache: DecoderCache, tokens,
     )  # (B, W, W)
     _, cache, hidden = decode_step_block(params, cfg, tokens, cache, pos,
                                          start, mask_new, write_len=W,
-                                         dtype=dtype)
+                                         dtype=dtype, tp=tp)
     idx = lens_eff - 2 - start  # block index of the input at lens_eff - 2
     return cache, hidden[torch.arange(B, device=tokens.device), idx]
 
@@ -228,7 +255,8 @@ def _write_rows(tokens_buf, emit_w, lens):
 
 
 def _chain_round(params, cfg, cache, drafts, last_tok, lens, finished,
-                 suppress_mask, blank_mask, eot, n_prefix, max_new, dtype):
+                 suppress_mask, blank_mask, eot, n_prefix, max_new, dtype,
+                 tp=None):
     """One chain verification: the (K + 1)-query block [last_tok, drafts]
     at lens - 1, then ``_advance`` on the longest run of drafts that equal
     the greedy choices. Returns (cache, block hidden states, emit_w, v, vc,
@@ -236,7 +264,7 @@ def _chain_round(params, cfg, cache, drafts, last_tok, lens, finished,
     K = drafts.shape[1]
     block = torch.cat([last_tok[:, None], drafts], dim=1)
     logits, cache, hidden = decode_step_multipos_hidden(
-        params, cfg, block, cache, lens - 1, dtype=dtype)
+        params, cfg, block, cache, lens - 1, dtype=dtype, tp=tp)
     # logits[:, i] predicts the token at lens + i: suppress mask, and the
     # blank mask at the first sampled slot
     idx = torch.arange(K + 1, device=lens.device)
@@ -251,7 +279,7 @@ def _chain_round(params, cfg, cache, drafts, last_tok, lens, finished,
 def _spec_chunk(params, cfg: WhisperConfig, cache: DecoderCache, tokens_buf,
                 last_tok, lens, finished, suppress_mask, blank_mask, eot: int,
                 n_rounds: int, draft_k: int, n_prefix: int, max_new: int,
-                dtype=torch.float32):
+                dtype=torch.float32, tp=None):
     """n_rounds n-gram verification rounds on the device.
 
     Each round drafts K tokens a slot by prompt lookup over tokens_buf (B,
@@ -268,7 +296,7 @@ def _spec_chunk(params, cfg: WhisperConfig, cache: DecoderCache, tokens_buf,
         drafts = _ngram_drafts(tokens_buf, lens, draft_k)
         (cache, _, emit_w, v, _, last_tok, new_lens, finished) = _chain_round(
             params, cfg, cache, drafts, last_tok, lens, finished,
-            suppress_mask, blank_mask, eot, n_prefix, max_new, dtype)
+            suppress_mask, blank_mask, eot, n_prefix, max_new, dtype, tp)
         _write_rows(tokens_buf, emit_w, lens)
         lens = new_lens
         emits.append(emit_w)
@@ -281,7 +309,7 @@ def _spec_chunk_model(params, draft_params, cfg: WhisperConfig,
                       draft_cache: DecoderCache, last_tok, lens, finished,
                       suppress_mask, blank_mask, eot: int, n_rounds: int,
                       draft_k: int, n_prefix: int, max_new: int,
-                      dtype=torch.float32):
+                      dtype=torch.float32, tp=None):
     """n_rounds draft-model verification rounds on the device.
 
     Each round runs K single-query steps of the persistent draft model (its
@@ -290,7 +318,9 @@ def _spec_chunk_model(params, draft_params, cfg: WhisperConfig,
     needs no repair: the accepted tokens are the drafts whose K/V the draft
     steps wrote, and the correction token's row (lens_new - 1) is written by
     the next round's first draft step. Returns (cache, draft_cache,
-    last_tok, lens, finished, emits, vs) as ``_spec_chunk``."""
+    last_tok, lens, finished, emits, vs) as ``_spec_chunk``. Under ``tp``
+    the draft model runs whole on every rank of the group (replicated),
+    from the group's equal lens and last_tok."""
     params = cast_decoder_blocks(params, dtype)
     draft_params = cast_decoder_blocks(draft_params, dtype)
     emits, vs = [], []
@@ -307,7 +337,8 @@ def _spec_chunk_model(params, draft_params, cfg: WhisperConfig,
             steps.append(tok)
         (cache, _, emit_w, v, _, last_tok, lens, finished) = _chain_round(
             params, cfg, cache, torch.stack(steps, dim=1), last_tok, lens,
-            finished, suppress_mask, blank_mask, eot, n_prefix, max_new, dtype)
+            finished, suppress_mask, blank_mask, eot, n_prefix, max_new, dtype,
+            tp)
         emits.append(emit_w)
         vs.append(v)
     return (cache, draft_cache, last_tok, lens, finished, torch.stack(emits),
@@ -318,7 +349,7 @@ def _spec_chunk_medusa(params, medusa_params, cfg: WhisperConfig,
                        cache: DecoderCache, hidden_frontier, last_tok, lens,
                        finished, suppress_mask, blank_mask, eot: int,
                        n_rounds: int, n_prefix: int, max_new: int,
-                       dtype=torch.float32):
+                       dtype=torch.float32, tp=None):
     """n_rounds Medusa-chain verification rounds on the device.
 
     The K heads propose all K drafts at once from each slot's frontier
@@ -326,7 +357,8 @@ def _spec_chunk_medusa(params, medusa_params, cfg: WhisperConfig,
     round is one (K + 1)-query target forward, which also gives the next
     frontier: the hidden at block index vc - 1, the input at (new lens) -
     2. Returns (cache, hidden_frontier, last_tok, lens, finished, emits,
-    vs) as ``_spec_chunk``."""
+    vs) as ``_spec_chunk``. The heads are replicated and the frontier is
+    the all-reduced hidden, so under ``tp`` every rank drafts alike."""
     params = cast_decoder_blocks(params, dtype)
     B = last_tok.shape[0]
     rows = torch.arange(B, device=last_tok.device)
@@ -336,7 +368,7 @@ def _spec_chunk_medusa(params, medusa_params, cfg: WhisperConfig,
         (cache, hidden, emit_w, v, vc, last_tok, lens,
          finished) = _chain_round(
             params, cfg, cache, drafts, last_tok, lens, finished,
-            suppress_mask, blank_mask, eot, n_prefix, max_new, dtype)
+            suppress_mask, blank_mask, eot, n_prefix, max_new, dtype, tp)
         new_hf = hidden[rows, (vc - 1).clamp_min(0)]
         hidden_frontier = torch.where((vc >= 1)[:, None], new_hf,
                                       hidden_frontier)
@@ -351,7 +383,7 @@ def _spec_chunk_medusa_tree(params, medusa_params, cfg: WhisperConfig,
                             last_tok, lens, finished, suppress_mask,
                             blank_mask, eot: int, n_rounds: int,
                             n_prefix: int, max_new: int, dtype=torch.float32,
-                            tree=None):
+                            tree=None, tp=None):
     """n_rounds tree-Medusa verification rounds on the device.
 
     Each round is ``medusa_tree.tree_round``: it re-feeds each slot's last
@@ -369,7 +401,7 @@ def _spec_chunk_medusa_tree(params, medusa_params, cfg: WhisperConfig,
     for _ in range(n_rounds):
         cache, emit, _, sel, m, hidden = tree_round(
             params, medusa_params, cfg, cache, tokens_buf, hidden_frontier,
-            lens, suppress_mask, blank_mask, n_prefix, tree, dtype)
+            lens, suppress_mask, blank_mask, n_prefix, tree, dtype, tp=tp)
         emit_w, v, vc, last_tok, new_lens, finished = _advance(
             emit, m, last_tok, lens, finished, eot, n_prefix, max_new)
         _write_rows(tokens_buf, emit_w, lens)
@@ -413,14 +445,19 @@ class EngineOverloaded(RuntimeError):
 
 
 class ContinuousBatcher:
-    """In-flight batching greedy transcription engine on one device.
+    """In-flight batching greedy transcription engine on one device, or
+    over a mesh of them (one process a device).
 
     device: where the engine runs ("cuda" by default, "cuda:1", "cpu"); the
-    parameters are moved there, and "cuda" without a card raises.
+    parameters are moved there, and "cuda" without a card raises. Over a
+    mesh the rank's device is the mesh's.
     slots: persistent batch width. max_new_tokens: per-window budget.
     steps_per_sync: decode steps between host syncs (a new request waits
     at most one chunk before joining).
     """
+
+    # rank 0's commands to the other ranks over a mesh (``follow()``)
+    _HALT, _JOIN, _CHUNK = range(3)
 
     def __init__(
         self,
@@ -458,6 +495,14 @@ class ContinuousBatcher:
         static (parent, cand) tree (``decode/medusa_tree.py``) verified in
         the same forward; draft_k becomes max(heads, depth + 2), the tree
         round's re-feed. The tokens are the greedy engine's in every mode.
+        mesh: a ``parallel.make_mesh`` mesh; every rank builds the engine
+        with the same arguments. The slots shard over 'data' (slots must
+        divide by it), the parameters are replicated, and with
+        tensor_parallel the target's are Megatron-sharded over 'model'
+        (a 'model' axis > 1 is then required; the draft model and the
+        heads stay replicated). A mesh with data 1 and no tensor_parallel
+        is no mesh. Rank 0 runs the engine thread; the others run
+        ``follow()``.
         max_pending: bound on the waiting queue; submit() raises
         EngineOverloaded beyond it. Per-request deadlines and
         cancellation: submit(..., deadline_sec=...) and Future.cancel().
@@ -496,17 +541,31 @@ class ContinuousBatcher:
         ):
             raise ValueError(
                 "draft and target must share tokenizer and mel size")
-        unported = {
-            "mesh (ROADMAP queue 1 item [18])": mesh is not None,
-            "tensor_parallel (ROADMAP queue 1 item [18])": tensor_parallel,
-        }
-        missing = [name for name, used in unported.items() if used]
-        if missing:
-            raise NotImplementedError(
-                "not ported to the PyTorch engine yet: " + ", ".join(missing)
-            )
-        self.device = resolve_device(device)
+        n_data = 1
+        if mesh is not None:
+            n_data = int(mesh.shape.get("data", 1))
+            if tensor_parallel and int(mesh.shape.get("model", 1)) <= 1:
+                raise ValueError(
+                    "tensor_parallel needs a mesh 'model' axis > 1")
+            if n_data <= 1 and not tensor_parallel:
+                mesh = None
+            elif slots % n_data != 0:
+                raise ValueError(
+                    f"slots={slots} must divide by the mesh data axis "
+                    f"({n_data})")
+        self.mesh = mesh
+        self.tp = mesh.tp if mesh is not None and tensor_parallel else None
+        self.device = (mesh.device if mesh is not None
+                       else resolve_device(device))
+        self._lead = Leader(self.device, enabled=mesh is not None)
         self.dtype = torch.bfloat16 if bf16 else torch.float32
+        if mesh is not None:
+            params = shard_params(mesh, params,
+                                  tensor_parallel=tensor_parallel)
+            if draft_params is not None:
+                draft_params = replicate(mesh, draft_params)
+            if medusa_params is not None:
+                medusa_params = replicate(mesh, medusa_params)
         # decoder blocks cast once to the decode dtype (linear() casts the
         # weights to the activations' dtype either way)
         self.params = cast_decoder_blocks(params_to(params, self.device),
@@ -523,6 +582,10 @@ class ContinuousBatcher:
                             if medusa_tree else None)
         self.draft_k = draft_k
         self.slots = slots
+        # this rank's block of slots: [_slot0, _slot0 + _n_local)
+        self._n_local = slots // (n_data if mesh is not None else 1)
+        self._slot0 = (mesh.data_rank if mesh is not None else 0) * self._n_local
+        self._leader = mesh is None or dist.get_rank() == 0
         self.steps_per_sync = steps_per_sync
         self.adaptive_sync = adaptive_sync
         self.adaptive_rounds = max(steps_per_sync * adaptive_mult,
@@ -554,24 +617,28 @@ class ContinuousBatcher:
         self.blank = torch.from_numpy(
             build_blank_mask(self.tokenizer, cfg.n_vocab)).to(dev)
 
+        n = self._n_local
         with torch.inference_mode():
-            # persistent device state: an all-empty batch
-            self.cache = self._empty_cache(self.params, cfg)
+            # persistent device state of the rank's slots: an all-empty
+            # batch (the target's cache holds the rank's heads under TP)
+            self.cache = self._empty_cache(self.params, cfg, self.tp)
             self.draft_cache = (
                 None if draft_cfg is None else
-                self._empty_cache(self.draft_params, draft_cfg))
+                self._empty_cache(self.draft_params, draft_cfg, None))
             self.hidden_frontier = None
             if medusa_params is not None:
                 self.hidden_frontier = torch.zeros(
-                    (slots, cfg.n_text_state), dtype=self.dtype, device=dev)
-            self.last_tok = torch.full((slots,), self.eot, dtype=torch.long,
+                    (n, cfg.n_text_state), dtype=self.dtype, device=dev)
+            self.last_tok = torch.full((n,), self.eot, dtype=torch.long,
                                        device=dev)
-            self.lens = torch.full((slots,), self.n_prefix, dtype=torch.long,
+            self.lens = torch.full((n,), self.n_prefix, dtype=torch.long,
                                    device=dev)
-            self.finished = torch.ones(slots, dtype=torch.bool, device=dev)
+            self.finished = torch.ones(n, dtype=torch.bool, device=dev)
             self._prefix_dev = torch.tensor(self.prefix, dtype=torch.long,
                                             device=dev)
         self._prefix_row = np.asarray(self.prefix, np.int64)
+        # every slot's lens as of the last sync (the leader's host copy)
+        self._lens_host = np.full(slots, self.n_prefix, np.int64)
 
         self._slots: List[Optional[_Slot]] = [None] * slots
         self._queue: "queue.Queue" = queue.Queue()  # (slot, audio) pairs
@@ -583,19 +650,23 @@ class ContinuousBatcher:
         # put, and their counts, happen under one lock
         self._submit_lock = threading.Lock()
         # counts the reference has not: "steps", the decode steps run (on
-        # CUDA, K4 launches n_text_layer times a step), and
-        # "spec_slot_rounds", the (slot, round) pairs of speculative chunks
-        # in which a slot emitted (spec_emitted over it: tokens a round)
+        # CUDA, K4 launches n_text_layer times a step), "installs", the
+        # windows installed (K1 once each; over a mesh both are this
+        # rank's), and "spec_slot_rounds", the (slot, round) pairs of
+        # speculative chunks in which a slot emitted (spec_emitted over
+        # it: tokens a round)
         self._stats = {
             "requests": 0, "joins": 0, "chunks": 0, "fast_chunks": 0,
             "long_chunks": 0, "spec_rounds": 0, "spec_emitted": 0,
             "rejected": 0, "cancelled": 0, "timed_out": 0, "steps": 0,
-            "spec_slot_rounds": 0,
+            "installs": 0, "spec_slot_rounds": 0,
         }
         if prewarm:
             self._prewarm()
-        self._thread = threading.Thread(target=self._loop, daemon=True)
-        self._thread.start()
+        self._thread = None
+        if self._leader:
+            self._thread = threading.Thread(target=self._loop, daemon=True)
+            self._thread.start()
 
     # -- client API -------------------------------------------------------
 
@@ -616,7 +687,11 @@ class ContinuousBatcher:
         (``timed_out: True``). ``.cancel()`` on the Future drops the
         request (queued ones never run; in-flight ones stop at the next
         sync). Raises EngineOverloaded when max_pending requests wait.
+        Over a mesh only rank 0 takes requests.
         """
+        if not self._leader:
+            raise RuntimeError(
+                "submit to rank 0: the other ranks follow its engine")
         on_token = on_token or on_partial
         if isinstance(audio, str):
             audio = load_audio(audio)
@@ -657,37 +732,78 @@ class ContinuousBatcher:
         return d
 
     def close(self):
+        """Stop the engine thread (rank 0; it tells the followers to stop)."""
         self._stop.set()
-        self._thread.join(timeout=30)
+        if self._thread is not None:
+            self._thread.join(timeout=30)
+
+    # -- over a mesh: rank 0 leads, the others follow ----------------------
+
+    def _share(self, arr: Optional[np.ndarray], shape, dtype) -> torch.Tensor:
+        """Rank 0's host array on every rank's device (a broadcast over
+        the world; a follower passes None and the shape)."""
+        if arr is not None:
+            t = torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+        else:
+            t = torch.empty(shape, dtype=dtype, device=self.device)
+        if self.mesh is not None:
+            D.broadcast(t, src=0)
+        return t
+
+    def _gather(self, t: torch.Tensor, dim: int) -> np.ndarray:
+        """Every data rank's slots of ``t`` joined along ``dim`` in slot
+        order, on the host (an all-gather over 'data')."""
+        if self.mesh is not None and self.mesh.shape["data"] > 1:
+            t = D.all_gather(t.contiguous(), self.mesh.data_group, dim=dim)
+        return t.cpu().numpy()
+
+    def follow(self) -> None:
+        """A follower rank's loop: run each command rank 0 broadcasts on
+        the rank's slots, until rank 0 closes its engine. Without a mesh
+        there is nothing to follow."""
+        if self._leader:
+            return
+        with torch.inference_mode():
+            self._lead.follow({
+                self._HALT: self._halt_local,
+                self._JOIN: lambda n: self._run_join(None, None, n),
+                self._CHUNK: self._run_chunk,
+            })
 
     # -- engine -----------------------------------------------------------
 
     def _free_slots(self) -> List[int]:
         return [i for i, s in enumerate(self._slots) if s is None]
 
-    def _empty_cache(self, params, cfg: WhisperConfig) -> DecoderCache:
-        """A cache of every slot, _cache_len rows, from all-zero features."""
-        dummy = torch.zeros((self.slots, cfg.n_audio_ctx, cfg.n_audio_state),
+    def _local(self, i: int) -> Optional[int]:
+        """Slot i's index in this rank's block, None if another rank's."""
+        j = i - self._slot0
+        return j if 0 <= j < self._n_local else None
+
+    def _empty_cache(self, params, cfg: WhisperConfig, tp) -> DecoderCache:
+        """A cache of the rank's slots, _cache_len rows, from all-zero
+        features."""
+        dummy = torch.zeros((self._n_local, cfg.n_audio_ctx,
+                             cfg.n_audio_state),
                             dtype=self.dtype, device=self.device)
         return init_cache(params, cfg, dummy, max_len=self._cache_len,
-                          dtype=self.dtype, cross_kv_int8=self.kv_int8)
+                          dtype=self.dtype, cross_kv_int8=self.kv_int8, tp=tp)
 
-    def _install(self, i: int, audio: np.ndarray):
+    def _install(self, j: int, wave: torch.Tensor):
         """One window's log-mel, encoder forward and cross K/V, on the
-        device, copied into slot i of the persistent cache; with a draft
-        model, its encoder forward and cross K/V from the same log-mel into
-        slot i of the draft's cache."""
-        wave = torch.from_numpy(audio).to(self.device)
+        device, copied into local slot j of the persistent cache; with a
+        draft model, its encoder forward and cross K/V from the same
+        log-mel into slot j of the draft's cache."""
         mel = log_mel_spectrogram(wave[None], n_mels=self.cfg.n_mels)
-        for params, cfg, cache in ((self.params, self.cfg, self.cache),
-                                   (self.draft_params, self.draft_cfg,
-                                    self.draft_cache)):
+        for params, cfg, cache, tp in (
+                (self.params, self.cfg, self.cache, self.tp),
+                (self.draft_params, self.draft_cfg, self.draft_cache, None)):
             if params is None:
                 continue
-            feats = _encode_one(params, cfg, mel, dtype=self.dtype)
+            feats = _encode_one(params, cfg, mel, dtype=self.dtype, tp=tp)
             one = _cross_kv_one(params, cfg, feats, dtype=self.dtype,
-                                cross_kv_int8=self.kv_int8)
-            _scatter_slot(cache, one, i)
+                                cross_kv_int8=self.kv_int8, tp=tp)
+            _scatter_slot(cache, one, j)
 
     def _admit(self) -> bool:
         """Join queued requests into free slots. Returns True if any.
@@ -696,7 +812,7 @@ class ContinuousBatcher:
         so an utterance in progress never starves behind fresh arrivals.
         """
         free = self._free_slots()
-        joiners = []
+        joiners, windows = [], []
         while free and (self._continuations or not self._queue.empty()):
             if self._continuations:
                 slot_state, audio = self._continuations.pop(0)
@@ -718,23 +834,18 @@ class ContinuousBatcher:
                 self._resolve(slot_state)
                 continue
             i = free.pop(0)
-            self._install(i, audio)
             if not slot_state.started_at:
                 slot_state.started_at = time.time()
             self._slots[i] = slot_state
             joiners.append(i)
+            windows.append(audio)
 
         if not joiners:
             return False
-        self._join(joiners)
-        B, P = self.slots, self.n_prefix
-        join_mask = np.zeros(B, bool)
-        join_mask[joiners] = True
-        join_mask = torch.from_numpy(join_mask).to(self.device)
-        self.last_tok = torch.where(join_mask, self._prefix_dev[-1],
-                                    self.last_tok)
-        self.lens = torch.where(join_mask, P, self.lens)
-        self.finished = self.finished & ~join_mask
+        table = self._join_table(joiners)
+        with self._lead.command(self._JOIN, len(joiners)):
+            self._run_join(table, np.stack(windows), len(joiners))
+        self._lens_host[joiners] = self.n_prefix
         self._stats["joins"] += len(joiners)
         return True
 
@@ -743,25 +854,18 @@ class ContinuousBatcher:
         s = self._slots[b]
         return list(self.prefix) + (s.tokens if s is not None else [])
 
-    def _join(self, joiners: List[int]):
-        """One batched prefix pass: joiners consume the SOT prefix at 0,
-        every other slot re-feeds its latest n_prefix tokens in place; the
-        draft model's cache takes the same rows. With Medusa heads the pass
-        also gives every slot's frontier hidden state, and in tree mode it
-        re-feeds W = max(n_prefix, tree_K + 2) rows a slot (see
-        ``_join_step_tree``)."""
-        B, P, dev = self.slots, self.n_prefix, self.device
-        lens_np = self.lens.cpu().numpy()
-        tok_rows = np.tile(self._prefix_row, (B, 1))
-        pos = np.maximum(lens_np - P, 0)
-        for b in range(B):
-            if b in joiners:
-                pos[b] = 0
-                continue
-            tail = self._history(b)[pos[b]:pos[b] + P]
-            tok_rows[b, :len(tail)] = tail
-        tok_rows = torch.from_numpy(tok_rows).to(dev)
-        pos = torch.from_numpy(pos).to(dev)
+    def _table_width(self) -> int:
+        if self.medusa_tree is not None:
+            return self._tree_join_width + 3
+        return self.n_prefix + 2
+
+    def _join_table(self, joiners: List[int]) -> np.ndarray:
+        """The join's inputs for every slot, from the host state: one row a
+        slot of (tokens (P), pos, joiner flag), in tree mode (tokens (W),
+        start, lens_eff, joiner flag); see ``_join_local``."""
+        B, P = self.slots, self.n_prefix
+        flag = np.zeros((B, 1), np.int64)
+        flag[joiners] = 1
         if self.medusa_tree is not None:
             W = self._tree_join_width
             rows = np.full((B, W), self.eot, np.int64)
@@ -773,21 +877,68 @@ class ContinuousBatcher:
                 starts[b] = max(len(hist) - W, 0)
                 seg = hist[starts[b]:starts[b] + W]
                 rows[b, :len(seg)] = seg
+            return np.concatenate([rows, starts[:, None], lens_eff[:, None],
+                                   flag], axis=1)
+        tok_rows = np.tile(self._prefix_row, (B, 1))
+        pos = np.maximum(self._lens_host - P, 0)
+        for b in range(B):
+            if b in joiners:
+                pos[b] = 0
+                continue
+            tail = self._history(b)[pos[b]:pos[b] + P]
+            tok_rows[b, :len(tail)] = tail
+        return np.concatenate([tok_rows, pos[:, None], flag], axis=1)
+
+    def _run_join(self, table: Optional[np.ndarray],
+                  windows: Optional[np.ndarray], n_joiners: int):
+        """A join on every rank (rank 0 passes the table and the joiners'
+        windows, in slot order; the followers receive them): the ranks
+        that own a joiner's slot install its window, every rank runs the
+        join pass on its slots, and the joiners' state is reset."""
+        table = self._share(table, (self.slots, self._table_width()),
+                            torch.long)
+        waves = self._share(windows, (n_joiners, N_SAMPLES), torch.float32)
+        joiners = torch.nonzero(table[:, -1]).flatten().tolist()
+        for k, i in enumerate(joiners):
+            j = self._local(i)
+            if j is not None:
+                self._install(j, waves[k])
+                self._stats["installs"] += 1
+        local = table[self._slot0:self._slot0 + self._n_local]
+        self._join_local(local)
+        join_mask = local[:, -1].bool()
+        self.last_tok = torch.where(join_mask, self._prefix_dev[-1],
+                                    self.last_tok)
+        self.lens = torch.where(join_mask, self.n_prefix, self.lens)
+        self.finished = self.finished & ~join_mask
+
+    def _join_local(self, table: torch.Tensor):
+        """One batched prefix pass over the rank's slots (``table``, rows
+        of ``_join_table`` on the device): joiners consume the SOT prefix
+        at 0, every other slot re-feeds its latest n_prefix tokens in
+        place; the draft model's cache takes the same rows. With Medusa
+        heads the pass also gives every slot's frontier hidden state, and
+        in tree mode it re-feeds W = max(n_prefix, tree_K + 2) rows a slot
+        (see ``_join_step_tree``)."""
+        if self.medusa_tree is not None:
+            W = self._tree_join_width
             self.cache, self.hidden_frontier = _join_step_tree(
-                self.params, self.cfg, self.cache,
-                *(torch.from_numpy(a).to(dev)
-                  for a in (rows, starts, lens_eff)),
-                dtype=self.dtype)
-        elif self.medusa_params is not None:
+                self.params, self.cfg, self.cache, table[:, :W],
+                table[:, W], table[:, W + 1], dtype=self.dtype, tp=self.tp)
+            return
+        P = self.n_prefix
+        tok_rows, pos = table[:, :P], table[:, P]
+        if self.medusa_params is not None:
             # every slot's frontier sits at block index P - 2: joiners by
             # construction, re-feeders because chain rounds write every
             # accepted token's K/V
             self.cache, self.hidden_frontier = _join_step_hidden(
                 self.params, self.cfg, self.cache, tok_rows, pos,
-                dtype=self.dtype)
+                dtype=self.dtype, tp=self.tp)
         else:
             self.cache = _join_step(self.params, self.cfg, self.cache,
-                                    tok_rows, pos, dtype=self.dtype)
+                                    tok_rows, pos, dtype=self.dtype,
+                                    tp=self.tp)
         if self.draft_params is not None:
             self.draft_cache = _join_step(self.draft_params, self.draft_cfg,
                                           self.draft_cache, tok_rows, pos,
@@ -842,7 +993,13 @@ class ContinuousBatcher:
     def _halt_device_slot(self, i: int):
         """Mark slot i finished on the device so a forced retire stops
         spending steps on a dead request (a join resets the flag)."""
-        self.finished[i] = True
+        with self._lead.command(self._HALT, i):
+            self._halt_local(i)
+
+    def _halt_local(self, i: int):
+        j = self._local(i)
+        if j is not None:
+            self.finished[j] = True
 
     def _force_retire(self, i: int, cancelled: bool):
         """Drop an in-flight request now (client cancel or deadline)."""
@@ -905,101 +1062,128 @@ class ContinuousBatcher:
                 self._queue.put(item)
 
     def _prewarm(self):
-        """Run every device function of the path once, in __init__, so that
-        every kernel it reaches is built before the engine thread starts: a
-        silent window's log-mel, encoder forward and cross K/V (not
-        installed; the draft model's too), a join of the prefix into every
-        (empty) slot, and one chunk step, or with draft_k > 0 one
-        speculative chunk of each variant the loop runs (steps_per_sync
-        rounds, 1 with join_fast_sync, adaptive_rounds with adaptive_sync),
-        as the reference's prewarm. Every slot stays finished, so a chunk
-        emits nothing and leaves lens, finished and last_tok as they are;
-        the rows it writes lie in empty slots, which a join rewrites before
+        """Run every device function of the path once, in __init__ (on
+        every rank of a mesh, together), so that every kernel it reaches
+        is built before the engine thread starts: a silent window's
+        log-mel, encoder forward and cross K/V (not installed; the draft
+        model's too), a join of the prefix into every (empty) slot, and
+        one chunk step, or with draft_k > 0 one speculative chunk of each
+        variant the loop runs (steps_per_sync rounds, 1 with
+        join_fast_sync, adaptive_rounds with adaptive_sync), as the
+        reference's prewarm. Every slot stays finished, so a chunk emits
+        nothing and leaves lens, finished and last_tok as they are; the
+        rows it writes lie in empty slots, which a join rewrites before
         any read. The stats are reset afterwards."""
-        B, P = self.slots, self.n_prefix
         with torch.inference_mode():
             wave = torch.zeros((1, N_SAMPLES), device=self.device)
             mel = log_mel_spectrogram(wave, n_mels=self.cfg.n_mels)
-            for params, cfg in ((self.params, self.cfg),
-                                (self.draft_params, self.draft_cfg)):
+            for params, cfg, tp in ((self.params, self.cfg, self.tp),
+                                    (self.draft_params, self.draft_cfg, None)):
                 if params is not None:
-                    feats = _encode_one(params, cfg, mel, dtype=self.dtype)
+                    feats = _encode_one(params, cfg, mel, dtype=self.dtype,
+                                        tp=tp)
                     _cross_kv_one(params, cfg, feats, dtype=self.dtype,
-                                  cross_kv_int8=self.kv_int8)
-            self._join(list(range(B)))
+                                  cross_kv_int8=self.kv_int8, tp=tp)
+            table = self._join_table(list(range(self.slots)))
+            lo = self._slot0
+            self._join_local(torch.from_numpy(
+                table[lo:lo + self._n_local]).to(self.device))
+            variants = [1]
             if self.draft_k > 0:
                 variants = [self.steps_per_sync]
                 if self.join_fast_sync and 1 not in variants:
                     variants.append(1)
                 if self.adaptive_sync and self.adaptive_rounds not in variants:
                     variants.append(self.adaptive_rounds)
-                for rounds in variants:
-                    self._spec_round([], rounds)
-            else:
-                self.cache, self.last_tok, self.lens, self.finished, _, _ = (
-                    _decode_chunk(
-                        self.params, self.cfg, self.cache, self.last_tok,
-                        self.lens, self.finished, self.suppress, self.blank,
-                        self.eot, 1, P, self.max_new, dtype=self.dtype,
-                    )
-                )
+            for rounds in variants:
+                self._run_chunk(rounds)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
         for k in ("chunks", "fast_chunks", "long_chunks", "steps",
                   "spec_rounds", "spec_emitted", "spec_slot_rounds"):
             self._stats[k] = 0
 
-    def _tokens_buf(self):
-        """(slots, _cache_len) long on the device: each slot's history, EOT
-        past it (the n-gram and tree chunks' token buffer)."""
+    def _tokens_buf(self) -> np.ndarray:
+        """(slots, _cache_len) long: each slot's history, EOT past it (the
+        n-gram and tree chunks' token buffer)."""
         buf = np.full((self.slots, self._cache_len), self.eot, np.int64)
         for b in range(self.slots):
             hist = self._history(b)[:self._cache_len]
             buf[b, :len(hist)] = hist
-        return torch.from_numpy(buf).to(self.device)
+        return buf
 
-    def _spec_round(self, active: List[int], rounds: int):
-        """One speculative chunk (draft_k > 0): ``rounds`` verification
-        rounds on the device (n-gram, draft model, Medusa chain or tree),
-        then one host sync that unpacks every round's emissions: the greedy
-        engine's tokens, 1 to K + 1 a round a slot."""
+    def _run_chunk(self, rounds: int) -> np.ndarray:
+        """One chunk of ``rounds`` steps (greedy) or verification rounds
+        (draft_k > 0: n-gram, draft model, Medusa chain or tree) on the
+        rank's slots, then the host sync: every data rank's results joined
+        in slot order, one row a slot. Greedy rows hold the chunk's tokens
+        (-1 once halted) and lens; speculative rows hold each round's
+        K + 1 emissions and their count, then lens. Every rank runs it
+        (rank 0 shares the token buffer); rank 0 reads the result."""
+        if self.draft_k == 0:
+            (self.cache, self.last_tok, self.lens, self.finished, toks,
+             steps_run) = _decode_chunk(
+                self.params, self.cfg, self.cache, self.last_tok, self.lens,
+                self.finished, self.suppress, self.blank, self.eot, rounds,
+                self.n_prefix, self.max_new, dtype=self.dtype, tp=self.tp,
+            )
+            self._stats["chunks"] += 1
+            self._stats["steps"] += steps_run
+            return self._gather(torch.cat([toks, self.lens[None]]).T, 0)
         args = (self.last_tok, self.lens, self.finished, self.suppress,
                 self.blank, self.eot, rounds)
+        buf = None
+        if self.medusa_tree is not None or (self.medusa_params is None
+                                            and self.draft_params is None):
+            lo = self._slot0
+            buf = self._share(self._tokens_buf() if self._leader else None,
+                              (self.slots, self._cache_len), torch.long)
+            buf = buf[lo:lo + self._n_local].clone()
         if self.medusa_tree is not None:
             (self.cache, self.hidden_frontier, self.last_tok, self.lens,
              self.finished, emits, vs) = _spec_chunk_medusa_tree(
-                self.params, self.medusa_params, self.cfg, self.cache,
-                self._tokens_buf(), self.hidden_frontier, *args,
-                self.n_prefix, self.max_new, dtype=self.dtype,
-                tree=self.medusa_tree)
+                self.params, self.medusa_params, self.cfg, self.cache, buf,
+                self.hidden_frontier, *args, self.n_prefix, self.max_new,
+                dtype=self.dtype, tree=self.medusa_tree, tp=self.tp)
         elif self.medusa_params is not None:
             (self.cache, self.hidden_frontier, self.last_tok, self.lens,
              self.finished, emits, vs) = _spec_chunk_medusa(
                 self.params, self.medusa_params, self.cfg, self.cache,
                 self.hidden_frontier, *args, self.n_prefix, self.max_new,
-                dtype=self.dtype)
+                dtype=self.dtype, tp=self.tp)
         elif self.draft_params is not None:
             (self.cache, self.draft_cache, self.last_tok, self.lens,
              self.finished, emits, vs) = _spec_chunk_model(
                 self.params, self.draft_params, self.cfg, self.draft_cfg,
                 self.cache, self.draft_cache, *args, self.draft_k,
-                self.n_prefix, self.max_new, dtype=self.dtype)
+                self.n_prefix, self.max_new, dtype=self.dtype, tp=self.tp)
         else:
             (self.cache, self.last_tok, self.lens, self.finished, emits,
              vs) = _spec_chunk(
-                self.params, self.cfg, self.cache, self._tokens_buf(), *args,
-                self.draft_k, self.n_prefix, self.max_new, dtype=self.dtype)
-        # the host sync: every round's emissions and counts in one copy
-        host = torch.cat([emits, vs[..., None]], dim=2).cpu().numpy()
-        emits_np, vs_np = host[..., :-1], host[..., -1]
+                self.params, self.cfg, self.cache, buf, *args, self.draft_k,
+                self.n_prefix, self.max_new, dtype=self.dtype, tp=self.tp)
         self._stats["chunks"] += 1
         self._stats["spec_rounds"] += rounds
+        # every round's emissions and counts, slot-major, then lens
+        rows = torch.cat([emits, vs[..., None]], dim=2).transpose(0, 1)
+        return self._gather(torch.cat(
+            [rows.reshape(rows.shape[0], -1), self.lens[:, None]], dim=1), 0)
+
+    def _spec_round(self, active: List[int], rounds: int):
+        """One speculative chunk (draft_k > 0) and its sync, which unpacks
+        every round's emissions: the greedy engine's tokens, 1 to K + 1 a
+        round a slot."""
+        with self._lead.command(self._CHUNK, rounds):
+            host = self._run_chunk(rounds)
+        self._lens_host = host[:, -1].copy()
+        per = host[:, :-1].reshape(self.slots, rounds, -1)
+        emits_np, vs_np = per[..., :-1], per[..., -1]
         self._stats["spec_slot_rounds"] += int((vs_np > 0).sum())
         for b in active:
             s = self._slots[b]
             done = False
             for r in range(rounds):
-                for t in emits_np[r, b, :vs_np[r, b]].tolist():
+                for t in emits_np[b, r, :vs_np[b, r]].tolist():
                     if t == self.eot:
                         done = True
                         break
@@ -1036,7 +1220,8 @@ class ContinuousBatcher:
                     self._loop_once()
             except Exception as e:
                 # fail every pending request loudly instead of leaving
-                # futures hanging on a dead engine thread
+                # futures hanging on a dead engine thread, and release the
+                # followers over a mesh
                 for i, s in enumerate(self._slots):
                     if s is not None and not s.future.done():
                         s.future.set_exception(e)
@@ -1052,7 +1237,9 @@ class ContinuousBatcher:
                     if not slot_state.future.done():
                         slot_state.future.set_exception(e)
                 self._continuations.clear()
+                self._lead.fail()
                 raise
+        self._lead.stop()
 
     def _loop_once(self):
         self._reap()
@@ -1060,6 +1247,7 @@ class ContinuousBatcher:
         active = [i for i, s in enumerate(self._slots) if s is not None]
         if not active:
             if not admitted:
+                self._lead.beat()
                 time.sleep(0.002)
             return
 
@@ -1082,27 +1270,14 @@ class ContinuousBatcher:
             self._spec_round(active, rounds)
             return
 
-        (
-            self.cache,
-            self.last_tok,
-            self.lens,
-            self.finished,
-            toks,
-            steps_run,
-        ) = _decode_chunk(
-            self.params, self.cfg, self.cache, self.last_tok, self.lens,
-            self.finished, self.suppress, self.blank, self.eot, rounds,
-            self.n_prefix, self.max_new, dtype=self.dtype,
-        )
-        # the host sync: the emitted tokens and the lengths in one copy
-        host = torch.cat([toks, self.lens[None]]).cpu().numpy()
-        toks_np, lens_np = host[:-1], host[-1]
-        self._stats["chunks"] += 1
-        self._stats["steps"] += steps_run
+        with self._lead.command(self._CHUNK, rounds):
+            host = self._run_chunk(rounds)
+        toks_np, lens_np = host[:, :-1], host[:, -1]
+        self._lens_host = lens_np.copy()
         for b in active:
             s = self._slots[b]
             done = False
-            for t in toks_np[:, b].tolist():
+            for t in toks_np[b].tolist():
                 if t == self.eot:
                     done = True
                     break

@@ -22,8 +22,10 @@ not ported.
 A sharded state (``state.layout``: TP blocks, ZeRO-1 moment slices, FSDP
 parameter slices) saves the same files one rank would: every rank joins
 the all-gathers of its blocks, rank 0 writes, and the others wait on a
-barrier. Restore reads the file on the host and moves each rank's block
-to its device, so no device holds the whole tree.
+barrier. Restore reads the file on the host (``read_checkpoint``) and
+moves each rank's block to its device (``place_checkpoint``), so no
+device holds the whole tree; ranks without the run's directory take rank
+0's host state (``broadcast_checkpoint``) and cut their blocks from it.
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ from ..models.convert import (
     save_safetensors,
 )
 from ..models.convert import unflatten_params
+from ..parallel import distributed as D
 from ..parallel.mesh import place_params
 from .optimizer import OptState
 from .step import TrainState
@@ -232,28 +235,22 @@ def latest_checkpoint(output_dir: str) -> Optional[str]:
     return best_path
 
 
-def restore_checkpoint(
+def read_checkpoint(
     checkpoint_dir: str, state_template: TrainState
-) -> Tuple[TrainState, Dict[str, Any]]:
-    """Resume: rebuild the TrainState (params, optimizer state, step) and
-    read the metadata. The optimizer layout (frozen encoder, accumulation,
+) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """A checkpoint's whole state on the host, as one rank would hold it:
+    {"step", "params" (flat, global shapes), "opt": {scalar field: int},
+    "tables": {"mu"/"nu"/"acc_grads": {name: global tensor}}}, and the
+    metadata. The optimizer layout (frozen encoder, accumulation,
     schedule) is the template's; a file written for another layout raises
-    ``ValueError``. A sharded template (``layout``) gets each rank's
-    blocks, cut on the host."""
-    layout = state_template.layout
-    device = flatten_params(state_template.params)[
-        "decoder.token_embedding"
-    ].device
-    params = params_from_flat(
+    ``ValueError``."""
+    params = flatten_params(params_from_flat(
         load_safetensors_flat(
             os.path.join(checkpoint_dir, "model.safetensors")
         ),
         fmt="mlx",
-        device="cpu" if layout is not None else device,
-    )
-    global_shapes = {n: t.shape for n, t in flatten_params(params).items()}
-    if layout is not None:
-        params = place_params(params, unflatten_params(layout.params))
+        device="cpu",
+    ))
     meta_path = os.path.join(checkpoint_dir, "training_state.json")
     meta: Dict[str, Any] = {}
     if os.path.isfile(meta_path):
@@ -261,22 +258,16 @@ def restore_checkpoint(
             meta = json.load(f)
 
     template = state_template.opt_state
-    opt = OptState(
-        count=template.count,
-        mu=dict(template.mu),
-        nu=dict(template.nu),
-        schedule_count=template.schedule_count,
-        mini_step=template.mini_step,
-        gradient_step=template.gradient_step,
-        acc_grads=dict(template.acc_grads),
-    )
+    opt = {fld: getattr(template, fld) for fld in _OPT_SCALARS}
+    tables: Dict[str, Dict[str, torch.Tensor]] = {
+        fld: {} for fld in _OPT_TABLES}
     step = int(meta.get("step", 0))
     opt_path = os.path.join(checkpoint_dir, "opt_state.safetensors")
     if os.path.isfile(opt_path):
         flat_opt = safetensors_io.load_file(opt_path)
         if "__step__" in flat_opt:
             step = int(flat_opt.pop("__step__"))
-        keys = _opt_keys(template, flatten_params(params))
+        keys = _opt_keys(template, params)
         missing = sorted(set(keys) - set(flat_opt))
         if missing:
             raise ValueError(
@@ -288,22 +279,83 @@ def restore_checkpoint(
         for key, (fld, name) in keys.items():
             saved = flat_opt[key]
             if not name:
-                setattr(opt, fld, int(saved))
-                continue
-            table = getattr(opt, fld)
-            if name not in table:
-                continue  # a frozen tensor's (zero) accumulator
+                opt[fld] = int(saved)
+            elif name in getattr(template, fld):
+                # (a frozen tensor's zero accumulator is not kept)
+                tables[fld][name] = saved.reshape(params[name].shape)
+    return dict(step=step, params=params, opt=opt, tables=tables), meta
+
+
+_OPT_SCALARS = ("count", "schedule_count", "mini_step", "gradient_step")
+_OPT_TABLES = ("mu", "nu", "acc_grads")
+
+
+def place_checkpoint(host: Dict[str, Any],
+                     state_template: TrainState) -> TrainState:
+    """``read_checkpoint``'s host state on the template's device and
+    layout: a sharded template (``layout``) gets each rank's blocks, cut
+    on the host, so no device holds the whole tree."""
+    layout = state_template.layout
+    device = flatten_params(state_template.params)[
+        "decoder.token_embedding"
+    ].device
+    params = unflatten_params(host["params"])
+    if layout is not None:
+        params = place_params(params, unflatten_params(layout.params))
+    else:
+        params = unflatten_params({n: t.to(device)
+                                   for n, t in host["params"].items()})
+    template = state_template.opt_state
+    tables = {}
+    for fld in _OPT_TABLES:
+        table = dict(getattr(template, fld))
+        for name, saved in host["tables"][fld].items():
             like = table[name]
             if layout is not None:
-                block = getattr(layout.opt, fld)[name].local_block(
-                    saved.reshape(global_shapes[name]))
-                table[name] = block.to(device=like.device, dtype=like.dtype)
-                continue
+                saved = getattr(layout.opt, fld)[name].local_block(saved)
             table[name] = saved.reshape(like.shape).to(
-                device=like.device, dtype=like.dtype
-            )
-    return TrainState(step=step, params=params, opt_state=opt,
-                      layout=layout), meta
+                device=like.device, dtype=like.dtype)
+        tables[fld] = table
+    opt = OptState(**host["opt"], **tables)
+    return TrainState(step=host["step"], params=params, opt_state=opt,
+                      layout=layout)
+
+
+def broadcast_checkpoint(host: Optional[Dict[str, Any]], src: int = 0
+                         ) -> Optional[Dict[str, Any]]:
+    """Rank ``src``'s ``read_checkpoint`` host state (None: it restored
+    nothing) on every rank of the world, the others passing None; each
+    rank then cuts its own blocks with ``place_checkpoint``. For ranks
+    that do not share the run's directory."""
+    mine = dist.get_rank() == src
+    head = D.broadcast_object(
+        None if not mine or host is None else
+        {k: v for k, v in host.items() if k not in ("params", "tables")},
+        src)
+    if head is None:
+        return None
+    named = None
+    if mine:
+        named = {f"params/{n}": t for n, t in host["params"].items()}
+        for fld, table in host["tables"].items():
+            named.update({f"{fld}/{n}": t for n, t in table.items()})
+    flat = D.broadcast_tensors(named, src)
+    tables: Dict[str, Dict[str, torch.Tensor]] = {f: {} for f in _OPT_TABLES}
+    params = {}
+    for key, t in flat.items():
+        fld, name = key.split("/", 1)
+        (params if fld == "params" else tables[fld])[name] = t
+    return dict(head, params=params, tables=tables)
+
+
+def restore_checkpoint(
+    checkpoint_dir: str, state_template: TrainState
+) -> Tuple[TrainState, Dict[str, Any]]:
+    """Resume: rebuild the TrainState (params, optimizer state, step) and
+    read the metadata (``read_checkpoint``, then ``place_checkpoint``). A
+    sharded template gets each rank's blocks."""
+    host, meta = read_checkpoint(checkpoint_dir, state_template)
+    return place_checkpoint(host, state_template), meta
 
 
 def check_vocab_provenance(

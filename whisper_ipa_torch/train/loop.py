@@ -15,8 +15,14 @@ and ``train.step.make_zero1_step`` runs DP, ZeRO-1 or FSDP, each with or
 without Megatron TP. Rank 0 writes the files; checkpoints gather to it.
 Validation decodes each data rank's rows and gathers the texts.
 
-Not ported (raise ``NotImplementedError``): ``steps_per_call`` > 1 and
-``cache_encoder`` with TP or FSDP parameters. Unlike the reference,
+``cache_encoder`` encodes with the run's placement: TP blocks through
+``encode(..., tp=)``, FSDP slices gathered first, each data rank its own
+rows. Resume reads each rank's latest checkpoint; when the ranks' steps
+differ (no shared filesystem), every rank takes rank 0's restored state
+and cuts its own blocks, as the reference broadcasts process 0's.
+
+Not ported (raises ``NotImplementedError``): ``steps_per_call`` > 1.
+Unlike the reference,
 nothing swallows an error: ``validate`` lets a decode error propagate, and
 a failed step still writes the emergency checkpoint (one rank only) but
 then re-raises (on the card either would otherwise hide a kernel fault).
@@ -61,9 +67,11 @@ from ..parallel.mesh import (
     shard_params,
 )
 from .checkpoints import (
+    broadcast_checkpoint,
     check_vocab_provenance,
     latest_checkpoint,
-    restore_checkpoint,
+    place_checkpoint,
+    read_checkpoint,
     save_best_checkpoint,
     save_checkpoint,
 )
@@ -329,11 +337,6 @@ def train(
     use_zero1 = (zero1 or use_fsdp) and mesh is not None and n_data > 1
     if zero1 and not use_zero1:
         print("ZeRO-1 requested but no data-parallel mesh axis; ignoring")
-    if cache_encoder and (use_tp or use_fsdp):
-        raise NotImplementedError(
-            "cache_encoder with tensor-parallel or FSDP parameters is not "
-            "ported (ROADMAP queue 1 item 18)"
-        )
     param_sh = None
     if use_fsdp:
         param_sh = fsdp_param_shardings(mesh, params, tensor_parallel=use_tp)
@@ -390,22 +393,33 @@ def train(
         return float(schedule(s)) if use_schedule else learning_rate
 
     resumed_ckpt = None
+    restored = None
     if resume:
         ckpt = latest_checkpoint(output_dir)
         if ckpt:
-            state, _ = restore_checkpoint(ckpt, state)
+            restored, _ = read_checkpoint(ckpt, state)
             resumed_ckpt = ckpt
-            print(f"Resumed from {ckpt} at step {int(state.step)}")
+            print(f"Resumed from {ckpt} at step {restored['step']}")
     if multi and resume:
-        # rank 0 writes the checkpoints: every rank must have found its
-        # latest one (a shared filesystem); the reference broadcasts
-        # process 0's state instead (ROADMAP queue 1 item 18)
-        steps = D.all_gather_object(int(state.step))
+        # rank 0 writes the checkpoints; without a shared filesystem the
+        # other ranks find none (or an older one) and would start apart
+        # from it. Rank 0 is authoritative, as process 0 in the
+        # reference: when the resumed steps differ, every rank takes its
+        # restored state (the whole host tree; each rank cuts its blocks)
+        steps = D.all_gather_object(
+            restored["step"] if restored else int(state.step))
         if len(set(steps)) != 1:
-            raise ValueError(
-                f"resume found different steps across ranks ({steps}); "
-                "the ranks need the run's directory on a shared filesystem"
+            print(
+                f"Resume steps disagree across ranks ({sorted(steps)}); "
+                "broadcasting rank 0's restored state (no shared "
+                "filesystem?)"
             )
+            restored = broadcast_checkpoint(restored if is_main else None)
+            if not is_main:
+                resumed_ckpt = None  # rank 0 checks the vocabulary
+    if restored is not None:
+        state = place_checkpoint(restored, state)
+        del restored
 
     print(f"\nLoading training data: {train_data_path}")
     train_dataset = create_data_loader(
@@ -424,20 +438,31 @@ def train(
         train_dataset.data = train_dataset.data[:100]
         num_steps = min(num_steps, 100)
 
-    if cache_encoder:
-        print("\nPrecomputing frozen-encoder features...")
-        n_new = train_dataset.precompute_features(
-            state.params, cfg, os.path.join(output_dir, "encoder_cache"),
-            dtype_name=compute_dtype,
-        )
-        print(f"Encoder cache ready ({n_new} newly encoded)")
-
+    shard = None
     if n_data > 1:
         # each data rank reads its block of the training set; the ranks
         # of one tensor-parallel group read the same rows
-        from ..parallel.distributed import local_shard_indices
+        shard = D.local_shard_indices(len(train_dataset), mesh.data_rank,
+                                      n_data)
+    if cache_encoder:
+        print("\nPrecomputing frozen-encoder features...")
+        encoder = state.params
+        if use_fsdp:
+            # the frozen encoder's FSDP slices gathered once (a collective
+            # over 'data'), TP blocks kept: the one-rank run's features
+            encoder = {"encoder": unflatten_params({
+                n: state.layout.params["encoder." + n].gather(
+                    t, axes=("data",))
+                for n, t in flatten_params(state.params["encoder"]).items()
+            })}
+        n_new = train_dataset.precompute_features(
+            encoder, cfg, os.path.join(output_dir, "encoder_cache"),
+            dtype_name=compute_dtype, mesh=mesh, rows=shard,
+        )
+        del encoder
+        print(f"Encoder cache ready ({n_new} newly encoded)")
 
-        shard = local_shard_indices(len(train_dataset), mesh.data_rank, n_data)
+    if shard is not None:
         train_dataset.data = [train_dataset.data[i] for i in shard]
         print(
             f"Data rank {mesh.data_rank}/{n_data}: "
