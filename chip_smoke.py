@@ -26,8 +26,17 @@ weights from seed 0:
   training  train() on a seeded synthetic set, batch 12, bf16
             activations: decoder-only (encoder frozen, K2 forward only)
             and --unfreeze-encoder (K2 forward, K5 backward); save and
-            resume on the card; a test-tiny trajectory on CUDA against
-            the CPU
+            resume on the card; decoder-only again with steps_per_call 4
+            (chunks 4, 4, 2), its losses and checkpoint equal to one step
+            a call; train_step and a train_chunk under sync-debug "error"
+            (no host sync), and a step's syncs counted with the
+            optimizer's scalars copied from the host; a test-tiny
+            trajectory on CUDA against the CPU
+  kernel A/B  cli.bench_decode_kernel (plain against K4, and K8 on the
+            int4 cache) and cli.bench_quant_decode (f32, int8, int4,
+            int4-kernel), short; each arm's launches and device kernels
+            read apart: K4/K8 only in the kernel arm, K7 only in
+            int4-kernel
   entry points, on the decoder-only run's checkpoint: the checkpoint
             loader, cli.evaluate_model, cli.transcribe_single, and the
             HTTP server of cli.serve (merged attention on: K10 in the
@@ -63,9 +72,10 @@ weights from seed 0:
             weights (K7); the join rewrite's drift; cli.serve --continuous
             over HTTP, with 503s past --max-pending
   speculative decoding at whisper-small on the serving batch (bf16, int8
-            cache, K 4): a self-draft, a whisper-tiny draft, n-gram, a
-            Medusa chain and tree, each held to decode() under the
-            near-tie rule, K1/K2 launches as predicted and no K4 (the
+            cache, K 4): a self-draft, a whisper-tiny draft (16 tokens a
+            row), n-gram, a Medusa chain and tree (in the engine the same
+            five and the tree at 32 slots, the drafts on 8 requests),
+            each held to decode() under the near-tie rule, K1/K2 launches as predicted and no K4 (the
             verify blocks are multi-query); the self-draft in f32; the
             drift of the tree's re-fed K/V rows in bf16 and f32; the
             verify forward's device time; test-tiny CUDA against the CPU;
@@ -98,7 +108,8 @@ weights from seed 0:
             is built): TP=2 greedy decoding at the serving setting (K2
             and K4 on 6 local heads; tokens held to the one-rank run
             under the near-tie rule), decoder-only DP=2, ZeRO-1 and FSDP
-            steps at global batch 12 and a TP=2 full fine-tune step (K5
+            steps at global batch 12 (one chunk of 2 steps each, its
+            rows cut by shard_chunk) and a TP=2 full fine-tune step (K5
             on 6 local heads), each against the one-rank run, with each
             rank's launches and local shapes; then the in-flight engine
             at TP=2 (also with adaptive sync, whose long chunks the
@@ -414,7 +425,8 @@ def check_attention(torch, dev):
     return entry
 
 
-def device_profile(torch, fn, iters: int = 50, attempts: int = 5):
+def device_profile(torch, fn, iters: int = 50, attempts: int = 5,
+                   lost: float = 0.0):
     """(device ms, kernels) of one fn() call: its kernels' time and count
     under torch.profiler over iters calls, after a warm-up. Unlike cuda_ms
     it leaves out the host's time between launches, which dominates at
@@ -425,7 +437,9 @@ def device_profile(torch, fn, iters: int = 50, attempts: int = 5):
     its records by name and profiled again; after ``attempts`` windows the
     last one's numbers are returned as they are (a caller's kernel-count
     check then fails), and a fn() that shows no kernel in any window
-    raises."""
+    raises. ``lost``: the share of a window's records that may be missing
+    (or extra) for its time to be taken as it is (an informative timing
+    where one dropped microsecond kernel changes nothing)."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CUDA]
@@ -444,7 +458,8 @@ def device_profile(torch, fn, iters: int = 50, attempts: int = 5):
         count = sum(e.count for e in events)
         last = (sum(e.self_device_time_total for e in events) / iters / 1e3,
                 count / iters)
-        if count % iters == 0:
+        off = min(count % iters, iters - count % iters)
+        if off <= lost * count:
             return last
         log(f"[profiler] window {attempt + 1}/{attempts} of {iters} calls "
             f"recorded {count} kernels, not a whole number a call ("
@@ -1828,17 +1843,19 @@ def phase_engine_parity(torch, dev, tok, modes=(("plain", {}),)):
                 f"and decode()'s, K4 {ran}")
 
 
-def check_stream(run, name: str):
+def check_stream(run, name: str, deadline=ENGINE_DEADLINE):
     """Every future resolved; the cancelled request and the one with the
-    0.2 s deadline are the only ones cancelled and timed out."""
+    0.2 s deadline (``deadline``; None for a stream cut before it) are
+    the only ones cancelled and timed out."""
     results, stats = run["results"], run["stats"]
     timed_out = [i for i, r in enumerate(results) if r and r["timed_out"]]
+    want = [] if deadline is None else [deadline]
     require(results[ENGINE_CANCEL] is None
             and all(r is not None for i, r in enumerate(results)
                     if i != ENGINE_CANCEL), f"{name}: every future resolved")
-    require(stats["cancelled"] == 1 and stats["timed_out"] == 1
-            and timed_out == [ENGINE_DEADLINE],
-            f"{name}: one cancelled, one timed out: {stats}")
+    require(stats["cancelled"] == 1 and stats["timed_out"] == len(want)
+            and timed_out == want,
+            f"{name}: one cancelled, {len(want)} timed out: {stats}")
 
 
 def phase_engine(torch, dev, cfg, params, tok, by_path):
@@ -1957,6 +1974,9 @@ def phase_engine(torch, dev, cfg, params, tok, by_path):
 
 
 ENGINE_TREE_SLOTS = 32  # the tree's second run (ROADMAP item [11])
+ENGINE_DRAFT_REQUESTS = 8  # the draft-model runs take the stream's first 8
+# (the cancelled one among them, not the one with the deadline): their
+# depth, cut for the script's wall
 
 
 def expect_spec_launches(cfg, run, name: str, draft_cfg, draft_k: int) -> dict:
@@ -1976,17 +1996,19 @@ def expect_spec_launches(cfg, run, name: str, draft_cfg, draft_k: int) -> dict:
     return got
 
 
-def phase_engine_speculative(torch, dev, cfg, params, tok, by_path, stream):
+def phase_engine_speculative(torch, dev, cfg, params, tok, by_path,
+                             stream) -> dict:
     """The in-flight engine's speculative modes at whisper-small's full width
     and depth, at the CLI's engine setting (bf16, int8 cross cache, 16
     slots, 64 tokens, 4 rounds a sync, prewarmed, K 4) on phase_engine's
     stream of 24 requests (one cancelled, one with a 0.2 s deadline): n-gram
-    drafts, a self-draft (the acceptance ceiling), a whisper-tiny draft from
-    seed 1 (the floor), a Medusa chain and DEFAULT_TREE on fresh heads, and
-    the tree again at 32 slots. Every window is held to decode() by the
-    near-tie rule with phase_engine's bound, and K1/K2/K4 launch as
-    predicted from joins and rounds; first the test-tiny modes on the card
-    against the CPU."""
+    drafts, a self-draft (the acceptance ceiling) and a whisper-tiny draft
+    from seed 1 (the floor), both on the stream's first
+    ENGINE_DRAFT_REQUESTS requests, a Medusa chain and DEFAULT_TREE on
+    fresh heads, and the tree again at 32 slots. Every window is held to
+    decode() by the near-tie rule with phase_engine's bound, and K1/K2/K4
+    launch as predicted from joins and rounds; first the test-tiny modes
+    on the card against the CPU. Returns the draft-model runs' seconds."""
     import whisper_ipa_torch.serve_continuous as sc
     from whisper_ipa_torch.config import CONFIGS
     from whisper_ipa_torch.decode.medusa_tree import DEFAULT_TREE
@@ -2013,18 +2035,23 @@ def phase_engine_speculative(torch, dev, cfg, params, tok, by_path, stream):
     log(f"[engine speculative] the plain engine on the same stream: "
         f"tokens/s {plain['tokens_per_s']}, TTFT p50 {plain['ttft_p50']} s, "
         f"wall {plain['wall_s']} s")
-    for name, kw, draft_cfg, slots in (
-        ("n-gram", dict(draft_k=SPEC_K), None, ENGINE_SLOTS),
+    draft_walls = {}
+    for name, kw, draft_cfg, slots, n in (
+        ("n-gram", dict(draft_k=SPEC_K), None, ENGINE_SLOTS, ENGINE_REQUESTS),
         ("self-draft", dict(draft_k=SPEC_K, draft_params=params,
-                            draft_cfg=cfg), cfg, ENGINE_SLOTS),
+                            draft_cfg=cfg), cfg, ENGINE_SLOTS,
+         ENGINE_DRAFT_REQUESTS),
         ("whisper-tiny draft", dict(draft_k=SPEC_K, draft_params=draft,
-                                    draft_cfg=tiny), tiny, ENGINE_SLOTS),
-        ("medusa chain", dict(medusa_params=heads), None, ENGINE_SLOTS),
-        ("medusa tree", tree, None, ENGINE_SLOTS),
+                                    draft_cfg=tiny), tiny, ENGINE_SLOTS,
+         ENGINE_DRAFT_REQUESTS),
+        ("medusa chain", dict(medusa_params=heads), None, ENGINE_SLOTS,
+         ENGINE_REQUESTS),
+        ("medusa tree", tree, None, ENGINE_SLOTS, ENGINE_REQUESTS),
         (f"medusa tree {ENGINE_TREE_SLOTS} slots", tree, None,
-         ENGINE_TREE_SLOTS),
+         ENGINE_TREE_SLOTS, ENGINE_REQUESTS),
     ):
         name = f"engine {name}"
+        deadline = ENGINE_DEADLINE if ENGINE_DEADLINE < n else None
         t0 = time.time()
         eng = sc.ContinuousBatcher(
             params, cfg, device=dev, slots=slots,
@@ -2032,33 +2059,41 @@ def phase_engine_speculative(torch, dev, cfg, params, tok, by_path, stream):
             tokenizer=tok, prewarm=True, **kw)
         prewarm_s = time.time() - t0
         try:
-            run = run_engine(torch, dev, eng, clips, gaps,
-                             cancel=ENGINE_CANCEL, deadline=ENGINE_DEADLINE)
+            run = run_engine(torch, dev, eng, clips[:n], gaps[:n],
+                             cancel=ENGINE_CANCEL, deadline=deadline)
         finally:
             eng.close()
         require(not eng._thread.is_alive(), f"{name}: engine thread stopped")
-        check_stream(run, name)
+        check_stream(run, name, deadline)
         expected = expect_spec_launches(cfg, run, name, draft_cfg, eng.draft_k)
         equal, near, at = check_engine_tokens(
-            torch, cfg, params, tok, eng, run, oracle, mels, eps, name)
+            torch, cfg, params, tok, eng, run,
+            {k: v for k, v in oracle.items() if k[0] < n}, mels, eps, name)
         st, numbers = run["stats"], engine_numbers(run)
         tpr = st["spec_emitted"] / max(st["spec_slot_rounds"], 1)
-        log(f"[{name}] {slots} slots, K {eng.draft_k}, {ENGINE_REQUESTS} "
-            f"requests: tokens a round {tpr:.4f} ({st['spec_emitted']} tokens "
-            f"over {st['spec_slot_rounds']} active slot-rounds, "
-            f"{st['spec_rounds']} rounds); {numbers}; against the plain "
-            f"engine tokens/s {numbers['tokens_per_s'] / plain['tokens_per_s']:.3f}x, "
-            f"TTFT p50 {numbers['ttft_p50']} s against {plain['ttft_p50']} s; "
-            f"prewarm {prewarm_s:.2f} s; launches {nonzero(run['launches'])}, "
-            f"as predicted {expected}; {equal} windows equal decode()'s, {near} "
-            f"leave it at a near-tie (gaps {at}; eps {eps:.4e})")
+        against = (f"against the plain engine tokens/s "
+                   f"{numbers['tokens_per_s'] / plain['tokens_per_s']:.3f}x, "
+                   f"TTFT p50 {numbers['ttft_p50']} s against "
+                   f"{plain['ttft_p50']} s" if n == ENGINE_REQUESTS else
+                   f"the stream's first {n} requests")
+        wall = time.time() - t0
+        log(f"[{name}] {slots} slots, K {eng.draft_k}, {n} requests: tokens "
+            f"a round {tpr:.4f} ({st['spec_emitted']} tokens over "
+            f"{st['spec_slot_rounds']} active slot-rounds, {st['spec_rounds']} "
+            f"rounds); {numbers}; {against}; prewarm {prewarm_s:.2f} s; "
+            f"launches {nonzero(run['launches'])}, as predicted {expected}; "
+            f"{equal} windows equal decode()'s, {near} leave it at a near-tie "
+            f"(gaps {at}; eps {eps:.4e}); mode wall {wall:.1f} s")
         require(st["spec_rounds"] > 0 and st["spec_emitted"] > 0,
                 f"{name}: the engine speculated")
         by_path[name] = run["launches"]
+        if draft_cfg is not None:
+            draft_walls[name] = round(wall, 1)
         del eng, run
     del draft, heads, tree
     torch.cuda.empty_cache()
     log(f"[engine speculative] phase passed in {time.time() - t_phase:.1f} s")
+    return draft_walls
 
 
 def phase_engine_http(torch, dev):
@@ -2367,7 +2402,7 @@ def checkpoint_params(path: str):
 
 
 def run_train(torch, dev, data: str, out: str, freeze: bool, steps: int,
-              save_every: int, resume: bool = False):
+              save_every: int, resume: bool = False, steps_per_call: int = 1):
     """train() at whisper-small, bf16 activations; returns (per-step
     (loss, step time s) from the log, launches, peak GB, wall s)."""
     from whisper_ipa_torch.train import train
@@ -2381,7 +2416,7 @@ def run_train(torch, dev, data: str, out: str, freeze: bool, steps: int,
           resume=resume, mel_cache_dir=os.path.join(os.path.dirname(data),
                                                     "mels"),
           compute_dtype="bfloat16", freeze_encoder=freeze,
-          final_validate=False, device="cuda")
+          final_validate=False, steps_per_call=steps_per_call, device="cuda")
     launches = read_counts(torch)
     wall = time.time() - t0
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
@@ -2622,6 +2657,11 @@ def phase_train(torch, dev, tok, root: str, by_path):
     cfg = CONFIGS["small"]
     # as many utterances as the batch: every step sees the same batch
     data = write_train_set(os.path.join(root, "data"), TRAIN_BATCH, seed=0)
+    # the mel cache filled first (K1), so that every run reads the same
+    # float16 mels: a run that fills it trains its first step on the
+    # unrounded ones
+    create_data_loader(data, n_mels=cfg.n_mels, mel_cache_dir=os.path.join(
+        os.path.dirname(data), "mels")).precompute_mels(dev)
     init = flatten_params(init_params(cfg, seed=0))
     enc_names = [n for n in init if n.startswith("encoder.")]
     results = {}
@@ -2676,6 +2716,8 @@ def phase_train(torch, dev, tok, root: str, by_path):
         results[mode] = dict(launches=launches, log=log_rows,
                              steady_step_s=float(np.median(steady)),
                              peak_gb=peak_gb)
+        if freeze:
+            sequential = final
 
     # save and resume on the card: the unfrozen run's checkpoint-4, resumed
     # for one step in a fresh directory, against the uninterrupted step 5
@@ -2694,7 +2736,316 @@ def phase_train(torch, dev, tok, root: str, by_path):
         f"launches {launches}")
     require(sorted(log_rows) == [5], "the resumed run starts at step 5")
     require(rel < 1e-3, "resumed loss within 1e-3 of the uninterrupted one")
+    t0 = time.time()
+    results["decoder-only chunked"] = phase_train_chunked(
+        torch, dev, data, root, results["decoder-only"], sequential)
+    del sequential
+    phase_train_sync_free(torch, dev, data)
+    results["decoder-only chunked"]["added_s"] = time.time() - t0
     return results
+
+
+def phase_train_chunked(torch, dev, data: str, root: str, seq: dict,
+                        sequential) -> dict:
+    """The decoder-only run again with steps_per_call=4 (chunks of 4, 4 and
+    2) on the same data and seed: every logged loss and the final
+    checkpoint's decoder equal the one-step-a-call run's (every step sees
+    the same batch, so bit for bit is expected; else within 1e-6 relative,
+    the gap printed), K2 12 a step and no K5."""
+    out = os.path.join(root, "decoder-only-chunked")
+    log_rows, launches, peak_gb, wall = run_train(
+        torch, dev, data, out, True, TRAIN_STEPS, save_every=0,
+        steps_per_call=4)
+    final = checkpoint_params(os.path.join(out, f"checkpoint-{TRAIN_STEPS}"))
+    shutil.rmtree(out)
+    steps = sorted(log_rows)
+    require(steps == sorted(seq["log"]),
+            f"chunked: the logged steps {steps} are the sequential run's")
+    gaps = [abs(log_rows[s][0] - seq["log"][s][0]) / abs(seq["log"][s][0])
+            for s in steps]
+    dec = [n for n in final if n.startswith("decoder.")]
+    diff = max(float((final[n] - sequential[n]).abs().max()) for n in dec)
+    bitwise = max(gaps) == 0 and diff == 0
+    chunk_s = [log_rows[s][1] for s in steps]
+    log(f"[train decoder-only chunked] steps_per_call 4 ({TRAIN_STEPS} steps: "
+        f"chunks 4, 4, 2): losses at steps {steps} "
+        f"{[round(log_rows[s][0], 6) for s in steps]}; "
+        + ("bit for bit equal to the one-step-a-call run's, losses and the "
+           "decoder's checkpoint" if bitwise else
+           f"largest relative loss gap {max(gaps):.3e}, largest decoder "
+           f"difference {diff:.3e} (bound 1e-6 relative)")
+        + f"; step time (chunk wall / its steps) {[round(x, 4) for x in chunk_s]}"
+        f" s against the one-step-a-call run's median "
+        f"{seq['steady_step_s']:.4f} s; peak {peak_gb:.2f} GB; wall "
+        f"{wall:.1f} s; launches {nonzero(launches)}")
+    require(max(gaps) <= 1e-6, "chunked: losses within 1e-6 of sequential")
+    require(all(float((final[n] - sequential[n]).abs().max())
+                <= 1e-6 * float(sequential[n].abs().max()) for n in dec),
+            "chunked: each decoder tensor within 1e-6 of its largest value")
+    require(launches["K2"] == 12 * TRAIN_STEPS,
+            f"chunked: K2 launched 12 x steps, got {launches['K2']}")
+    require(launches["K5"] == 0, "chunked: no K5 launch")
+    return dict(launches=launches, log=log_rows, peak_gb=peak_gb,
+                steady_step_s=float(np.median(chunk_s)), bitwise=bitwise)
+
+
+def count_syncs(torch, fn) -> dict:
+    """{"file:line": count} of the host syncs in one fn() call: the warnings
+    of sync-debug mode "warn", one a synchronizing CUDA call, each at the
+    Python line that made it."""
+    import warnings
+    from collections import Counter
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return dict(Counter(f"{os.path.relpath(w.filename)}:{w.lineno}"
+                        for w in seen
+                        if "called a synchronizing" in str(w.message)))
+
+
+def host_copy_adamw(torch):
+    """The optimizer (constant rate, clipped) with its scalars copied from
+    the host as the port made them before its step became sync-free (a
+    ``torch.tensor`` on the device for b1 and b2, and for b1 again in each
+    tensor's update), with the same arithmetic: what the sync count is
+    compared with."""
+    from whisper_ipa_torch.train.optimizer import B1, B2, EPS, Optimizer
+
+    class HostCopyAdamW(Optimizer):
+        def _adamw(self, flat_params, grads, state, reduce_sq=None):
+            count = state.count + 1
+            device = next(iter(grads.values())).device
+            f32 = dict(dtype=torch.float32, device=device)
+            bc1 = 1 - torch.tensor(B1, **f32) ** count
+            bc2 = 1 - torch.tensor(B2, **f32) ** count
+            lr = self.learning_rate
+            sq = {name: (g * g).sum() for name, g in grads.items()}
+            for name, g in grads.items():
+                p = flat_params[name]
+                g = g * torch.clamp_max(
+                    self.max_grad_norm / (torch.sqrt(sq[name]) + 1e-6), 1.0)
+                m = state.mu[name]
+                mu = (1 - B1) * g + torch.tensor(B1, dtype=m.dtype,
+                                                 device=m.device) * m
+                nu = (1 - B2) * (g * g) + B2 * state.nu[name]
+                u = (mu / bc1.to(mu.dtype)) / (
+                    torch.sqrt(nu / bc2.to(nu.dtype)) + EPS)
+                p.add_(-lr * (u + self.weight_decay * p))
+                state.mu[name] = mu.to(m.dtype)
+                state.nu[name] = nu
+            state.count = count
+
+    return HostCopyAdamW
+
+
+def phase_train_sync_free(torch, dev, data: str) -> None:
+    """The step body waits for the card nowhere: one train_step and one
+    train_chunk of 4 steps (whisper-small, decoder-only, bf16, batch 12)
+    run under torch.cuda.set_sync_debug_mode("error"), which raises at a
+    synchronizing call. Then, for information, the host syncs of one step
+    counted under "warn" with the optimizer's scalars made by fill kernels
+    against copied from the host."""
+    from whisper_ipa_torch.config import CONFIGS
+    from whisper_ipa_torch.data import create_data_loader
+    from whisper_ipa_torch.models import init_params
+    from whisper_ipa_torch.train import create_train_state, train_chunk, train_step
+
+    cfg = CONFIGS["small"]
+    dataset = create_data_loader(data, n_mels=cfg.n_mels,
+                                 mel_cache_dir=os.path.join(
+                                     os.path.dirname(data), "mels"))
+    batch = dataset.get_batch(list(range(TRAIN_BATCH)))
+    mel = torch.from_numpy(batch["mel_features"]).to(dev, torch.bfloat16)
+    tokens = torch.from_numpy(batch["tokens"]).to(dev).long()
+    mels, toks = mel.expand(4, *mel.shape), tokens.expand(4, *tokens.shape)
+    eot = dataset.tokenizer.eot
+    state, tx = create_train_state(init_params(cfg, seed=0, device=dev),
+                                   learning_rate=TRAIN_LR)
+    kw = dict(freeze_encoder=True, dtype_name="bfloat16")
+
+    def step(opt=tx):
+        train_step(state, mel, tokens, cfg, opt, eot, **kw)
+
+    def chunk():
+        train_chunk(state, mels, toks, cfg, tx, eot, **kw)
+
+    step()  # warm-up: the kernels' libraries, cuBLAS, the allocator
+    torch.cuda.synchronize()
+    after = count_syncs(torch, step)
+    for name, fn in (("train_step", step), ("train_chunk of 4", chunk)):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fn()
+        except RuntimeError as e:
+            raise AssertionError(f"{name} synchronized the host: {e}; under "
+                                 f"\"warn\" a step synced at {after}") from e
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    n_tensors = len(state.opt_state.mu)
+    host_tx = host_copy_adamw(torch)(learning_rate=TRAIN_LR)
+    before = count_syncs(torch, lambda: step(host_tx))
+    log(f"[train sync-free] whisper-small decoder-only bf16 batch {TRAIN_BATCH}:"
+        f" train_step and a train_chunk of 4 ran under sync-debug \"error\" "
+        f"without a synchronizing call; host syncs in one step (sync-debug "
+        f"\"warn\", {n_tensors} trainable tensors): "
+        f"{sum(after.values())} with the scalars made by fill kernels "
+        f"({after}), {sum(before.values())} with them copied from the host ("
+        + ", ".join(f"{n} at {site}" for site, n in before.items()) + ")")
+
+
+class ArmWindows:
+    """Replaces a switch of ``models.layers`` (``use_decode_kernel``,
+    ``use_int4_matmul``) while an A/B CLI runs: each call of the switch
+    closes the running window and opens the next, so each arm's launches
+    (the wrappers' counts) and device kernels (under torch.profiler, by
+    name: ``cli.profile_serving.port_kernel_times``) are read apart. With
+    ``first_call`` (a module and a function name in it) the profiler
+    covers only the first call of that function in each window (one
+    decode of an arm, not its repeats: the profiler's cost is per kernel
+    event); ``profiled`` (indices of the switch's calls) limits it to those
+    windows."""
+
+    def __init__(self, torch, layers, name: str, first_call=None,
+                 profiled=None):
+        self.torch, self.layers, self.name = torch, layers, name
+        self.switch = getattr(layers, name)
+        self.first_call, self.profiled = first_call, profiled
+        self.windows, self.prof, self.flag, self.events = [], None, None, None
+        self.open, self.calls, self.profiling = False, 0, False
+
+    def __enter__(self):
+        setattr(self.layers, self.name, self)
+        if self.first_call is not None:
+            module, attr = self.first_call
+            self.wrapped = getattr(module, attr)
+            setattr(module, attr, self._first)
+        return self
+
+    def _start(self):
+        self.prof = self.torch.profiler.profile(
+            activities=[self.torch.profiler.ProfilerActivity.CUDA])
+        self.prof.__enter__()
+
+    def _stop(self):
+        self.torch.cuda.synchronize()
+        self.prof.__exit__(None, None, None)
+        self.events = [e for e in self.prof.key_averages()
+                       if e.device_type == self.torch.autograd.DeviceType.CUDA]
+        self.prof = None
+
+    def _first(self, *args, **kwargs):
+        if (not self.open or not self.profiling or self.events is not None
+                or self.prof is not None):
+            return self.wrapped(*args, **kwargs)
+        self._start()
+        try:
+            return self.wrapped(*args, **kwargs)
+        finally:
+            self._stop()
+
+    def __call__(self, flag):
+        self.close()
+        self.flag, self.t0, self.events, self.open = flag, time.time(), None, True
+        self.profiling = self.profiled is None or self.calls in self.profiled
+        self.calls += 1
+        reset_counts(self.torch)
+        if self.first_call is None and self.profiling:
+            self._start()
+        self.switch(flag)
+
+    def close(self):
+        if not self.open:
+            return
+        from whisper_ipa_torch.cli.profile_serving import port_kernel_times
+
+        counts = read_counts(self.torch)
+        if self.prof is not None:
+            self._stop()
+        self.windows.append(dict(flag=self.flag, launches=nonzero(counts),
+                                 device=port_kernel_times(self.events or []),
+                                 profiled=self.events is not None,
+                                 s=time.time() - self.t0))
+        self.open = False
+
+    def __exit__(self, *exc):
+        self.close()
+        setattr(self.layers, self.name, self.switch)
+        if self.first_call is not None:
+            setattr(*self.first_call, self.wrapped)
+
+
+def phase_kernel_ab(torch, dev) -> float:
+    """The two kernel A/B CLIs, short: cli.bench_decode_kernel at batch 16,
+    8 steps, one repeat, on the int8 cache (plain against K4) and the int4
+    cache (against K8); cli.bench_quant_decode at whisper-small, batch 16,
+    16 tokens, one repeat, in its four modes. Each arm's launches and
+    device kernels are read apart (ArmWindows): K4 / K8 run in the kernel
+    arm and not in the plain one (each arm under the profiler); K7 in
+    int4-kernel (its first decode under the profiler, and counted) and
+    not in int4, f32 or int8 (counted). Returns the phase's wall."""
+    import whisper_ipa_torch.decode as decoding
+    from whisper_ipa_torch.cli import bench_decode_kernel, bench_quant_decode
+    from whisper_ipa_torch.models import layers
+
+    t_phase = time.time()
+    for int4 in (False, True):
+        k = "K8" if int4 else "K4"
+        t0 = time.time()
+        with ArmWindows(torch, layers, "use_decode_kernel") as arms:
+            res = bench_decode_kernel.main(
+                ["--batch", "16", "--steps", "8", "--repeats", "1"]
+                + (["--int4"] if int4 else []))
+        plain, kernel = arms.windows[0], arms.windows[1]
+        log(f"[kernel A/B decode {'int4' if int4 else 'int8'}] "
+            f"cli.bench_decode_kernel B 16, 8 steps x 12 layers "
+            f"({time.time() - t0:.1f} s): ms a token "
+            f"{res}; plain arm launches {plain['launches']}, device "
+            f"{plain['device']}; {k} arm launches {kernel['launches']}, "
+            f"device {kernel['device']}")
+        require(plain["flag"] is False and kernel["flag"] is True,
+                "the CLI's arms: plain, then the kernel")
+        require(plain["launches"].get(k, 0) == 0 and k not in plain["device"],
+                f"no {k} in the plain arm")
+        require(kernel["launches"].get(k) == 2 * 8 * 12 and k in kernel["device"],
+                f"{k} launched 2 runs x 8 steps x 12 layers in its arm")
+    t0 = time.time()
+    # each mode sets the switch and resets it to True after: the modes'
+    # windows are the even calls, int4-kernel's the seventh. K7's only launcher is
+    # its counted wrapper (ops/quant_matmul.int4_matmul), so the counts
+    # show it absent from the other modes; K4 and K8 have an uncounted
+    # launcher too (launch_cluster), so both their arms are profiled
+    with ArmWindows(torch, layers, "use_int4_matmul",
+                    first_call=(decoding, "decode"), profiled={6}) as arms:
+        res = bench_quant_decode.main(["--sample-len", "16", "--repeats", "1"])
+    modes = arms.windows[0::2]
+    by_mode = dict(zip(res, modes))
+    log(f"[kernel A/B quantized decode] cli.bench_quant_decode whisper-small "
+        f"batch 16, 16 tokens ({time.time() - t0:.1f} s; windows "
+        f"{[round(w['s'], 1) for w in arms.windows]} s): s a decode {res}; "
+        f"launches by mode "
+        + "; ".join(f"{m}: {w['launches']}, device K7 "
+                    f"{w['device'].get('K7')}" for m, w in by_mode.items()))
+    require(list(by_mode) == ["f32", "int8", "int4", "int4-kernel"],
+            f"the four modes ran, each in its window: {list(by_mode)}")
+    for m, w in by_mode.items():
+        kernel = m == "int4-kernel"
+        require(w["flag"] is kernel, f"{m}: use_int4_matmul({kernel})")
+        require((w["launches"].get("K7", 0) > 0) == kernel,
+                f"K7 launched in {m}: {kernel}")
+        if kernel:
+            require(w["profiled"] and "K7" in w["device"],
+                    "K7 on the device in int4-kernel's first decode")
+    wall = time.time() - t_phase
+    log(f"[kernel A/B] phase passed in {wall:.1f} s")
+    return wall
 
 
 def phase_train_parity(torch, dev):
@@ -3185,6 +3536,8 @@ def phase_learn(torch, dev, root: str, by_path) -> dict:
 # -- speculative decoding (decode/speculative.py, decode/medusa_tree.py) ----
 
 SPEC_K = 4  # draft tokens a round (chain); DEFAULT_TREE is 4 deep
+SPEC_FLOOR_LEN = 16  # tokens a row for the unrelated draft (the floor:
+# ~1 token a round, so its wall grows with the tokens)
 SPEC_TRAIN_STEPS = 200  # cli.train_medusa and cli.distill_draft
 SPEC_HTTP = 8  # held-out requests through each speculative server
 
@@ -3199,7 +3552,8 @@ def spec_masks(torch, dev, tok, options, n_vocab):
 
 def spec_decoders(cfg, params, draft, heads):
     """name -> (fn(mel, options, tok) -> (results, stats), the draft's
-    encoder layers): the five modes of the phase."""
+    encoder layers): a self-draft, an unrelated draft (``draft``, a
+    (params, cfg) pair, where given), n-gram, a Medusa chain and tree."""
     from whisper_ipa_torch.decode import medusa_tree_decode, speculative_decode
     from whisper_ipa_torch.decode.medusa_tree import DEFAULT_TREE
 
@@ -3208,9 +3562,11 @@ def spec_decoders(cfg, params, draft, heads):
             params, cfg, draft_params, draft_cfg, mel, o, draft_k=SPEC_K,
             tokenizer=tok, return_stats=True, medusa_params=medusa)
 
+    unrelated = ({} if draft is None else
+                 {"unrelated draft": (chain(*draft), draft[1].n_audio_layer)})
     return {
         "self-draft": (chain(params, cfg), cfg.n_audio_layer),
-        "unrelated draft": (chain(*draft), draft[1].n_audio_layer),
+        **unrelated,
         "n-gram": (chain(None, None), 0),
         "medusa chain": (chain(None, None, heads), 0),
         "medusa tree": (lambda mel, o, tok: medusa_tree_decode(
@@ -3234,6 +3590,13 @@ def spec_run(torch, dev, cfg, audio, fn, options, tok):
     wall = time.time() - t0
     results, stats = out if isinstance(out, tuple) else (out, None)
     return mel, results, stats, wall, read_counts(torch)
+
+
+# the verify profile's windows nearly always lose a record or a few (1 of
+# 320 to ~60 of 22,600 on an H100), and each window retried costs ~1.5 s:
+# a window short of a whole count a call by up to this share is taken
+# (its depth cut for the script's wall)
+VERIFY_LOST = 0.05
 
 
 def verify_profile(torch, dev, cfg, params, batch: int):
@@ -3260,18 +3623,20 @@ def verify_profile(torch, dev, cfg, params, batch: int):
         pos = torch.full((batch,), n_prefix + 32, device=dev)
         out["verify_ms"], out["verify_kernels"] = device_profile(
             torch, lambda: decode_step_multipos_hidden(
-                p, cfg, tokens, cache, pos, dtype=dtype), iters=20)
+                p, cfg, tokens, cache, pos, dtype=dtype), iters=20,
+            lost=VERIFY_LOST)
         out["step_ms"], out["step_kernels"] = device_profile(
             torch, lambda: decode_step(p, cfg, tokens[:, :1], cache,
-                                       n_prefix + 32, dtype=dtype), iters=20)
+                                       n_prefix + 32, dtype=dtype), iters=20,
+            lost=VERIFY_LOST)
         d = cfg.n_text_state
         for name, s in (("plain_cross_ms", SPEC_K + 1), ("k4_cross_ms", 1)):
             q = torch.randn((batch, s, d), device=dev, dtype=dtype)
-            out[name] = cfg.n_text_layer * device_ms(
+            out[name] = cfg.n_text_layer * device_profile(
                 torch, lambda: multi_head_attention_int8kv(
                     q, cache.cross_k[0], cache.cross_k_scale[0],
                     cache.cross_v[0], cache.cross_v_scale[0], cfg.n_text_head),
-                iters=20)
+                iters=20, lost=VERIFY_LOST)[0]
     return {k: round(v, 4) for k, v in out.items()}
 
 
@@ -3356,16 +3721,19 @@ def phase_speculative_parity(torch, dev, tok):
             "on the CPU and decode()'s")
 
 
-def phase_speculative(torch, dev, cfg, params, tok, by_path, card: str):
+def phase_speculative(torch, dev, cfg, params, tok, by_path,
+                      card: str) -> float:
     """Speculative decoding at whisper-small's full width on the serving
     phases' batch (16 x 30 s, 64 tokens, EOT suppressed, bf16, int8 cross
     cache, K 4): a self-draft (the acceptance ceiling), an unrelated
-    whisper-tiny draft from seed 1 (the floor), n-gram, a Medusa chain on
+    whisper-tiny draft from seed 1 (the floor, at SPEC_FLOOR_LEN tokens a
+    row: its depth cut for the script's wall), n-gram, a Medusa chain on
     init_medusa_params heads and a Medusa tree on DEFAULT_TREE; each held
     to decode() under the near-tie rule, K1/K2/K4/K8 launches equal to the
     prediction; the self-draft in f32 at batch 2; the drift of the tree's
     re-fed K/V rows in bf16 and f32 (TreeDrift); the verification
-    forward's device time; test-tiny CUDA against the CPU."""
+    forward's device time; test-tiny CUDA against the CPU. Returns the
+    unrelated draft's seconds (its warm-up, run and checks)."""
     from whisper_ipa_torch.config import CONFIGS
     from whisper_ipa_torch.decode import DecodingOptions, decode
     from whisper_ipa_torch.decode import medusa_tree as mt
@@ -3378,6 +3746,7 @@ def phase_speculative(torch, dev, cfg, params, tok, by_path, card: str):
     draft = (init_params(tiny, seed=1, device=dev), tiny)
     heads = init_medusa_params(cfg, SPEC_K, seed=0, device=dev)
     modes = spec_decoders(cfg, params, draft, heads)
+    floor_s = 0.0
     prefix = list(tok.sot_sequence_including_notimestamps)
     audio = torch.from_numpy(synthetic_audio(MAIN_BATCH, 30.0, seed=1)).to(dev)
 
@@ -3385,6 +3754,7 @@ def phase_speculative(torch, dev, cfg, params, tok, by_path, card: str):
         return decode(params, cfg, mel, o, tokenizer=t)
 
     for bf16, batch in ((True, MAIN_BATCH), (False, 2)):
+        t_pass = time.time()
         options = DecodingOptions(
             language="en", without_timestamps=True,
             sample_len=MAIN_SAMPLE_LEN, suppress_tokens=[-1, tok.eot],
@@ -3394,11 +3764,18 @@ def phase_speculative(torch, dev, cfg, params, tok, by_path, card: str):
         runs = {"decode": decode_fn} | ({k: v[0] for k, v in modes.items()}
                                         if bf16 else
                                         {"self-draft": modes["self-draft"][0]})
+        lens = {name: SPEC_FLOOR_LEN if name == "unrelated draft"
+                else MAIN_SAMPLE_LEN for name in runs}
         short = replace(options, sample_len=8)
-        for fn in runs.values():  # warm-up: cuBLAS handles, the allocator
+        out = {}
+        for name, fn in runs.items():
+            t0 = time.time()
+            # warm-up: cuBLAS handles, the allocator
             spec_run(torch, dev, cfg, audio[:batch], fn, short, tok)
-        out = {name: spec_run(torch, dev, cfg, audio[:batch], fn, options, tok)
-               for name, fn in runs.items()}
+            out[name] = spec_run(torch, dev, cfg, audio[:batch], fn,
+                                 replace(options, sample_len=lens[name]), tok)
+            if name == "unrelated draft":
+                floor_s += time.time() - t0
         mel, oracle, _, decode_wall, _ = out.pop("decode")
         mels = [mel[i:i + 1] for i in range(batch)]
         eps = (2.0 * step0_delta(torch, cfg, params, mels[:EPS_WINDOWS], prefix)
@@ -3409,27 +3786,31 @@ def phase_speculative(torch, dev, cfg, params, tok, by_path, card: str):
             f"cache, K {SPEC_K}, on {card}: decode() wall {decode_wall:.4f} "
             f"s; near-tie eps {eps:.4e}")
         for name, (_, results, stats, wall, launches) in out.items():
+            t0, n = time.time(), lens[name]
             want = {"K1": 1, "K2": cfg.n_audio_layer + modes[name][1] if bf16
                     else 0, "K4": 0, "K8": 0}
             got = {k: launches[k] for k in want}
-            rows = [(f"row {i}", r.tokens, o.tokens, mels[i], False)
+            rows = [(f"row {i}", r.tokens, o.tokens[:n], mels[i], False)
                     for i, (r, o) in enumerate(zip(results, oracle))]
             equal, near, gaps = hold_to_decode(
                 torch, cfg, params, tok, rows, prefix, suppress, blank, dtype,
                 eps, f"speculative {name} {precision}")
+            against = (f"against decode()'s {decode_wall:.4f} s "
+                       f"({wall / decode_wall:.3f}x)" if n == MAIN_SAMPLE_LEN
+                       else f"({n} tokens a row: decode()'s first {n} held)")
             log(f"[speculative {name} {precision}] rounds {stats.rounds}, "
                 f"tokens a round {stats.tokens_per_round:.4f} ({stats.emitted_tokens} "
-                f"tokens), wall {wall:.4f} s against decode()'s "
-                f"{decode_wall:.4f} s ({wall / decode_wall:.3f}x); {equal} rows "
+                f"tokens), wall {wall:.4f} s {against}; {equal} rows "
                 f"equal decode()'s, {near} leave it at a near-tie (gaps {gaps}); "
                 f"launches {nonzero(launches)}, predicted {want}")
-            require(all(len(r.tokens) == MAIN_SAMPLE_LEN for r in results)
-                    and stats.emitted_tokens == batch * MAIN_SAMPLE_LEN,
-                    f"speculative {name}: every row decoded {MAIN_SAMPLE_LEN} "
-                    f"tokens")
+            require(all(len(r.tokens) == n for r in results)
+                    and stats.emitted_tokens == batch * n,
+                    f"speculative {name}: every row decoded {n} tokens")
             require(got == want, f"speculative {name} {precision}: launches "
                     f"{got}, predicted {want}")
             by_path[f"speculative {name} {precision}"] = launches
+            if name == "unrelated draft":
+                floor_s += time.time() - t0
         # the tree's re-feed rewrites rows it wrote before: read once, on
         # a run of its own, outside the timed ones
         with TreeDrift(mt) as drift:
@@ -3446,8 +3827,11 @@ def phase_speculative(torch, dev, cfg, params, tok, by_path, card: str):
             ceiling = out["self-draft"][2].tokens_per_round
             require(ceiling > 1.5, f"the self-draft accepts: {ceiling:.3f} "
                     f"tokens a round")
+        log(f"[speculative {precision}] pass wall {time.time() - t_pass:.1f} s")
+    t0 = time.time()
     prof = verify_profile(torch, dev, cfg, params, MAIN_BATCH)
-    log(f"[speculative verify profile] whisper-small bf16 int8 cache, batch "
+    log(f"[speculative verify profile] ({time.time() - t0:.1f} s) "
+        f"whisper-small bf16 int8 cache, batch "
         f"{MAIN_BATCH}, torch.profiler device time: one verification forward "
         f"of {SPEC_K + 1} queries a row {prof['verify_ms']} ms "
         f"({prof['verify_kernels']} kernels), one single-query step "
@@ -3458,6 +3842,7 @@ def phase_speculative(torch, dev, cfg, params, tok, by_path, card: str):
     del draft, heads
     torch.cuda.empty_cache()
     log(f"[speculative] phase passed in {time.time() - t_phase:.1f} s")
+    return floor_s
 
 
 def phase_speculative_learned(torch, dev, root: str, learned: dict, by_path):
@@ -4327,10 +4712,10 @@ def parallel_rank_body(torch, rank: int) -> dict:
     from whisper_ipa_torch.ops import log_mel_spectrogram
     from whisper_ipa_torch.parallel import (fsdp_param_shardings, make_mesh,
                                             opt_state_shardings,
-                                            param_shardings, shard_batch,
-                                            shard_params)
+                                            param_shardings, shard_params)
     from whisper_ipa_torch.parallel import distributed as D
-    from whisper_ipa_torch.parallel.mesh import place_params, replicate
+    from whisper_ipa_torch.parallel.mesh import (place_params, replicate,
+                                                 shard_chunk)
     from whisper_ipa_torch.tokenizer import get_tokenizer
     from whisper_ipa_torch.train import create_train_state, train_step
     from whisper_ipa_torch.train.step import (create_train_state_zero1,
@@ -4421,16 +4806,19 @@ def parallel_rank_body(torch, rank: int) -> dict:
             osh = opt_state_shardings(mesh, tx, p, zero1=False)
         else:
             state, tx, osh = create_train_state_zero1(mesh, p, **kw)
+        # the chunked form train() runs over a mesh: the global batch
+        # PARALLEL_STEPS times, the rank's rows of each step cut at once
         step = make_zero1_step(mesh, cfg, tx, eot, osh, param_shardings=sh,
-                               freeze_encoder=True, dtype_name="bfloat16")
-        m, t = shard_batch(mesh, torch.from_numpy(mel_np).to(torch.bfloat16),
-                           torch.from_numpy(tokens_np))
+                               chunk=True, freeze_encoder=True,
+                               dtype_name="bfloat16")
+        m, t = shard_chunk(
+            mesh, torch.from_numpy(np.stack([mel_np] * PARALLEL_STEPS)).to(
+                torch.bfloat16),
+            torch.from_numpy(np.stack([tokens_np] * PARALLEL_STEPS)))
         reset_counts(torch)
         t0 = time.time()
-        losses = []
-        for _ in range(PARALLEL_STEPS):
-            state, loss = step(state, m, t)
-            losses.append(float(loss))
+        state, losses = step(state, m, t)
+        losses = losses.tolist()
         torch.cuda.synchronize()
         out["walls"][f"{kind} dp2 train"] = time.time() - t0
         out["paths"][f"{kind} dp2 train"] = read_counts(torch)
@@ -4732,7 +5120,8 @@ def phase_parallel(torch, dev, by_path) -> None:
     (b) two ranks sharing the card over gloo (spawned after every kernel
     was built, so no rank builds): TP=2 greedy decoding at the serving
     setting (tokens held to the one-rank run under the near-tie rule),
-    decoder-only DP=2, ZeRO-1 and FSDP steps at global batch 12, and a
+    decoder-only DP=2, ZeRO-1 and FSDP steps at global batch 12 (a chunk
+    of PARALLEL_STEPS, its rows cut by shard_chunk), and a
     TP=2 full fine-tune step (K5 on 6 local heads), each against the
     one-rank run: losses within 2e-3 relative, parameters within a mean
     10% of the one-rank run's mean update (bf16 activations); then the
@@ -4936,9 +5325,11 @@ def main() -> int:
     phase_service(torch, dev, cfg, params, tok)
     phase_service(torch, dev, cfg, params, tok, quant_bits=4, kv_int4=True)
     stream = phase_engine(torch, dev, cfg, params, tok, by_path)
-    phase_engine_speculative(torch, dev, cfg, params, tok, by_path, stream)
+    cut = phase_engine_speculative(torch, dev, cfg, params, tok, by_path,
+                                   stream)
     del stream
-    phase_speculative(torch, dev, cfg, params, tok, by_path, card)
+    cut["speculative unrelated draft"] = round(phase_speculative(
+        torch, dev, cfg, params, tok, by_path, card), 1)
     del params
     torch.cuda.empty_cache()
 
@@ -4950,6 +5341,8 @@ def main() -> int:
     for mode, r in trained.items():
         by_path[f"train {mode}"] = r["launches"]
     phase_train_parity(torch, dev)
+    added_s = trained["decoder-only chunked"]["added_s"] + phase_kernel_ab(
+        torch, dev)
     root = tempfile.mkdtemp(prefix="chip_smoke_prep_")
     try:
         phase_prep(root)
@@ -4966,7 +5359,10 @@ def main() -> int:
         shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
     phase_parallel(torch, dev, by_path)
-    log(f"[done] all phases passed in {time.time() - t_start:.1f} s")
+    log(f"[done] all phases passed in {time.time() - t_start:.1f} s; of it "
+        f"the chunked training run, the sync checks and the kernel A/B took "
+        f"{added_s:.1f} s, and the draft-model runs at their cut depth "
+        f"{sum(cut.values()):.1f} s ({cut})")
 
     # launches: the sum over the paths of one counted run each (the four
     # serving runs, the two training modes), with the per-path counts

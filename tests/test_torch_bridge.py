@@ -122,6 +122,13 @@ SPECULATIVE_SLICE_MODULES = [
     "whisper_ipa_torch.cli.distill_draft",
 ]
 
+# modules the chunked-training slice added
+CHUNKING_SLICE_MODULES = [
+    "whisper_ipa_torch.train.chunking",
+    "whisper_ipa_torch.cli.bench_decode_kernel",
+    "whisper_ipa_torch.cli.bench_quant_decode",
+]
+
 
 def test_port_never_imports_jax():
     """Importing every module of the port loads neither jax nor any module
@@ -155,6 +162,7 @@ def test_port_never_imports_jax():
     assert set(SPECULATIVE_SLICE_MODULES) <= set(names)
     assert set(TOOLS_SLICE_MODULES) <= set(names)
     assert set(PARALLEL_SLICE_MODULES) <= set(names)
+    assert set(CHUNKING_SLICE_MODULES) <= set(names)
 
 
 def _imported_modules(path):

@@ -53,7 +53,7 @@ from whisper_ipa_torch.ops.sr_quant import (
     stochastic_quantize_int8_plain,
 )
 from whisper_ipa_torch.ops.mel_kernel import normalize, reflect_pad
-from whisper_ipa_torch.train import create_train_state, train_step
+from whisper_ipa_torch.train import create_train_state, train_chunk, train_step
 
 pytestmark = pytest.mark.cuda
 
@@ -317,6 +317,41 @@ def test_whisper_small_unfrozen_bf16_train_step(dev):
     after = flatten_params(state.params)
     assert all(not torch.equal(after[n], t) for n, t in before.items()
                if n.endswith(".w"))
+
+
+@pytest.mark.parametrize("freeze", [True, False])
+def test_train_chunk_is_sync_free(dev, freeze):
+    """A chunk of 3 whisper-tiny steps (bf16, K2 forward; with the encoder
+    unfrozen K5 backward too) calls nothing that synchronizes the host:
+    sync-debug "error" raises at any such call. Its losses equal three
+    train_step calls from the same state, bit for bit."""
+    cfg = CONFIGS["tiny"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    mels = torch.randn((3, 2, 3000, cfg.n_mels), generator=gen, device=dev)
+    tokens = torch.full((3, 2, 16), 50257, device=dev, dtype=torch.long)
+    tokens[:, :, :10] = torch.randint(0, 50000, (3, 2, 10), generator=gen,
+                                      device=dev)
+    kw = dict(freeze_encoder=freeze, dtype_name="bfloat16")
+    runs = []
+    for chunked in (False, True):
+        state, tx = create_train_state(init_params(cfg, seed=0, device=dev),
+                                       learning_rate=1e-4,
+                                       freeze_encoder=freeze)
+        train_step(state, mels[0], tokens[0], cfg, tx, 50257, **kw)  # warm
+        torch.cuda.synchronize()
+        if chunked:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                state, losses = train_chunk(state, mels, tokens, cfg, tx,
+                                            50257, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        else:
+            losses = torch.stack([
+                train_step(state, m, t, cfg, tx, 50257, **kw)[1]
+                for m, t in zip(mels, tokens)])
+        runs.append(losses)
+    assert torch.equal(runs[0], runs[1])  # K5 sums without atomics
 
 
 def _rel(a, b) -> float:

@@ -102,21 +102,28 @@ def test_cli_trains_and_resumes_on_cpu(inputs, tmp_path):
     "flags", [["--zero1"], ["--fsdp"], ["--tensor-parallel", "2"],
               ["--steps-per-call", "4"]],
 )
-def test_cli_refuses_multi_device_flags(flags, inputs, tmp_path, capsys):
+def test_cli_one_process_flags(flags, inputs, tmp_path, capsys):
     """On one process, as in the reference on one device: --zero1 and
     --fsdp have no data axis and are ignored with its message (the run
     trains), --tensor-parallel 2 does not divide one device, and
-    --steps-per-call > 1 is not ported. The multi-process runs are
+    --steps-per-call 4 trains in chunks (4, then 2 to the end at 6) and
+    logs the reference's steps. The multi-process runs are
     tests/test_torch_multirank.py's."""
     data, weights = inputs
+    steps = "6" if flags[0] == "--steps-per-call" else "1"
     argv = flags + ["--device", "cpu", "--model", "test-tiny", "--train-data",
                     data, "--test-data", data, "--output-dir", str(tmp_path),
-                    "--steps", "1", "--batch-size", "2", "--validate-every",
+                    "--steps", steps, "--batch-size", "2", "--validate-every",
                     "0", "--save-every", "0", "--weights", weights]
     if flags[0] == "--steps-per-call":
-        with pytest.raises(SystemExit):
-            cli.main(argv)
-        assert "ROADMAP" in capsys.readouterr().err
+        cli.main(argv)
+        out = capsys.readouterr().out
+        _, rows = _csv(tmp_path / "training_log.csv")
+        assert [int(r[0]) for r in rows] == [1, 2, 3, 4, 5]
+        assert [line.split()[1] for line in out.splitlines()
+                if line.startswith("Step ")] == ["1/6", "2/6", "3/6", "4/6",
+                                                 "5/6"]
+        assert os.path.isdir(tmp_path / "checkpoint-6")
     elif flags[0] == "--tensor-parallel":
         with pytest.raises(ValueError, match="model=2 does not divide 1"):
             cli.main(argv)

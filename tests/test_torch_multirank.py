@@ -48,6 +48,8 @@ TRAIN_FLAGS = {
     "tp2": ["--tensor-parallel", "2"],
     "zero1": ["--zero1"],
     "fsdp": ["--fsdp"],
+    "dp2": [],
+    "dp2_spc4": ["--steps-per-call", "4"],
 }
 
 
@@ -236,6 +238,28 @@ def test_train_cli_tensor_parallel_matches_jax(world):
     assert got["final_loss"] == pytest.approx(want["final_loss"], rel=1e-5)
     assert got["final_per"] == pytest.approx(want["final_per"], abs=1e-9)
     assert world["ranks"][1]["train_tp2"]["final_loss"] == got["final_loss"]
+
+
+def test_train_cli_chunked_over_the_world_matches_one_step_a_call(world):
+    """DP=2 with --steps-per-call 4: each rank runs its local rows as one
+    chunk of the run's 2 steps (one host: no fallback to 1), and the run
+    equals the DP=2 --steps-per-call 1 run bit for bit (final loss,
+    validation, checkpoint) on both ranks."""
+    from whisper_ipa_torch.models.convert import load_safetensors_flat
+
+    for rank in world["ranks"]:
+        one, chunked = rank["train_dp2"], rank["train_dp2_spc4"]
+        assert chunked["final_loss"] == one["final_loss"]
+        assert chunked["final_per"] == one["final_per"]
+    one, chunked = (world["ranks"][0][k]["dir"] for k in ("train_dp2",
+                                                        "train_dp2_spc4"))
+    a, b = (load_safetensors_flat(os.path.join(d, "checkpoint-2",
+                                               "model.safetensors"))
+            for d in (one, chunked))
+    assert set(a) == set(b)
+    for k in a:
+        assert np.array_equal(np.asarray(a[k]), np.asarray(b[k])), k
+    assert "single-host only" not in world["logs"][0]
 
 
 @pytest.mark.parametrize("key", list(TRAIN_FLAGS))

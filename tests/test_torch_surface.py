@@ -41,8 +41,6 @@ torch.set_num_threads(1)
 # the reference's names the port does not have, with the reason
 NOT_PORTED = {
     "train": {
-        "train_chunk": "steps_per_call > 1 amortized a remote-device "
-                       "dispatch (ROADMAP item [14])",
         "clip_by_per_tensor_norm": "an optax GradientTransformation; the port "
                                    "has no optax: train.optimizer.Optimizer "
                                    "clips per tensor (ROADMAP item [14])",

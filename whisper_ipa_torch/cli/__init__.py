@@ -27,6 +27,10 @@
   parse_zeroshot_test the zero-shot test JSON from the annotator sheets
                       (host only)
   compute_iaa         inter-annotator agreement on it (host only)
+  bench_decode_kernel the decode cross-attention's plain path against K4
+                      (K8 with --int4), ms a token and GB/s
+  bench_quant_decode  greedy decode with f32, int8, int4 and int4-kernel
+                      (K7) weights
 
 The model CLIs take ``--device`` ("cuda" by default; "cuda" without a card
 raises, and ``--device cpu`` runs on the CPU).

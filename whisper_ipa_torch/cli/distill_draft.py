@@ -10,6 +10,9 @@ decay 1e-4, on token rows padded or cut to a fixed ``--token-len``. It
 writes standard checkpoints and a ``training_config.json`` that records
 ``freeze_encoder: false``, so ``cli.serve --draft-checkpoint`` (through
 ``load_checkpoint_auto``) overlays every tensor, the trained encoder too.
+``--steps-per-call`` C runs the steps in chunks of up to C (a power of two
+that crosses no save): the chunk's batches are drawn, stacked with bf16
+mels and uploaded at once, and the host reads the loss once a chunk.
 
   python -m whisper_ipa_torch.cli.distill_draft \\
       --student tiny --teacher small \\
@@ -62,10 +65,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument(
         "--steps-per-call", type=int, default=8,
-        help="accepted and without effect: the reference stacks this many "
-        "steps into one dispatch of its remote device; here each step runs "
-        "on its own, with the same batches and the same result (ROADMAP "
-        "item 14)",
+        help="steps a chunk (never across a save): the chunk's batches "
+        "stacked and uploaded at once, the same batches and step math as "
+        "one at a time",
     )
     add_device_flag(p)
     return p
@@ -90,6 +92,7 @@ def main(argv=None):
     from ..models import flatten_params, load_checkpoint_model
     from ..ops.precision import full_fp32
     from ..train.checkpoints import save_checkpoint
+    from ..train.chunking import pow2_floor, stack_pad_batches
     from ..train.loop import load_or_init_params, resolve_device
     from ..train.loss import compute_distill_loss
     from ..train.optimizer import Optimizer
@@ -153,17 +156,8 @@ def main(argv=None):
     names = list(flat)
     state = TrainState(step=0, params=student, opt_state=tx.init(flat))
 
-    rng = np.random.default_rng(args.seed)
-    t0 = time.time()
-    loss = None
-    for i in range(1, args.steps + 1):
-        idx = rng.choice(len(dataset), args.batch_size,
-                         replace=args.batch_size > len(dataset))
-        b = dataset.get_batch(idx.tolist())
-        mel = torch.from_numpy(b["mel_features"]).to(device)
-        tokens = torch.from_numpy(
-            pad_tokens(np.asarray(b["tokens"]), args.token_len, eot)
-        ).long().to(device)
+    def step(mel, tokens):
+        """One update of the student on one batch; its loss on the device."""
         leaves = [flat[n] for n in names]
         for t in leaves:
             t.requires_grad_(True)
@@ -182,9 +176,33 @@ def main(argv=None):
             n: torch.zeros_like(t) if g is None else g
             for n, t, g in zip(names, leaves, grads)
         }, state.opt_state)
-        state.step = i
-        loss = loss.detach()
-        if i % args.log_every == 0 or i == 1:
+        state.step += 1
+        return loss.detach()
+
+    rng = np.random.default_rng(args.seed)
+    t0 = time.time()
+    loss = None
+    i = 0
+    spc = max(1, args.steps_per_call)
+    while i < args.steps:
+        n = args.steps - i
+        if args.save_every:
+            n = min(n, args.save_every - i % args.save_every)
+        n = pow2_floor(min(n, spc))
+        batches = []
+        for _ in range(n):
+            idx = rng.choice(len(dataset), args.batch_size,
+                             replace=args.batch_size > len(dataset))
+            b = dataset.get_batch(idx.tolist())
+            b["tokens"] = pad_tokens(np.asarray(b["tokens"]), args.token_len,
+                                     eot)
+            batches.append(b)
+        # bf16 mels: the bf16 forwards cast them at entry anyway
+        mels, toks = stack_pad_batches(batches, eot, bf16_mels=True)
+        for mel, tokens in zip(mels.to(device), toks.long().to(device)):
+            loss = step(mel, tokens)
+        prev, i = i, i + n
+        if i % args.log_every < n or prev == 0:
             print(
                 f"step {i}/{args.steps}: distill loss {float(loss):.4f} "
                 f"({(time.time() - t0) / i:.2f} s/step)",

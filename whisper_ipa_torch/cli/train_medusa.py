@@ -12,6 +12,10 @@ training, the heads' per-head top-4 hit rates on batches of the data are
 written beside them as ``<output>.accuracy.json``, from which
 ``decode.medusa_tree.tree_for_heads`` builds the verification tree;
 ``--measure-only`` (re)writes that file for existing heads.
+``--steps-per-call`` C draws C batches at a time and runs their steps as
+one chunk, its mels stacked in bf16 and its tokens EOT-padded to the
+widest (``train.chunking``); the host reads the loss once a chunk, and
+logs and snapshots where a chunk crosses the cadence, as the reference.
 
   python -m whisper_ipa_torch.cli.train_medusa \\
       --model small --checkpoint checkpoints/best-checkpoint \\
@@ -123,10 +127,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument(
         "--steps-per-call", type=int, default=8,
-        help="accepted and without effect: the reference stacks this many "
-        "steps into one dispatch of its remote device; here each step runs "
-        "on its own, with the same batches and the same result (ROADMAP "
-        "item 14)",
+        help="steps a chunk: C batches stacked and uploaded at once, the "
+        "same batch sequence and step math as one at a time",
     )
     p.add_argument(
         "--save-every", type=int, default=250,
@@ -156,6 +158,7 @@ def main(argv=None):
         save_medusa,
         train_medusa_step,
     )
+    from ..train.chunking import pow2_floor, stack_pad_batches
     from ..train.loop import load_or_init_params, resolve_device
     from ..train.optimizer import Optimizer
 
@@ -197,23 +200,31 @@ def main(argv=None):
 
     rng = np.random.default_rng(args.seed)
     t0 = time.time()
-    loss = None
-    for step in range(1, args.steps + 1):
-        idx = rng.choice(len(dataset), args.batch_size, replace=True)
-        batch = dataset.get_batch(idx)
-        mel = torch.from_numpy(batch["mel_features"]).to(device)
-        tokens = torch.from_numpy(batch["tokens"]).long().to(device)
-        hidden = frozen_hidden(params, cfg, mel, tokens)
-        medusa, opt_state, loss = train_medusa_step(
-            medusa, opt_state, tx, params, cfg, hidden, tokens, eot
-        )
-        if step % args.log_every == 0 or step == 1:
+    step = 0
+    spc = max(1, args.steps_per_call)
+    while step < args.steps:
+        n = pow2_floor(min(spc, args.steps - step))
+        batches = [
+            dataset.get_batch(rng.choice(len(dataset), args.batch_size,
+                                         replace=True))
+            for _ in range(n)
+        ]
+        # bf16 mels: the frozen forward casts them at entry anyway
+        mels, toks = stack_pad_batches(batches, eot, bf16_mels=True)
+        mels, toks = mels.to(device), toks.long().to(device)
+        for mel, tokens in zip(mels, toks):
+            hidden = frozen_hidden(params, cfg, mel, tokens)
+            medusa, opt_state, loss = train_medusa_step(
+                medusa, opt_state, tx, params, cfg, hidden, tokens, eot
+            )
+        prev, step = step, step + n
+        if step % args.log_every < n or prev == 0:
             print(
                 f"step {step}/{args.steps}: head loss {float(loss):.4f} "
                 f"({(time.time() - t0) / step:.2f} s/step)",
                 flush=True,
             )
-        if args.save_every and step % args.save_every == 0:
+        if args.save_every and step % args.save_every < n:
             save_medusa(args.output + ".partial", medusa)
 
     save_medusa(args.output, medusa)

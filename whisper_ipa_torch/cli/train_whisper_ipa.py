@@ -1,8 +1,9 @@
 """CLI: Whisper IPA fine-tuning (PyTorch).
 
 The flags of ``whisper_ipa_tpu/cli/train_whisper_ipa.py`` plus --device
-("cuda" by default, "cpu" to train on the CPU). --steps-per-call > 1 exits
-with an error naming the ROADMAP item.
+("cuda" by default, "cpu" to train on the CPU). --steps-per-call C runs
+the steps in chunks of up to C (``train.step.train_chunk``): the host
+waits for the card once a chunk instead of once a step.
 
 Several devices: launch one process a device with torchrun; each joins the
 process group from torchrun's environment (NCCL on cuda, gloo on cpu) and
@@ -116,8 +117,9 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--steps-per-call", type=int, default=1,
-        help="Optimizer steps per device call; only 1 is ported "
-        "(ROADMAP queue 1 item 14)",
+        help="Optimizer steps per call (train_chunk: the step's body over "
+        "stacked batches, numerically identical). The host waits for the "
+        "device once a chunk",
     )
     p.add_argument(
         "--tensor-parallel", type=int, default=1,
@@ -155,10 +157,6 @@ def main(argv=None):
     args = parser.parse_args(argv)
     if int(os.environ.get("WORLD_SIZE", "1")) > 1 and not dist.is_initialized():
         initialize(device=args.device)  # torchrun: one process a device
-    if args.steps_per_call > 1:
-        parser.error(
-            "--steps-per-call > 1 is not ported (ROADMAP queue 1 item 14)"
-        )
     if args.preset == "large-single-chip":
         args.remat = True
         args.bf16 = True

@@ -20,6 +20,12 @@ packed int4, group scales). On the CPU they take the reference's CPU
 routes (weight-only dequantize; the int4 half-weights), so tokens match
 the JAX package. On CUDA a decode-shaped int4 call runs K7, and under
 ``use_int8_activations(True)`` every int8 call runs K6.
+
+``use_int4_matmul`` and ``use_decode_kernel`` are the reference's
+switches for K7 and for K4/K8: True (the default) takes the kernel where a
+call is eligible on CUDA, False sends those calls down the plain path on
+the card too (the kernels' A/B CLIs set it). A switch chooses before
+launch; it is not a fallback.
 """
 
 from __future__ import annotations
@@ -81,12 +87,21 @@ def _unpack_int4(packed, w_s4, dtype):
 # projections of ``init_cache`` (M = B * 1500) take the half-weight path, as
 # in the reference. Decided before launch; not a recovery path.
 _INT4_MATMUL_MAX_MK = 2 * 1024 * 1024
+_INT4_MATMUL = True
+
+
+def use_int4_matmul(enabled: bool = True) -> None:
+    """True (the default) = K7 where eligible, False = never (the
+    half-weight path on the card too)."""
+    global _INT4_MATMUL
+    _INT4_MATMUL = enabled
 
 
 def _int4_matmul_eligible(x, p) -> bool:
     rows_per_group = p["w_q4"].shape[0] // p["w_s4"].shape[0]
     return (
-        x.device.type == "cuda"
+        _INT4_MATMUL
+        and x.device.type == "cuda"
         and rows_per_group % 8 == 0
         and x.numel() <= _INT4_MATMUL_MAX_MK
     )
@@ -287,6 +302,16 @@ def multi_head_attention_beam_cache(
     return out.reshape(B, J, d)
 
 
+_DECODE_KERNEL = True
+
+
+def use_decode_kernel(enabled: bool = True) -> None:
+    """True (the default) = K4/K8 for single-query steps, False = never
+    (the plain path on the card too)."""
+    global _DECODE_KERNEL
+    _DECODE_KERNEL = enabled
+
+
 def multi_head_attention_int8kv(q, k_i8, k_scale, v_i8, v_scale, n_head: int):
     """Unmasked attention over the quantized T-minor cross cache.
 
@@ -294,8 +319,8 @@ def multi_head_attention_int8kv(q, k_i8, k_scale, v_i8, v_scale, n_head: int):
     nibble-packed int4 (two positions a byte) when the scales are twice as
     long; scales: (B, H, T_pad) f32 with 0 on padded positions.
     Single-query steps go to K4 (int8) or K8 (int4), the kernel on CUDA and
-    its plain version on the CPU; longer query blocks (the SOT prefix) take
-    the plain version directly.
+    its plain version on the CPU, unless ``use_decode_kernel(False)``;
+    longer query blocks (the SOT prefix) take the plain version directly.
     """
     d_head = q.shape[-1] // n_head
     qh = split_heads(q * (d_head ** -0.5), n_head)  # (B, H, S, Dh)
@@ -303,7 +328,7 @@ def multi_head_attention_int8kv(q, k_i8, k_scale, v_i8, v_scale, n_head: int):
         kernel, plain = decode_cross_attention_int4_tminor, decode_attention_int4_plain
     else:
         kernel, plain = decode_cross_attention_int8_tminor, decode_attention_plain
-    if qh.shape[2] == 1:
+    if qh.shape[2] == 1 and _DECODE_KERNEL:
         out = kernel(qh.contiguous(), k_i8, k_scale, v_i8, v_scale)
     else:
         out = plain(qh, k_i8, k_scale, v_i8, v_scale)

@@ -24,6 +24,7 @@ gathers them where it runs, and again when its backward recomputes it.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -152,6 +153,17 @@ def _layer(body, remat: bool, *args):
     return body(*args)
 
 
+@functools.lru_cache(maxsize=None)
+def _audio_positions(length: int, channels: int, device: torch.device,
+                     dtype: torch.dtype) -> torch.Tensor:
+    """The encoder's sinusoidal table on ``device`` in ``dtype``, copied
+    from the host once: a copy on every forward would wait for the card's
+    stream in each training step."""
+    with torch.inference_mode(False):  # usable by autograd after serving
+        return torch.from_numpy(sinusoids(length, channels)).to(
+            device=device, dtype=dtype)
+
+
 def encode(params: Params, cfg: WhisperConfig, mel, dtype=torch.float32,
            remat: bool = False, tp=None):
     """Audio encoder: (B, 2 * n_audio_ctx, n_mels) -> (B, n_audio_ctx, d).
@@ -173,8 +185,8 @@ def encode(params: Params, cfg: WhisperConfig, mel, dtype=torch.float32,
         x = mel.to(dtype)
         x = gelu(conv1d(x, enc["conv1"], stride=1))
         x = gelu(conv1d(x, enc["conv2"], stride=2))
-        pos = torch.from_numpy(sinusoids(cfg.n_audio_ctx, cfg.n_audio_state))
-        x = x + pos.to(device=x.device, dtype=dtype)
+        x = x + _audio_positions(cfg.n_audio_ctx, cfg.n_audio_state,
+                                 x.device, dtype)
         for block in enc["blocks"]:
             x = _layer(body, remat, x, block)
         return layer_norm(x, enc["ln_post"])

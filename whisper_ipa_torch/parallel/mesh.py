@@ -13,7 +13,8 @@ a rank's block. A shard's shape equals the reference's for every tensor.
   carry the collectives.
 * A batch is sharded by rows over 'data': ``shard_batch`` keeps a rank's
   block of a global batch every rank holds; ``shard_padded_batch`` pads
-  it to a multiple of 'data' first.
+  it to a multiple of 'data' first; ``shard_chunk`` cuts a (C, B, ...)
+  chunk of C steps along B.
 * ``shard_params`` keeps each rank's block of every TP-ruled tensor; the
   sharded tensors remember their global shape (``global_shape``), so the
   rules below apply to them as to the unsharded tree.
@@ -186,6 +187,20 @@ def shard_batch(mesh: Optional[Mesh], *arrays):
         return arrays if len(arrays) > 1 else arrays[0]
     out = tuple(
         batch_sharding(mesh, np.ndim(a)).local_block(_as_tensor(a, mesh.device))
+        for a in arrays
+    )
+    return out if len(out) > 1 else out[0]
+
+
+def shard_chunk(mesh: Optional[Mesh], *arrays):
+    """This rank's block of each global (C, B, ...) chunk along axis 1
+    (the batch) over 'data'. The chunk axis C is time (``train_chunk``'s
+    steps) and is never cut."""
+    if mesh is None:
+        return arrays if len(arrays) > 1 else arrays[0]
+    out = tuple(
+        NamedSharding(mesh, P(None, "data", *([None] * (np.ndim(a) - 2))))
+        .local_block(_as_tensor(a, mesh.device))
         for a in arrays
     )
     return out if len(out) > 1 else out[0]

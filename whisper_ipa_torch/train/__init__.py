@@ -22,6 +22,7 @@ from .step import (
     create_train_state,
     create_train_state_zero1,
     make_zero1_step,
+    train_chunk,
     train_step,
 )
 
@@ -46,6 +47,7 @@ __all__ = [
     "save_checkpoint",
     "save_training_config",
     "train",
+    "train_chunk",
     "train_step",
     "validate",
 ]

@@ -21,12 +21,21 @@ rows. Resume reads each rank's latest checkpoint; when the ranks' steps
 differ (no shared filesystem), every rank takes rank 0's restored state
 and cuts its own blocks, as the reference broadcasts process 0's.
 
-Not ported (raises ``NotImplementedError``): ``steps_per_call`` > 1.
-Unlike the reference,
-nothing swallows an error: ``validate`` lets a decode error propagate, and
-a failed step still writes the emergency checkpoint (one rank only) but
-then re-raises (on the card either would otherwise hide a kernel fault).
-The logged step time waits for the device.
+The steps run in chunks (``train.step.train_chunk``, or
+``make_zero1_step(chunk=True)`` over a mesh) of up to ``steps_per_call``
+C: a power of two of at most C steps that never crosses a validation, a
+save, the profiler's marks or the end of the run (``_chunk_len``), its
+batches stacked with EOT padding to the widest (``train.chunking``) and
+uploaded once from pinned memory. C = 1 is one step a chunk. The host waits for the device once a
+chunk, and reads the losses of the steps it logs in one copy. Ranks of
+one host chunk their local rows, as the reference's one-host mesh does;
+across hosts the reference uses 1, and so does the port.
+
+Unlike the reference, nothing swallows an error: ``validate`` lets a
+decode error propagate, and a failed step still writes the emergency
+checkpoint (one rank only) but then re-raises (on the card either would
+otherwise hide a kernel fault). The logged step time waits for the
+device: a chunk's wall over its steps.
 """
 
 from __future__ import annotations
@@ -75,6 +84,7 @@ from .checkpoints import (
     save_best_checkpoint,
     save_checkpoint,
 )
+from .chunking import pow2_floor, stack_pad_batches
 from .logger import (
     TrainingLogger,
     console_step_line,
@@ -87,7 +97,7 @@ from .step import (
     create_train_state,
     create_train_state_zero1,
     make_zero1_step,
-    train_step,
+    train_chunk,
 )
 
 
@@ -150,6 +160,26 @@ def validate(
     print(f"  PER:  {metrics['per']:.2f}%")
     print(f"  PFER: {metrics['pfer']:.2f}%")
     return metrics
+
+
+def _chunk_len(step: int, num_steps: int, steps_per_call: int,
+               validate_every: int = 0, save_every: int = 0,
+               profile_start: Optional[int] = None) -> int:
+    """Steps in the chunk that starts after ``step``: a power of two of at
+    most ``steps_per_call`` that crosses no validation, no save, no
+    profiler mark and not the end of the run. The profiler (on when
+    ``profile_start`` is the run's first step) starts before the chunk
+    that starts at profile_start + 9 and stops after the one that ends at
+    profile_start + 15."""
+    left = num_steps - step
+    for period in (validate_every, save_every):
+        if period:
+            left = min(left, period - step % period)
+    if profile_start is not None:
+        for mark in (profile_start + 9, profile_start + 15):
+            if step < mark:
+                left = min(left, mark - step)
+    return pow2_floor(min(steps_per_call, left))
 
 
 def load_or_init_params(model_name: str, cfg: WhisperConfig,
@@ -215,13 +245,9 @@ def train(
 
     Every rank of a process group calls it (see the module docstring);
     one process trains alone. ``profile_dir`` writes a ``torch.profiler``
-    trace of steps start+10..start+15.
+    trace of steps start+10..start+15. ``steps_per_call``: steps a chunk
+    (the module docstring).
     """
-    if steps_per_call > 1:
-        raise NotImplementedError(
-            "steps_per_call > 1 (train_chunk) is not ported: it amortized "
-            "a remote-device dispatch (ROADMAP queue 1 item 14)"
-        )
     dev = resolve_device(device)
     rank, world = (
         (dist.get_rank(), dist.get_world_size()) if dist.is_initialized()
@@ -477,28 +503,42 @@ def train(
     start_step = int(state.step)
     latest_loss = None
     eot = tokenizer.eot
-    step_impl = train_step
+    knobs = dict(
+        freeze_encoder=freeze_encoder,
+        dtype_name=compute_dtype,
+        remat=remat,
+        blockwise=blockwise_loss,
+        inputs_are_features=cache_encoder,
+        bf16_head=bf16_head,
+    )
     if mesh is not None:
-        step_fn = make_zero1_step(
-            mesh, cfg, tx, eot, opt_sh, param_shardings=param_sh,
-            freeze_encoder=freeze_encoder,
-            dtype_name=compute_dtype,
-            remat=remat,
-            blockwise=blockwise_loss,
-            inputs_are_features=cache_encoder,
-            bf16_head=bf16_head,
-        )
+        chunk_fn = make_zero1_step(mesh, cfg, tx, eot, opt_sh,
+                                   param_shardings=param_sh, chunk=True,
+                                   **knobs)
 
-        def step_impl(st, mel_a, tok_a, *a, **k):
-            return step_fn(st, mel_a, tok_a)
+        def run_steps(st, mels, toks):
+            return chunk_fn(st, mels, toks)
+    else:
+        def run_steps(st, mels, toks):
+            return train_chunk(st, mels, toks, cfg, tx, eot, **knobs)
+
+    if steps_per_call > 1 and world > int(
+            os.environ.get("LOCAL_WORLD_SIZE", world)):
+        # ranks of one host chunk their local rows (the reference's
+        # one-host mesh); across hosts the reference takes one step a call
+        print("steps_per_call > 1 is single-host only; using 1")
+        steps_per_call = 1
     loader = PrefetchLoader(
         train_dataset,
         batch_size // n_data,
         num_steps - start_step,
         seed=seed + start_step,
         fixed_token_len=fixed_token_len,
+        # a chunk drains steps_per_call batches at once: the worker keeps
+        # a whole chunk ready ahead of it
+        depth=max(2, 2 * steps_per_call),
     )
-    mel_dtype = torch.bfloat16 if compute_dtype == "bfloat16" else None
+    bf16 = compute_dtype == "bfloat16"
     profiler = None
 
     def decode_params():
@@ -511,19 +551,24 @@ def train(
             for n, t in flatten_params(state.params).items()
         })
 
-    def run_one(batch, step, profiler):
-        """One step on one batch, its logging, validation and saving;
-        returns (step, latest loss, the profiler while it runs)."""
+    def upload(batches):
+        """The chunk's (C, B, ...) stack on the device (C = 1 for one step).
+        bf16 training casts the mels on the host (round to nearest even):
+        both consumers cast at entry anyway, so this only halves the
+        bytes."""
+        mel, tokens = stack_pad_batches(batches, eot, bf16_mels=bf16)
+        if dev.type == "cuda":
+            mel, tokens = mel.pin_memory(), tokens.pin_memory()
+        return (mel.to(dev, non_blocking=True),
+                tokens.to(dev, non_blocking=True).long())
+
+    def run_chunk(batches, step, profiler):
+        """One chunk of len(batches) steps, its logging, validation and
+        saving; returns (step, latest loss, the profiler while it runs)."""
         nonlocal state
-        latest = None
+        n = len(batches)
         step_start = time.time()
-        # bf16 training casts the mels on the host before the upload:
-        # both consumers cast at entry anyway, so this only halves
-        # the bytes moved
-        mel = torch.from_numpy(batch["mel_features"]).to(
-            dev, dtype=mel_dtype, non_blocking=True
-        )
-        tokens = torch.from_numpy(batch["tokens"]).to(dev).long()
+        mel, tokens = upload(batches)
         if profile_dir and step + 1 == start_step + 10:
             profiler = torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CPU]
@@ -531,41 +576,34 @@ def train(
                    if dev.type == "cuda" else []),
             )
             profiler.start()
-        state, loss = step_impl(
-            state, mel, tokens, cfg, tx, eot,
-            freeze_encoder=freeze_encoder,
-            dtype_name=compute_dtype,
-            remat=remat,
-            blockwise=blockwise_loss,
-            inputs_are_features=cache_encoder,
-            bf16_head=bf16_head,
-        )
-        step += 1
-        if profiler is not None and step == start_step + 15:
+        state, losses = run_steps(state, mel, tokens)
+        prev, step = step, step + n
+        if profiler is not None and prev < start_step + 15 <= step:
             profiler.stop()
             os.makedirs(profile_dir, exist_ok=True)
             profiler.export_chrome_trace(
                 os.path.join(profile_dir, "trace.json")
             )
             profiler = None
-        latest = loss
+        latest = losses[-1]
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-        step_time = time.time() - step_start
+        step_time = (time.time() - step_start) / n
 
-        if step % 10 == 0 or step <= 5:
-            # reading the loss waits for the device: only when logging
-            latest = float(loss)
-            print(
-                console_step_line(
-                    step, num_steps, latest, step_time, batch_size
+        logged = [s for s in range(prev + 1, step + 1)
+                  if s % 10 == 0 or s <= 5]
+        if logged:
+            # the chunk's losses in one device-to-host copy
+            host = losses.tolist()
+            latest = host[-1]
+            for s in logged:
+                print(console_step_line(s, num_steps, host[s - prev - 1],
+                                        step_time, batch_size))
+                logger.log_train_step(
+                    s, host[s - prev - 1], lr_at(s), step_time, batch_size,
+                    time.time() - start_time,
                 )
-            )
-            logger.log_train_step(
-                step, latest, lr_at(step), step_time, batch_size,
-                time.time() - start_time,
-            )
-        if step % 200 == 0:
+        if step % 200 < n:
             gc.collect()
 
         if validate_every and step % validate_every == 0:
@@ -594,12 +632,25 @@ def train(
 
     try:
         step = start_step
-        for batch in loader:
-            if step >= num_steps:
+        batch_iter = iter(loader)
+        while step < num_steps:
+            batches = []
+            for _ in range(_chunk_len(
+                    step, num_steps, steps_per_call, validate_every,
+                    save_every, start_step if profile_dir else None)):
+                nxt = next(batch_iter, None)
+                if nxt is None:
+                    break
+                batches.append(nxt)
+            if not batches:
                 break
             try:
-                step, latest_loss, profiler = run_one(batch, step, profiler)
+                step, latest_loss, profiler = run_chunk(batches, step,
+                                                        profiler)
             except Exception as e:
+                # the steps of the chunk that completed are applied in
+                # place: label the checkpoint with what the state holds
+                step = int(state.step)
                 print(f"\nError at step {step}: {e}")
                 if multi:
                     raise  # a checkpoint is a collective the others miss

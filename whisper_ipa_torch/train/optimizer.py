@@ -20,6 +20,10 @@ frozen encoder gets no optimizer state and no update. ``mu_dtype`` stores
 the first moment in that dtype (the update is computed before the cast).
 With ``accum_steps`` k > 1, gradients are averaged over k calls (Welford
 mean, as ``MultiSteps``) and the update runs on every k-th call only.
+
+A step reads nothing back from the device and copies nothing to it: the
+host's scalars (b1, b2, the scheduled rate) enter as fill kernels
+(``_scalar``), so ``train.step.train_chunk`` runs C steps without a sync.
 """
 
 from __future__ import annotations
@@ -83,6 +87,13 @@ def _linear(init: float, end: float, steps: int):
         return (f32(init) - f32(end)) * frac + f32(end)
 
     return schedule
+
+
+def _scalar(value: float, dtype: torch.dtype, device) -> torch.Tensor:
+    """``value`` rounded to ``dtype`` in a 0-d tensor on ``device``, made by
+    a fill kernel: ``torch.tensor(value, device=cuda)`` copies from the
+    host and waits for the stream."""
+    return torch.full((), value, dtype=dtype, device=device)
 
 
 @dataclass
@@ -172,10 +183,10 @@ class Optimizer:
         count = state.count + 1
         device = next(iter(grads.values())).device
         f32 = dict(dtype=torch.float32, device=device)
-        bc1 = 1 - torch.tensor(B1, **f32) ** count
-        bc2 = 1 - torch.tensor(B2, **f32) ** count
+        bc1 = 1 - _scalar(B1, **f32) ** count
+        bc2 = 1 - _scalar(B2, **f32) ** count
         if self.scheduled:
-            lr = torch.tensor(self.learning_rate(state.schedule_count), **f32)
+            lr = _scalar(self.learning_rate(state.schedule_count), **f32)
             state.schedule_count += 1
         else:
             lr = self.learning_rate
@@ -183,6 +194,7 @@ class Optimizer:
             sq = {name: (g * g).sum() for name, g in grads.items()}
             if reduce_sq is not None:
                 sq = reduce_sq(sq)
+        b1 = {}  # b1 in each moment dtype and device
         for name, g in grads.items():
             p = flat_params[name]
             if self.max_grad_norm is not None:
@@ -191,7 +203,10 @@ class Optimizer:
             # b1 * mu in the moment's dtype, b1 rounded to it too (a bf16
             # moment decays by bf16(0.9) = 0.8984375), as optax does
             m = state.mu[name]
-            mu = (1 - B1) * g + torch.tensor(B1, dtype=m.dtype, device=m.device) * m
+            key = (m.dtype, m.device)
+            if key not in b1:
+                b1[key] = _scalar(B1, m.dtype, m.device)
+            mu = (1 - B1) * g + b1[key] * m
             nu = (1 - B2) * (g * g) + B2 * state.nu[name]
             u = (mu / bc1.to(mu.dtype)) / (
                 torch.sqrt(nu / bc2.to(nu.dtype)) + EPS

@@ -24,8 +24,12 @@ composes with each. Per-tensor clipping takes each whole tensor's norm:
 the slices' sums of squares are all-reduced over 'data' (ZeRO-1, FSDP)
 and over 'model' for TP-sharded tensors only.
 
-Not ported: ``train_chunk`` (several steps per device call, ROADMAP item
-[14]).
+``train_chunk`` runs C steps on a (C, B, ...) chunk: the same body C
+times, returning the C losses in one device tensor. Nothing in a step
+reads the device from the host (the optimizer's scalars are fill kernels,
+``train/optimizer.py``), so a chunk costs the host one read of its losses
+instead of one per step; over a mesh the step's collectives are the
+only waits.
 """
 
 from __future__ import annotations
@@ -150,6 +154,40 @@ def train_step(
     return state, loss.detach()
 
 
+def train_chunk(
+    state: TrainState,
+    mels,
+    tokens,
+    cfg: WhisperConfig,
+    tx: Optimizer,
+    eot: int,
+    freeze_encoder: bool = True,
+    dtype_name: str = "float32",
+    remat: bool = False,
+    blockwise: bool = False,
+    inputs_are_features: bool = False,
+    bf16_head: bool = False,
+) -> Tuple[TrainState, torch.Tensor]:
+    """C optimization steps. Returns (state, the (C,) float32 losses on
+    the device).
+
+    mels: (C, B, 3000, n_mels), or (C, B, n_audio_ctx, d) features;
+    tokens: (C, B, S). Runs ``train_step``'s body on each of the C
+    batches in turn, so the result equals C ``train_step`` calls bit for
+    bit (at the same shapes: EOT padding to a chunk's widest batch
+    changes the loss's reduction shapes, not its value beyond rounding).
+    """
+    losses = []
+    for mel, tok in zip(mels, tokens):
+        state, loss = train_step(
+            state, mel, tok, cfg, tx, eot, freeze_encoder=freeze_encoder,
+            dtype_name=dtype_name, remat=remat, blockwise=blockwise,
+            inputs_are_features=inputs_are_features, bf16_head=bf16_head,
+        )
+        losses.append(loss)
+    return state, torch.stack(losses)
+
+
 # -- over a mesh: DP, ZeRO-1, FSDP, each with or without TP -----------------
 
 
@@ -240,17 +278,17 @@ def make_zero1_step(
     **knobs,
 ):
     """The step over a mesh: ``stepper(state, mel, tokens) -> (state,
-    loss)`` on the rank's rows, the loss the global batch's.
+    loss)`` on the rank's rows, the loss the global batch's. With
+    ``chunk``, ``stepper(state, mels, tokens) -> (state, losses)`` runs
+    the same step on each of a (C, B_local, ...) chunk's C batches
+    (``train_chunk`` over a mesh; ``parallel.mesh.shard_chunk`` cuts a
+    global chunk's rows).
 
     opt_shardings: ``opt_state_shardings``' (ZeRO-1 when they name 'data',
     plain DP otherwise). param_shardings: a tree of NamedShardings (TP
     specs, or ``fsdp_param_shardings``' for FSDP), None for replicated
     parameters. ``knobs`` are ``train_step``'s keyword flags.
     """
-    if chunk:
-        raise NotImplementedError(
-            "chunk=True (train_chunk) is not ported (ROADMAP item [14])"
-        )
     flags = dict(
         freeze_encoder=True, dtype_name="float32", remat=False,
         blockwise=False, inputs_are_features=False, bf16_head=False,
@@ -261,7 +299,14 @@ def make_zero1_step(
         p_sh = (flatten_params(param_shardings) if param_shardings is not None
                 else _param_layout(mesh, state.params, False))
         state.layout = ShardedLayout(mesh, p_sh, opt_shardings)
-        return _sharded_step(state, mel, tokens, cfg, tx, eot, **flags)
+        if not chunk:
+            return _sharded_step(state, mel, tokens, cfg, tx, eot, **flags)
+        losses = []
+        for mel_i, tok_i in zip(mel, tokens):
+            state, loss = _sharded_step(state, mel_i, tok_i, cfg, tx, eot,
+                                        **flags)
+            losses.append(loss)
+        return state, torch.stack(losses)
 
     return stepper
 
