@@ -102,6 +102,12 @@ weights from seed 0:
             cache: K1, K2, K4; the train step, with cached features, and at
             tiny), each port kernel's launches as predicted, and
             cli.calculate_real_speed on the learning run and its console
+  examples  the port's example programs (examples/torch_*.py), whose data
+            set and perturbations the learning phase uses, through their
+            mains on the learning checkpoint: the per-locale report, the
+            unseen-speaker and snr10+reverb conditions, the latency probe
+            at whisper-small, the minimal fine-tune, and corpus_scale's
+            three stages on a small corpus in the reference's schema
   parallel  whisper_ipa_torch.parallel on the one card: a one-rank NCCL
             group and the collective helpers on CUDA tensors; then two
             ranks sharing the card over gloo (spawned after every kernel
@@ -1160,6 +1166,20 @@ def read_counts(torch) -> dict:
 
 def nonzero(counts: dict) -> dict:
     return {k: c for k, c in counts.items() if c}
+
+
+def example(name: str):
+    """examples/<name>.py of this checkout, loaded by path (the port's
+    example programs: the learning phase takes its data set and
+    perturbations from them, phase_examples runs their mains)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"example_{name}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def synthetic_audio(batch: int, seconds: float, seed: int) -> np.ndarray:
@@ -3088,14 +3108,6 @@ def phase_train_parity(torch, dev):
 
 # -- the learning path: a synthetic corpus, whisper-tiny from random init ---
 
-# examples/generalization.py's recipe: a synthesizable inventory with
-# distinct spectral signatures, 3-8 phones an utterance
-LEARN_PHONES = [
-    "i", "u", "a", "o", "e", "ɛ", "ɔ", "æ",
-    "p", "t", "k", "b", "d", "ɡ",
-    "s", "z", "ʃ", "f", "v", "x",
-    "m", "n", "l", "r", "j", "w",
-]
 LEARN_TRAIN = 256
 LEARN_HELDOUT = 48
 LEARN_STEPS = 600
@@ -3106,76 +3118,6 @@ LEARN_VALIDATE_EVERY = 200
 LEARN_ORACLE = 8  # held-out utterances of the phone-timestamp oracle
 LEARN_GAP = 0.5  # seconds of silence between utterances of the long input
 LEARN_LONG = (45.0, 60.0)  # seconds of the long input
-
-
-def learning_sequences(n_train: int, n_heldout: int, min_len: int = 3,
-                       max_len: int = 8) -> dict:
-    """{split: [(phones, synthesis seed)]}: disjoint random phone sequences
-    from default_rng(42), synthesis seeds from 0 (train) and 1 000 000
-    (held-out)."""
-    rng = np.random.default_rng(42)
-    seen = set()
-
-    def sample_seq():
-        while True:
-            length = int(rng.integers(min_len, max_len + 1))
-            seq = tuple(rng.choice(LEARN_PHONES, size=length).tolist())
-            if seq not in seen:
-                seen.add(seq)
-                return seq
-
-    return {split: [(sample_seq(), seed0 + i) for i in range(n)]
-            for split, n, seed0 in (("train", n_train, 0),
-                                    ("heldout", n_heldout, 1_000_000))}
-
-
-def make_learning_set(root: str, n_train: int, n_heldout: int):
-    """examples/generalization.py's set builder through the port: WAVs and
-    the pipeline's JSON for each split; returns (train.json, heldout.json)."""
-    from whisper_ipa_torch.audio import write_wav
-    from whisper_ipa_torch.data.synth import synthesize_phonemes
-
-    paths = {}
-    for split, items in learning_sequences(n_train, n_heldout).items():
-        d = os.path.join(root, split)
-        os.makedirs(d, exist_ok=True)
-        entries = []
-        for i, (seq, seed) in enumerate(items):
-            path = os.path.join(d, f"utt{i}.wav")
-            write_wav(path, synthesize_phonemes(list(seq), seed=seed))
-            entries.append({"audio_path": path,
-                            "ipa_transcription": "".join(seq),
-                            "speaker_id": f"synth{seed}",
-                            "dataset_source": "synthetic"})
-        paths[split] = os.path.join(root, f"{split}.json")
-        with open(paths[split], "w") as f:
-            json.dump(entries, f, ensure_ascii=False)
-    return paths["train"], paths["heldout"]
-
-
-def add_noise(audio: np.ndarray, snr_db: float, rng) -> np.ndarray:
-    """examples/perturbed_eval.py: white noise at ``snr_db``."""
-    p_sig = float(np.mean(audio**2)) + 1e-12
-    p_noise = p_sig / (10.0 ** (snr_db / 10.0))
-    return audio + rng.standard_normal(len(audio)).astype(np.float32) * (
-        p_noise**0.5
-    )
-
-
-def add_reverb(audio: np.ndarray, rt60: float = 0.3, sr: int = 16000,
-               rng=None) -> np.ndarray:
-    """examples/perturbed_eval.py: a synthetic room impulse response,
-    exponentially decaying noise."""
-    n = int(rt60 * sr)
-    t = np.arange(n) / sr
-    rir = (rng.standard_normal(n) * np.exp(-6.9 * t / rt60)).astype(
-        np.float32
-    )
-    rir[0] = 1.0  # direct path
-    rir /= np.sqrt(np.sum(rir**2))
-    wet = np.convolve(audio, rir)[: len(audio)].astype(np.float32)
-    peak = np.max(np.abs(wet)) + 1e-9
-    return wet / peak * (np.max(np.abs(audio)) + 1e-9)
 
 
 class tee_stdout:
@@ -3212,30 +3154,15 @@ def read_val_log(out: str) -> list:
                 for r in csv.reader(f) if r and r[0].isdigit()]
 
 
-def device_decode_scores(torch, dev, params, cfg, tok, entries, options,
-                         perturb=None, batch: int = 16) -> dict:
-    """Held-out scores through decode(): each waveform (perturbed by
-    ``perturb(audio, i)`` when given) -> log-mel on the card (K1), batches
-    padded to ``batch`` with their last row, as examples/perturbed_eval.py
-    does."""
-    from whisper_ipa_torch.audio import load_audio, pad_or_trim
-    from whisper_ipa_torch.decode import decode
+def device_decode_scores(params, cfg, tok, entries, options,
+                         cond: str = "clean", batch: int = 16) -> dict:
+    """Held-out scores through examples/torch_perturbed_eval.decode_split:
+    each waveform (perturbed by ``cond``) -> log-mel on the card (K1),
+    batches padded to ``batch`` with their last row -> decode()."""
     from whisper_ipa_torch.metrics import evaluate_batch
-    from whisper_ipa_torch.ops import log_mel_spectrogram
 
-    refs, hyps = [], []
-    for start in range(0, len(entries), batch):
-        idx = list(range(start, min(start + batch, len(entries))))
-        rows = []
-        for i in idx + [idx[-1]] * (batch - len(idx)):
-            audio = load_audio(entries[i]["audio_path"])
-            rows.append(pad_or_trim(perturb(audio, i) if perturb else audio))
-        with torch.inference_mode():
-            mel = log_mel_spectrogram(torch.from_numpy(np.stack(rows)).to(dev),
-                                      n_mels=cfg.n_mels)
-        results = decode(params, cfg, mel, options, tokenizer=tok)
-        refs += [entries[i]["ipa_transcription"].strip() for i in idx]
-        hyps += [results[k].text.strip() for k in range(len(idx))]
+    refs, hyps = example("torch_perturbed_eval").decode_split(
+        params, cfg, tok, entries, options, batch, cond)
     return {**evaluate_batch(refs, hyps), "references": refs,
             "hypotheses": hyps}
 
@@ -3267,7 +3194,8 @@ def phase_learn(torch, dev, root: str, by_path) -> dict:
     t_phase = time.time()
     cfg = CONFIGS["tiny"]
     t0 = time.time()
-    train_json, heldout_json = make_learning_set(
+    generalization = example("torch_generalization")
+    train_json, heldout_json = generalization.make_dataset(
         os.path.join(root, "data"), LEARN_TRAIN, LEARN_HELDOUT)
     with open(heldout_json) as f:
         heldout = json.load(f)
@@ -3369,7 +3297,7 @@ def phase_learn(torch, dev, root: str, by_path) -> dict:
     reset_counts(torch)
     t0 = time.time()
     evals["greedy int8"] = dict(device_decode_scores(
-        torch, dev, params, cfg, tok, heldout,
+        params, cfg, tok, heldout,
         DecodingOptions(language="en", without_timestamps=True,
                         kv_int8=True)), wall=None)
     evals["greedy int8"]["wall"] = time.time() - t0
@@ -3425,7 +3353,7 @@ def phase_learn(torch, dev, root: str, by_path) -> dict:
 
     # the phone-timestamp oracle: held-out utterances again, with the
     # synthesizer's true phone boundaries
-    items = learning_sequences(LEARN_TRAIN, LEARN_HELDOUT)["heldout"]
+    items = generalization.sequences(LEARN_TRAIN, LEARN_HELDOUT)["heldout"]
     reset_counts(torch)
     errors, oracle_ok = [], True
     for seq, seed in items[:LEARN_ORACLE]:
@@ -3500,24 +3428,15 @@ def phase_learn(torch, dev, root: str, by_path) -> dict:
                     "learn transcribe batched: segment and phone bounds "
                     "within the audio")
 
-    # examples/perturbed_eval.py's conditions on the held-out split
+    # examples/torch_perturbed_eval.py's conditions on the held-out split
+    # (its unseen speaker and snr10+reverb run in phase_examples)
     options = DecodingOptions(language=None, without_timestamps=True,
                               length_penalty=1.0, sample_len=64)
-
-    def perturbed(cond):
-        def perturb(audio, i):
-            rng = np.random.default_rng(123_000 + i)
-            if cond.startswith("snr"):
-                return add_noise(audio, float(cond[3:]), rng)
-            return add_reverb(audio, rng=rng)
-        return perturb if cond != "clean" else None
-
     reset_counts(torch)
     scores = {}
     for cond in ("clean", "snr20", "snr10", "reverb"):
         t0 = time.time()
-        m = device_decode_scores(torch, dev, params, cfg, tok, heldout,
-                                 options, perturb=perturbed(cond))
+        m = device_decode_scores(params, cfg, tok, heldout, options, cond)
         scores[cond] = (m["per"], m["pfer"], time.time() - t0)
     by_path["learn perturbed"] = read_counts(torch)
     log("[learn perturbed] 48 held-out utterances, language detected, 64 "
@@ -3530,7 +3449,8 @@ def phase_learn(torch, dev, root: str, by_path) -> dict:
     log(f"[learn] phase passed in {wall:.1f} s")
     return dict(floor=floor, train=train_score, summary=summary, wall=wall,
                 ckpt=ckpt, params=params, tok=tok, train_json=train_json,
-                heldout=heldout, cache=cache, run=out, console=console)
+                heldout=heldout, heldout_json=heldout_json, cache=cache,
+                run=out, console=console)
 
 
 # -- speculative decoding (decode/speculative.py, decode/medusa_tree.py) ----
@@ -4326,6 +4246,7 @@ def phase_zeroshot(torch, dev, root: str, learned: dict, by_path) -> None:
 
     t_phase = time.time()
     heldout = learned["heldout"]
+    phone_set = example("torch_generalization").PHONES
     ids = list(range(1, len(heldout) + 1))
     ids[-2:] = ZS_POOR[1:]  # 41 is already among 1..48
     rng = np.random.default_rng(77)
@@ -4338,7 +4259,7 @@ def phase_zeroshot(torch, dev, root: str, learned: dict, by_path) -> None:
         phones = tokenize_ipa(ipa)
         if i % 4 == 3:
             j = int(rng.integers(len(phones)))
-            phones[j] = next(p for p in rng.permutation(LEARN_PHONES)
+            phones[j] = next(p for p in rng.permutation(phone_set)
                              if p != phones[j])
         b_ipa = "?" if i == 5 else "".join(phones)  # "?": no annotation
         a_rows.append([float(entry_id), ipa, float(10 + i)])
@@ -4547,6 +4468,135 @@ def phase_tools(torch, dev, learned: dict, by_path) -> None:
             "calculate_real_speed: the log's samples/s")
     log(f"[tools] phase passed in {time.time() - t_phase:.1f} s")
 
+
+
+# -- the example programs (examples/torch_*.py) ------------------------------
+
+EXAMPLE_LOCALES = ("ja", "pl", "mt", "hu", "fi", "el", "ta")  # the corpus's
+EXAMPLE_CORPUS = (32, 8)  # train and test entries of corpus_scale's corpus
+EXAMPLE_STEPS = 20  # corpus_scale's training steps, 4 a chunk
+
+
+def write_reference_corpus(ref_dir: str, train: list, heldout: list) -> None:
+    """combined_{train,test}_ipa.json in the reference corpus's schema
+    (ipa_transcription, speaker_id, locale) from the learning set's
+    transcriptions: EXAMPLE_CORPUS entries, 8 speakers, the seven locales
+    in turn."""
+    os.makedirs(ref_dir)
+    for split, entries, n in (("train", train, EXAMPLE_CORPUS[0]),
+                              ("test", heldout, EXAMPLE_CORPUS[1])):
+        rows = [{"ipa_transcription": e["ipa_transcription"],
+                 "speaker_id": f"spk{i % 8}",
+                 "locale": EXAMPLE_LOCALES[i % len(EXAMPLE_LOCALES)]}
+                for i, e in enumerate(entries[:n])]
+        with open(os.path.join(ref_dir, f"combined_{split}_ipa.json"),
+                  "w") as f:
+            json.dump(rows, f, ensure_ascii=False)
+
+
+def phase_examples(torch, dev, root: str, learned: dict, by_path) -> dict:
+    """The port's example programs through their mains, on the card, on
+    phase_learn's whisper-tiny checkpoint and held-out split:
+    torch_corpus_report (the split with the seven locales in turn, a fresh
+    mel cache filled by K1), torch_perturbed_eval on the two conditions
+    phase_learn does not run (the unseen speaker, snr10+reverb),
+    torch_inference_latency at whisper-small, torch_minimal_finetune (its
+    loss falls) and torch_corpus_scale (tiny, EXAMPLE_STEPS steps in
+    chunks of 4, bf16, on a corpus in the reference's schema). Each run
+    timed, its launches counted; returns the walls."""
+    t_phase = time.time()
+    ckpt, run = learned["ckpt"], learned["run"]
+    walls, runs = {}, {}
+
+    def timed(name, argv, module):
+        reset_counts(torch)
+        t0 = time.time()
+        runs[name] = example(module).main(argv)
+        walls[name] = round(time.time() - t0, 2)
+        by_path[f"examples {name}"] = launches = read_counts(torch)
+        log(f"[examples {name}] wall {walls[name]:.2f} s; launches "
+            f"{nonzero(launches)}")
+        return launches
+
+    data = os.path.join(root, "heldout_locales.json")
+    with open(data, "w") as f:
+        json.dump([dict(e, locale=EXAMPLE_LOCALES[i % len(EXAMPLE_LOCALES)])
+                   for i, e in enumerate(learned["heldout"])], f,
+                  ensure_ascii=False)
+    n = len(learned["heldout"])
+    launches = timed("corpus_report", [
+        "--run-dir", run, "--checkpoint", ckpt, "--data", data, "--model",
+        "tiny", "--mel-cache-dir", os.path.join(root, "melcache_report"),
+        "--out", os.path.join(root, "corpus_report.json")],
+        "torch_corpus_report")
+    report = runs["corpus_report"]
+    log("[examples corpus_report] " + "; ".join(
+        f"{loc} n {m['n']} PER {m['per']:.2f}% PFER {m['pfer']:.2f}%"
+        for loc, m in report["by_locale"].items())
+        + f"; overall PER {report['overall']['per']:.2f}% PFER "
+        f"{report['overall']['pfer']:.2f}%, phone accuracy "
+        f"{report['phone_accuracy'] * 100:.2f}%, top substitutions "
+        f"{report['top_substitutions'][:3]}")
+    require(report["n_scored"] == n
+            and sorted(report["by_locale"]) == sorted(EXAMPLE_LOCALES)
+            and sum(m["n"] for m in report["by_locale"].values()) == n,
+            "corpus_report: every utterance scored once, seven locales")
+    require(report["overall"]["pfer"] <= 60.0,
+            "corpus_report: held-out PFER <= 60%, as phase_learn's gate")
+    require(launches["K1"] == -(-n // 16),
+            "corpus_report: K1 filled the fresh mel cache, 16 a launch")
+
+    launches = timed("perturbed_eval", [
+        "--run-dir", run, "--checkpoint", ckpt, "--data",
+        learned["heldout_json"], "--model", "tiny", "--conditions",
+        "speaker", "snr10+reverb", "--out",
+        os.path.join(root, "perturbed_eval.json")], "torch_perturbed_eval")
+    conds = runs["perturbed_eval"]["conditions"]
+    log("[examples perturbed_eval] 48 held-out utterances: " + "; ".join(
+        f"{c} PER {m['per']:.2f}% PFER {m['pfer']:.2f}% ({m['elapsed_s']} s)"
+        for c, m in conds.items()))
+    require(list(conds) == ["speaker", "snr10+reverb"]
+            and all(np.isfinite([m["per"], m["pfer"]]).all()
+                    for m in conds.values()),
+            "perturbed_eval: speaker and snr10+reverb scores finite")
+    require(launches["K1"] == 2 * -(-n // 16),
+            "perturbed_eval: K1 once a batch of 16 a condition")
+
+    launches = timed("inference_latency", ["small"],
+                     "torch_inference_latency")
+    lat = runs["inference_latency"]
+    require(lat["steady_s"] > 0 and launches["K1"] >= 2,
+            "inference_latency: two transcriptions, K1 in each")
+
+    timed("minimal_finetune", [], "torch_minimal_finetune")
+    losses = runs["minimal_finetune"]
+    require(len(losses) == 5 and all(np.isfinite(losses))
+            and losses[-1] < losses[0],
+            "minimal_finetune: five finite losses, the last under the first")
+
+    ref_dir = os.path.join(root, "reference_corpus")
+    with open(learned["train_json"]) as f:
+        write_reference_corpus(ref_dir, json.load(f), learned["heldout"])
+    launches = timed("corpus_scale", [
+        "--model", "tiny", "--steps", str(EXAMPLE_STEPS), "--batch-size",
+        "16", "--steps-per-call", "4", "--bf16", "--val-samples",
+        str(EXAMPLE_CORPUS[1]), "--validate-every", "10", "--save-every",
+        str(EXAMPLE_STEPS), "--out", os.path.join(root, "corpus"),
+        "--ref-dir", ref_dir], "torch_corpus_scale")
+    scale = runs["corpus_scale"]
+    log(f"[examples corpus_scale] {json.dumps(scale)}")
+    require(scale["n_train"] == EXAMPLE_CORPUS[0]
+            and np.isfinite([scale["final_loss"], scale["heldout_per"],
+                             scale["floor_per"]]).all(),
+            "corpus_scale: its three stages ran, finite scores")
+    require(launches["K1"] == sum(-(-k // 16) for k in EXAMPLE_CORPUS),
+            "corpus_scale: K1 filled the mel cache, 16 a launch")
+    require(launches["K5"] == 4 * EXAMPLE_STEPS
+            and launches["K2"] >= 4 * EXAMPLE_STEPS,
+            "corpus_scale: K2 forward and K5 backward in every step")
+    walls["phase"] = round(time.time() - t_phase, 1)
+    log(f"[examples] phase passed in {walls['phase']:.1f} s: {walls}")
+    return walls
 
 
 # -- parallel: torch.distributed over the one card ---------------------------
@@ -5354,6 +5404,7 @@ def main() -> int:
         phase_speculative_learned(torch, dev, root, learned, by_path)
         phase_zeroshot(torch, dev, root, learned, by_path)
         phase_tools(torch, dev, learned, by_path)
+        phase_examples(torch, dev, root, learned, by_path)
         del learned
     finally:
         shutil.rmtree(root, ignore_errors=True)

@@ -186,6 +186,44 @@ def test_chip_smoke_imports_nothing_of_jax():
     assert not bad, bad
 
 
+def _port_programs():
+    """examples/torch_*.py and scripts/torch_*.py."""
+    paths = []
+    for d in ("examples", "scripts"):
+        root = os.path.join(REPO_ROOT, d)
+        paths += sorted(os.path.join(root, f) for f in os.listdir(root)
+                        if f.startswith("torch_") and f.endswith(".py"))
+    return paths
+
+
+def test_port_programs_import_nothing_of_jax():
+    """The port's example programs and invocation shims name neither jax
+    nor the JAX package in an import (at any depth), and importing each
+    loads neither."""
+    paths = _port_programs()
+    assert len(paths) == 13  # six examples, seven shims
+    for path in paths:
+        names = _imported_modules(path)
+        assert "whisper_ipa_torch" in {n.split(".")[0] for n in names}, path
+        bad = sorted(n for n in names if n.split(".")[0] in (
+            "jax", "jaxlib", "whisper_ipa_tpu", *ABSENT_ON_THE_CARD))
+        assert not bad, (path, bad)
+    code = (
+        "import importlib.util, sys\n"
+        "for i, path in enumerate(sys.argv[1:]):\n"
+        "    spec = importlib.util.spec_from_file_location(f'm{i}', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' "
+        "or m.startswith(('jax.', 'jaxlib', 'whisper_ipa_tpu')))\n"
+        "assert not bad, bad\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code, *paths], capture_output=True,
+        text=True, timeout=120, cwd=REPO_ROOT,
+    )
+    assert out.returncode == 0, out.stderr
+
+
 def test_port_sources_never_import_pandas_or_openpyxl():
     """No module of the port, and not chip_smoke.py, names pandas or
     openpyxl in an import (at any depth): the card's machine has neither."""

@@ -115,6 +115,15 @@ def test_embed_audio_is_encode():
     assert models.embed_audio is models.encode is whisper.embed_audio
 
 
+def test_logits_is_decoder_logits():
+    """The reference-surface alias of the JAX package's models/whisper.py."""
+    from whisper_ipa_tpu.models import whisper as jax_whisper
+    from whisper_ipa_torch.models import whisper
+
+    assert jax_whisper.logits is jax_whisper.decoder_logits
+    assert whisper.logits is whisper.decoder_logits
+
+
 def test_count_parameters_and_mlx_names_match_jax():
     from whisper_ipa_tpu.config import CONFIGS as JAX_CONFIGS
     from whisper_ipa_tpu.models import count_parameters as jax_count

@@ -5,8 +5,8 @@ arguments and seed its waveforms (and alignments) must equal
 ``whisper_ipa_tpu.data.synth``'s bit for bit: every phone of the
 synthesizer's tables and some it does not know, and a seeded grid of IPA
 strings (diacritics, ties, length, nasalization, devoicing), durations, f0
-and seeds. ``chip_smoke.py``'s learning-set builder must give the same
-entries and WAV bytes as ``examples/generalization.make_dataset``.
+and seeds. ``examples/torch_generalization.make_dataset`` must give the
+same entries and WAV bytes as ``examples/generalization.make_dataset``.
 """
 
 import importlib.util
@@ -109,16 +109,18 @@ def test_pronunciation_variants_bit_equal(text, subs):
 
 
 def test_learning_set_matches_generalization_example(tmp_path):
-    """chip_smoke.make_learning_set (the port) and the example's
+    """examples/torch_generalization.make_dataset (the port's, which
+    chip_smoke.py's learning phase loads) and examples/generalization's
     make_dataset (the JAX package) write the same entries and WAV bytes."""
-    smoke = load_by_path("chip_smoke_under_test",
-                         os.path.join(REPO_ROOT, "chip_smoke.py"))
+    port = load_by_path("torch_generalization_under_test",
+                        os.path.join(REPO_ROOT, "examples",
+                                     "torch_generalization.py"))
     example = load_by_path("generalization_under_test",
                            os.path.join(REPO_ROOT, "examples",
                                         "generalization.py"))
-    assert smoke.LEARN_PHONES == example.PHONES
+    assert port.PHONES == example.PHONES
     port_root, jax_root = tmp_path / "port", tmp_path / "jax"
-    got = smoke.make_learning_set(str(port_root), 8, 4)
+    got = port.make_dataset(str(port_root), 8, 4)
     want = example.make_dataset(str(jax_root), 8, 4)
     for got_json, want_json, root_g, root_w in zip(
             got, want, (port_root,) * 2, (jax_root,) * 2):

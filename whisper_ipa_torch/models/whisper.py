@@ -254,6 +254,9 @@ def decoder_logits(params: Params, cfg: WhisperConfig, tokens, audio_features,
         return x.float() @ emb.float().T
 
 
+logits = decoder_logits  # reference-surface alias (model.logits)
+
+
 def decoder_cross_attentions(params: Params, cfg: WhisperConfig, tokens,
                              audio_features, dtype=torch.float32):
     """Teacher-forced forward that also returns the cross-attention weights.
