@@ -57,7 +57,7 @@ from whisper_ipa_torch.cli import (
     profile_inference,
 )
 from whisper_ipa_torch.train.logger import console_step_line
-from whisper_ipa_torch.utils import flops
+from whisper_ipa_torch.utils import flops, timing
 from whisper_ipa_torch.utils.xlsx import write_xlsx
 
 torch.set_num_threads(1)
@@ -399,6 +399,11 @@ def test_profile_inference_prints_its_table_on_cpu(extra, tmp_path):
     assert json.loads((tmp_path / "ops.json").read_text()) == result["rows"]
     want = "aten::mm" if extra else "aten::bmm"
     assert any(r["op"] == want for r in result["rows"])
+    # the program's span markers are in the trace and out of the table
+    span = "train.forward" if extra else "decode.step"
+    marks = [timing.parse_marker(e.get("name", "")) for e in trace["traceEvents"]]
+    assert any(m and m[0] == span for m in marks)
+    assert not any(timing.parse_marker(r["op"]) for r in result["rows"])
 
 
 # -- the default device --------------------------------------------------------

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from whisper_ipa_torch.config import CONFIGS
+from whisper_ipa_torch.decode import DecodingOptions, decode
 from whisper_ipa_torch.models import init_params
 from whisper_ipa_torch.models.convert import flatten_params
 from whisper_ipa_torch.models import layers
@@ -54,6 +55,7 @@ from whisper_ipa_torch.ops.sr_quant import (
 )
 from whisper_ipa_torch.ops.mel_kernel import normalize, reflect_pad
 from whisper_ipa_torch.train import create_train_state, train_chunk, train_step
+from whisper_ipa_torch.utils import timing
 
 pytestmark = pytest.mark.cuda
 
@@ -352,6 +354,59 @@ def test_train_chunk_is_sync_free(dev, freeze):
                 for m, t in zip(mels, tokens)])
         runs.append(losses)
     assert torch.equal(runs[0], runs[1])  # K5 sums without atomics
+
+
+def test_spans_leave_the_device_timeline_alone(dev):
+    """A whisper-tiny decode (bf16, int8 cache, K4) under the profiler,
+    host and device: no device-side event is a span marker or a mirror of
+    one, and every span's stream interval lies inside its ``decode``'s,
+    the children's sum within it. A chunk of 3 training steps inside
+    ``timing.tracing()`` records its spans with no host sync (sync-debug
+    "error"), each with a stream time."""
+    cfg = CONFIGS["tiny"]
+    params = init_params(cfg, seed=0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    feats = torch.randn((4, cfg.n_audio_ctx, cfg.n_audio_state), generator=gen,
+                        device=dev).to(torch.bfloat16)
+    opts = DecodingOptions(language="en", without_timestamps=True, fp16=True,
+                           kv_int8=True, sample_len=16, suppress_blank=False,
+                           suppress_tokens=list(range(50257, cfg.n_vocab)))
+    decode(params, cfg, feats, opts)  # warm: kernel builds
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        decode(params, cfg, feats, opts)
+        torch.cuda.synchronize()
+    on_device = [e for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(on_device) > 100
+    assert not [e.name for e in on_device if timing.parse_marker(e.name)]
+    recs = timing.records()
+    root = recs[0]
+    assert root.name == "decode" and len(recs) == 3 + 16 + 1 + 1 + 1
+    for r in recs[1:]:
+        assert 0 <= r.stream_ms
+        assert root.stream_start_ms <= r.stream_start_ms <= r.stream_end_ms <= root.stream_end_ms
+    assert sum(r.stream_ms for r in recs if r.parent == root.id) <= root.stream_ms
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    mels = torch.randn((3, 2, 3000, cfg.n_mels), generator=gen, device=dev)
+    tokens = torch.full((3, 2, 16), 50257, device=dev, dtype=torch.long)
+    tokens[:, :, :10] = torch.randint(0, 50000, (3, 2, 10), generator=gen, device=dev)
+    state, tx = create_train_state(params, learning_rate=1e-4)
+    kw = dict(freeze_encoder=True, dtype_name="bfloat16")
+    train_step(state, mels[0], tokens[0], cfg, tx, 50257, **kw)  # warm
+    torch.cuda.synchronize()
+    with timing.tracing():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            train_chunk(state, mels, tokens, cfg, tx, 50257, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    recs = timing.records()
+    assert [r.name for r in recs] == ["train.step", "train.forward", "train.backward",
+                                      "train.optimizer"] * 3
+    assert all(r.stream_ms > 0 for r in recs)
 
 
 def _rel(a, b) -> float:

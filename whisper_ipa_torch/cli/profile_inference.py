@@ -37,17 +37,21 @@ import time
 import numpy as np
 import torch
 
+from ..utils import timing
 from . import add_device_flag
 from .profile_serving import port_kernel_times
 
 
 def op_table(events, device: torch.device):
     """Per-op rows of ``key_averages()`` sorted by self time: the device's
-    kernels on CUDA, the operators on the CPU."""
+    kernels on CUDA, the operators on the CPU. The program's span markers
+    are left out; the Chrome trace keeps them."""
     rows = []
     for e in events:
         if e.key.startswith("ProfilerStep"):
             continue  # the schedule's step annotation (on both timelines)
+        if timing.parse_marker(e.key):
+            continue  # a span's start or end (``utils.timing``), not an op
         if device.type == "cuda":
             if e.device_type != torch.autograd.DeviceType.CUDA:
                 continue

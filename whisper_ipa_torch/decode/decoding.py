@@ -20,6 +20,13 @@ loop applies Whisper's timestamp grammar (``apply_timestamp_rules``) after
 the suppress and blank masks. At temperature > 0, ``best_of=N`` samples N
 candidates for each input and keeps the best by ``sequence_score``
 (``rank_candidates``); ``beam_size`` hands the batch to ``beam.py``.
+
+Each call is the span ``decode`` (``utils.timing``), and the greedy loop's
+parts its children: ``decode.cast``, ``decode.init_cache``,
+``decode.prefix``, one ``decode.step`` an iteration (with
+``decode.finished_check`` inside it where the host reads the finished
+mask) and ``decode.readback``. They record only under a profiler or
+``timing.tracing()``.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ from ..models.whisper import cast_decoder_blocks, decode_step, encode, init_cach
 from ..ops.precision import full_fp32
 from ..tokenizer import LANGUAGES, LANGUAGES_V3, WhisperTokenizer, get_tokenizer
 from ..tokenizer.whisper_tokenizer import N_TIMESTAMPS
+from ..utils import timing
 
 FINISHED_CHECK_EVERY = 8
 
@@ -314,63 +322,70 @@ def _greedy_decode(
     timestamp at ``timestamp_begin - 1``, and it moves only on a
     timestamp token."""
     # one cast before the loop, as the reference does outside its loop
-    params = cast_decoder_blocks(params, dtype)
+    with timing.span("decode.cast"):
+        params = cast_decoder_blocks(params, dtype)
     B, n_prefix = prefix_tokens.shape
     max_len = n_prefix + sample_len
-    cache = init_cache(
-        params, cfg, audio_features, max_len=max_len, dtype=dtype,
-        cross_kv_int8=cross_kv_int8, cross_kv_int4=cross_kv_int4, tp=tp,
-    )
-    prefix_logits, cache = decode_step(
-        params, cfg, prefix_tokens, cache, 0, dtype=dtype, tp=tp
-    )
-    sot_logits = prefix_logits[:, sot_index]
-    logits = prefix_logits[:, -1]
+    with timing.span("decode.init_cache"):
+        cache = init_cache(
+            params, cfg, audio_features, max_len=max_len, dtype=dtype,
+            cross_kv_int8=cross_kv_int8, cross_kv_int4=cross_kv_int4, tp=tp,
+        )
+    with timing.span("decode.prefix"):
+        prefix_logits, cache = decode_step(
+            params, cfg, prefix_tokens, cache, 0, dtype=dtype, tp=tp
+        )
+        sot_logits = prefix_logits[:, sot_index]
+        logits = prefix_logits[:, -1]
 
-    device = audio_features.device
-    tokens = torch.full((B, max_len), eot, dtype=torch.long, device=device)
-    tokens[:, :n_prefix] = prefix_tokens
-    finished = torch.zeros(B, dtype=torch.bool, device=device)
-    sum_logprobs = torch.zeros(B, dtype=torch.float32, device=device)
-    vocab_idx = torch.arange(suppress_mask.shape[0], device=device)
-    prev_tok = prefix_tokens[:, -1]
-    prev2_tok = prefix_tokens[:, -2] if n_prefix >= 2 else prefix_tokens[:, -1]
-    last_ts = torch.full((B,), timestamp_begin - 1, dtype=torch.long,
-                         device=device)
+        device = audio_features.device
+        tokens = torch.full((B, max_len), eot, dtype=torch.long, device=device)
+        tokens[:, :n_prefix] = prefix_tokens
+        finished = torch.zeros(B, dtype=torch.bool, device=device)
+        sum_logprobs = torch.zeros(B, dtype=torch.float32, device=device)
+        vocab_idx = torch.arange(suppress_mask.shape[0], device=device)
+        prev_tok = prefix_tokens[:, -1]
+        prev2_tok = prefix_tokens[:, -2] if n_prefix >= 2 else prefix_tokens[:, -1]
+        last_ts = torch.full((B,), timestamp_begin - 1, dtype=torch.long,
+                             device=device)
 
     for step in range(sample_len):
-        if step and step % FINISHED_CHECK_EVERY == 0 and bool(finished.all()):
-            break
-        filtered = logits + suppress_mask
-        if step == 0:
-            filtered = filtered + blank_mask
-        if timestamp_rules:
-            filtered = apply_timestamp_rules(
-                filtered, vocab_idx, step, prev_tok, prev2_tok, last_ts,
-                eot=eot, timestamp_begin=timestamp_begin,
-                max_initial_ts_index=max_initial_ts_index,
-            )
-        if temperature == 0.0:
-            next_tok = filtered.argmax(dim=-1)
-        else:
-            probs = torch.softmax(filtered / temperature, dim=-1)
-            next_tok = torch.multinomial(probs, 1, generator=generator)[:, 0]
-        logprobs = torch.log_softmax(filtered, dim=-1)
-        tok_logprob = logprobs.gather(-1, next_tok[:, None])[:, 0]
+        with timing.span("decode.step"):
+            if step and step % FINISHED_CHECK_EVERY == 0:
+                with timing.span("decode.finished_check"):
+                    done = bool(finished.all())
+                if done:
+                    break
+            filtered = logits + suppress_mask
+            if step == 0:
+                filtered = filtered + blank_mask
+            if timestamp_rules:
+                filtered = apply_timestamp_rules(
+                    filtered, vocab_idx, step, prev_tok, prev2_tok, last_ts,
+                    eot=eot, timestamp_begin=timestamp_begin,
+                    max_initial_ts_index=max_initial_ts_index,
+                )
+            if temperature == 0.0:
+                next_tok = filtered.argmax(dim=-1)
+            else:
+                probs = torch.softmax(filtered / temperature, dim=-1)
+                next_tok = torch.multinomial(probs, 1, generator=generator)[:, 0]
+            logprobs = torch.log_softmax(filtered, dim=-1)
+            tok_logprob = logprobs.gather(-1, next_tok[:, None])[:, 0]
 
-        next_tok = torch.where(finished, eot, next_tok)
-        sum_logprobs = sum_logprobs + torch.where(finished, 0.0, tok_logprob)
-        finished = finished | (next_tok == eot)
-        prev2_tok, prev_tok = prev_tok, next_tok
-        last_ts = torch.where(next_tok >= timestamp_begin, next_tok, last_ts)
+            next_tok = torch.where(finished, eot, next_tok)
+            sum_logprobs = sum_logprobs + torch.where(finished, 0.0, tok_logprob)
+            finished = finished | (next_tok == eot)
+            prev2_tok, prev_tok = prev_tok, next_tok
+            last_ts = torch.where(next_tok >= timestamp_begin, next_tok, last_ts)
 
-        pos = n_prefix + step
-        tokens[:, pos] = next_tok
-        if step + 1 < sample_len:  # the last token's logits are never read
-            step_logits, cache = decode_step(
-                params, cfg, next_tok[:, None], cache, pos, dtype=dtype, tp=tp
-            )
-            logits = step_logits[:, 0]
+            pos = n_prefix + step
+            tokens[:, pos] = next_tok
+            if step + 1 < sample_len:  # the last token's logits are never read
+                step_logits, cache = decode_step(
+                    params, cfg, next_tok[:, None], cache, pos, dtype=dtype, tp=tp
+                )
+                logits = step_logits[:, 0]
     return tokens, sum_logprobs, sot_logits
 
 
@@ -400,6 +415,11 @@ def decode(
     group runs the same call on the same rows and gets the same tokens.
     The reference reads the sharding from its arrays; here it is named.
     """
+    with timing.span("decode"):
+        return _decode(params, cfg, audio_input, options, tokenizer, tp)
+
+
+def _decode(params, cfg, audio_input, options, tokenizer, tp):
     if tokenizer is None:
         tokenizer = get_tokenizer(
             multilingual=cfg.multilingual,
@@ -491,38 +511,40 @@ def decode(
             max_initial_ts_index=max_initial_ts_index,
             tp=tp,
         )
-        no_speech_probs = torch.softmax(sot_logits, dim=-1)[:, tokenizer.no_speech]
-        tokens_np = tokens.cpu().numpy()
-        sum_logprobs_np = sum_logprobs.cpu().numpy()
-        no_speech_np = no_speech_probs.float().cpu().numpy()
+    with timing.span("decode.readback"):
+        with torch.inference_mode(), full_fp32():
+            no_speech_probs = torch.softmax(sot_logits, dim=-1)[:, tokenizer.no_speech]
+            tokens_np = tokens.cpu().numpy()
+            sum_logprobs_np = sum_logprobs.cpu().numpy()
+            no_speech_np = no_speech_probs.float().cpu().numpy()
 
-    if n_candidates > 1:
-        keep = rank_candidates(tokens_np, sum_logprobs_np, n_candidates,
-                               n_prefix, tokenizer.eot, options.length_penalty)
-        tokens_np = tokens_np[keep]
-        sum_logprobs_np = sum_logprobs_np[keep]
-        no_speech_np = no_speech_np[keep]
+        if n_candidates > 1:
+            keep = rank_candidates(tokens_np, sum_logprobs_np, n_candidates,
+                                   n_prefix, tokenizer.eot, options.length_penalty)
+            tokens_np = tokens_np[keep]
+            sum_logprobs_np = sum_logprobs_np[keep]
+            no_speech_np = no_speech_np[keep]
 
-    results = []
-    for b in range(B):
-        seq = tokens_np[b, n_prefix:]
-        eot_pos = np.nonzero(seq == tokenizer.eot)[0]
-        end = int(eot_pos[0]) if len(eot_pos) else len(seq)
-        out_tokens = seq[:end].tolist()
-        text = tokenizer.decode_text(out_tokens).strip()
-        results.append(
-            DecodingResult(
-                tokens=out_tokens,
-                text=text,
-                # averaged over the emitted tokens and the EOT decision
-                avg_logprob=float(sum_logprobs_np[b]) / (end + 1),
-                no_speech_prob=float(no_speech_np[b]),
-                temperature=options.temperature,
-                compression_ratio=compression_ratio(text),
-                language=(
-                    detected_langs[b] if detected_langs
-                    else options.language or tokenizer.language
-                ),
+        results = []
+        for b in range(B):
+            seq = tokens_np[b, n_prefix:]
+            eot_pos = np.nonzero(seq == tokenizer.eot)[0]
+            end = int(eot_pos[0]) if len(eot_pos) else len(seq)
+            out_tokens = seq[:end].tolist()
+            text = tokenizer.decode_text(out_tokens).strip()
+            results.append(
+                DecodingResult(
+                    tokens=out_tokens,
+                    text=text,
+                    # averaged over the emitted tokens and the EOT decision
+                    avg_logprob=float(sum_logprobs_np[b]) / (end + 1),
+                    no_speech_prob=float(no_speech_np[b]),
+                    temperature=options.temperature,
+                    compression_ratio=compression_ratio(text),
+                    language=(
+                        detected_langs[b] if detected_langs
+                        else options.language or tokenizer.language
+                    ),
+                )
             )
-        )
     return results

@@ -30,6 +30,12 @@ reads the device from the host (the optimizer's scalars are fill kernels,
 ``train/optimizer.py``), so a chunk costs the host one read of its losses
 instead of one per step; over a mesh the step's collectives are the
 only waits.
+
+``train_step`` is the span ``train.step`` (``utils.timing``) with the
+children ``train.forward`` (the loss, frozen encoder included),
+``train.backward`` (``torch.autograd.grad``) and ``train.optimizer``
+(``tx.step``: the per-tensor clip and AdamW); they record only under a
+profiler or ``timing.tracing()``.
 """
 
 from __future__ import annotations
@@ -51,6 +57,7 @@ from ..parallel.sharded import (
     gather_slices,
     reduce_scatter_coalesced,
 )
+from ..utils import timing
 from .loss import compute_loss, eot_loss_mask
 from .optimizer import Optimizer, OptState, Schedule
 
@@ -121,36 +128,40 @@ def train_step(
     optimizer state and the logits head stay float32). inputs_are_features:
     ``mel`` holds precomputed encoder outputs (B, n_audio_ctx, d).
     """
-    flat = flatten_params(state.params)
-    names = [n for n in flat if tx.trainable(n)]
-    leaves = [flat[n] for n in names]
-    for t in leaves:
-        t.requires_grad_(True)
-    try:
-        with full_fp32():
-            loss = compute_loss(
-                state.params,
-                cfg,
-                None if inputs_are_features else mel,
-                tokens,
-                eot,
-                audio_features=mel if inputs_are_features else None,
-                freeze_encoder=freeze_encoder,
-                dtype=_DTYPES[dtype_name],
-                remat=remat,
-                blockwise=blockwise,
-                bf16_head=bf16_head,
-            )
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    finally:
+    with timing.span("train.step"):
+        flat = flatten_params(state.params)
+        names = [n for n in flat if tx.trainable(n)]
+        leaves = [flat[n] for n in names]
         for t in leaves:
-            t.requires_grad_(False)
-    grads = {
-        n: torch.zeros_like(t) if g is None else g
-        for n, t, g in zip(names, leaves, grads)
-    }
-    tx.step(flat, grads, state.opt_state)
-    state.step += 1
+            t.requires_grad_(True)
+        try:
+            with full_fp32():
+                with timing.span("train.forward"):
+                    loss = compute_loss(
+                        state.params,
+                        cfg,
+                        None if inputs_are_features else mel,
+                        tokens,
+                        eot,
+                        audio_features=mel if inputs_are_features else None,
+                        freeze_encoder=freeze_encoder,
+                        dtype=_DTYPES[dtype_name],
+                        remat=remat,
+                        blockwise=blockwise,
+                        bf16_head=bf16_head,
+                    )
+                with timing.span("train.backward"):
+                    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        finally:
+            for t in leaves:
+                t.requires_grad_(False)
+        grads = {
+            n: torch.zeros_like(t) if g is None else g
+            for n, t, g in zip(names, leaves, grads)
+        }
+        with timing.span("train.optimizer"):
+            tx.step(flat, grads, state.opt_state)
+        state.step += 1
     return state, loss.detach()
 
 
