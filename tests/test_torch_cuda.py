@@ -383,7 +383,9 @@ def test_spans_leave_the_device_timeline_alone(dev):
     assert not [e.name for e in on_device if timing.parse_marker(e.name)]
     recs = timing.records()
     root = recs[0]
-    assert root.name == "decode" and len(recs) == 3 + 16 + 1 + 1 + 1
+    # cast, cache, prefix; the capture, 16 steps, 14 of them replays; one
+    # finished check; the read-back
+    assert root.name == "decode" and len(recs) == 1 + 3 + 1 + 16 + 14 + 1 + 1
     for r in recs[1:]:
         assert 0 <= r.stream_ms
         assert root.stream_start_ms <= r.stream_start_ms <= r.stream_end_ms <= root.stream_end_ms
@@ -407,6 +409,133 @@ def test_spans_leave_the_device_timeline_alone(dev):
     assert [r.name for r in recs] == ["train.step", "train.forward", "train.backward",
                                       "train.optimizer"] * 3
     assert all(r.stream_ms > 0 for r in recs)
+
+
+# -- the decode loop's CUDA graph ------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def tiny_on_card():
+    """whisper-tiny (4 decoder layers, head width 64) on the card and 512
+    windows of bf16 encoder output."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the graph path runs only there")
+    dev = torch.device("cuda", 0)
+    cfg = CONFIGS["tiny"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    feats = torch.randn((512, cfg.n_audio_ctx, cfg.n_audio_state), generator=gen,
+                        device=dev).to(torch.bfloat16)
+    return cfg, init_params(cfg, seed=0, device=dev), feats
+
+
+def _decode_on(path, params, cfg, feats, opts):
+    """``decode`` on the graph path or, with the choice forced off, on the
+    eager path: (results, span names, launches each counted kernel made)."""
+    from unittest import mock
+
+    from whisper_ipa_torch.decode import decoding
+
+    before = [fn.launches for fn in decoding._COUNTED_KERNELS]
+    with mock.patch.object(decoding, "_graph_path",
+                           side_effect=lambda *a: path == "graph"):
+        with timing.tracing():
+            res = decode(params, cfg, feats, opts)
+    names = [r.name for r in timing.records()]
+    return res, names, [fn.launches - b for fn, b in
+                        zip(decoding._COUNTED_KERNELS, before)]
+
+
+@pytest.mark.parametrize("sample_len", [8, 64])
+@pytest.mark.parametrize("batch", [512, 7])
+@pytest.mark.parametrize("timestamps", [False, True])
+@pytest.mark.parametrize("cache", ["float", "int8", "int4"])
+def test_graph_loop_equals_the_eager_loop(tiny_on_card, cache, timestamps, batch,
+                                          sample_len):
+    """whisper-tiny in bf16, each cross cache, with and without the
+    timestamp grammar, at batch 512 and 7: the loop replayed as a CUDA
+    graph gives the eager loop's tokens, ``avg_logprob`` (the summed
+    log-probabilities over one length) and ``no_speech_prob`` exactly, and
+    every kernel counter (K4 with the int8 cache, K8 with int4) counts
+    what the eager loop counts. One ``decode.capture`` a call and a
+    ``decode.replay`` in every step but the first and the last."""
+    cfg, params, feats = tiny_on_card
+    kw = dict(language="en", fp16=True, sample_len=sample_len,
+              kv_int8=cache == "int8", kv_int4=cache == "int4")
+    if timestamps:
+        opts = DecodingOptions(without_timestamps=False, **kw)
+    else:  # every row decodes sample_len text tokens
+        opts = DecodingOptions(without_timestamps=True, suppress_blank=False,
+                               suppress_tokens=list(range(50257, cfg.n_vocab)), **kw)
+    feats = feats[:batch]
+    graph, g_names, g_launches = _decode_on("graph", params, cfg, feats, opts)
+    eager, e_names, e_launches = _decode_on("eager", params, cfg, feats, opts)
+    assert [r.tokens for r in graph] == [r.tokens for r in eager]
+    assert [r.avg_logprob for r in graph] == [r.avg_logprob for r in eager]
+    assert [r.no_speech_prob for r in graph] == [r.no_speech_prob for r in eager]
+    assert g_launches == e_launches
+    k4, k8 = g_launches[0], g_launches[1]
+    steps = g_names.count("decode.step")
+    assert steps == e_names.count("decode.step")
+    if not timestamps:
+        assert steps == sample_len
+    assert (k4 > 0) == (cache == "int8") and (k8 > 0) == (cache == "int4")
+    assert g_names.count("decode.capture") == 1
+    assert g_names.count("decode.replay") == steps - 2
+    assert "decode.capture" not in e_names and "decode.replay" not in e_names
+
+
+def test_graph_kernels_reach_the_profiler(tiny_on_card, monkeypatch):
+    """Two graph-path decodes under the profiler (host and device), from a
+    fresh record of side streams and graphs: K4's kernel appears once a
+    decoder layer for every forward of the loop, the replayed ones
+    included, so the benchmark's kernel metrics still see the loop; the
+    first capture adds one warm-up iteration on its new side stream, the
+    second none. No span marker reaches the device's timeline."""
+    import threading
+
+    from whisper_ipa_torch.decode import decoding
+
+    cfg, params, feats = tiny_on_card
+    opts = DecodingOptions(language="en", without_timestamps=True, fp16=True,
+                           kv_int8=True, sample_len=16, suppress_blank=False,
+                           suppress_tokens=list(range(50257, cfg.n_vocab)))
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    monkeypatch.setattr(decoding, "_GRAPHS", threading.local())
+    seen = []
+    for _ in range(2):
+        with torch.profiler.profile(activities=acts) as prof:
+            decode(params, cfg, feats[:64], opts)
+            torch.cuda.synchronize()
+        on_device = [e.name for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA]
+        recs = timing.records()  # two profiler runs share one recording
+        last = [r for r in recs if r.name == "decode"][-1]
+        names = [r.name for r in recs if r.call == last.id]
+        seen.append((sum("decode_int8_cluster_kernel" in n for n in on_device),
+                     names.count("decode.capture"), names.count("decode.replay"),
+                     [n for n in on_device if timing.parse_marker(n)]))
+    L = cfg.n_text_layer
+    assert seen == [(L * 16, 1, 14, []), (L * 15, 1, 14, [])]
+
+
+def test_graph_pool_is_reused_across_calls(tiny_on_card):
+    """Each call captures its own graph into the pool of the thread's
+    last one, so repeated decodes reserve no more memory than two did;
+    a graph whose pool were left behind a call would add its step's
+    transients (the (512, n_vocab) f32 logits and their kin) every call."""
+    cfg, params, feats = tiny_on_card
+    opts = DecodingOptions(language="en", without_timestamps=True, fp16=True,
+                           kv_int8=True, sample_len=8, suppress_blank=False,
+                           suppress_tokens=list(range(50257, cfg.n_vocab)))
+    first = [decode(params, cfg, feats, opts) for _ in range(2)]
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved()
+    later = [decode(params, cfg, feats, opts) for _ in range(4)]
+    torch.cuda.synchronize()
+    logits_bytes = feats.shape[0] * cfg.n_vocab * 4
+    assert torch.cuda.memory_reserved() - reserved < logits_bytes
+    assert all([r.tokens for r in res] == [r.tokens for r in first[0]]
+               for res in first[1:] + later)
 
 
 def _rel(a, b) -> float:
@@ -447,7 +576,10 @@ def test_int8_matmul_ragged_shapes(dev, m):
 
 def test_int8_activations_tokens_through_k6(dev, monkeypatch):
     """test-tiny greedy tokens under use_int8_activations on the card: the
-    ones that run K6 equal the ones with K6 replaced by its plain version."""
+    ones that run K6 (on the graph path) equal the ones with K6 replaced by
+    its plain version, which runs on the eager loop: its IEEE division
+    copies the divisor from the host, which a graph capture cannot hold."""
+    from whisper_ipa_torch.decode import decoding
     from dataclasses import replace
 
     from whisper_ipa_torch.decode import DecodingOptions, decode
@@ -467,6 +599,7 @@ def test_int8_activations_tokens_through_k6(dev, monkeypatch):
         kernel = decode(params, cfg, mel, opts, tokenizer=tok)
         assert int8_matmul.launches > before
         monkeypatch.setattr(layers, "int8_matmul", int8_matmul_plain)
+        monkeypatch.setattr(decoding, "_graph_path", lambda *a: False)
         plain = decode(params, cfg, mel, opts, tokenizer=tok)
     finally:
         layers.use_int8_activations(False)

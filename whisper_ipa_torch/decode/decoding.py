@@ -1,9 +1,12 @@
 """Autoregressive decoding: options, logit masks, the greedy/sampling loop.
 
 Counterpart of ``whisper_ipa_tpu/decode/decoding.py``. The reference runs
-the token loop as one ``lax.while_loop``; here it is an eager Python loop
-over ``decode_step`` with the same state (token buffer, finished mask,
-summed log-probabilities) and the same masking rules. It asks the device
+the token loop as one ``lax.while_loop``; here it is a Python loop over
+one iteration function (the masks, the choice, ``decode_step``) with the
+same state (token buffer, finished mask, summed log-probabilities) and
+the same masking rules. On CUDA it replays that iteration as a CUDA graph
+in every step but the first and the last, so a step costs the host one
+launch instead of one per kernel (``_greedy_decode``). It asks the device
 whether every row has finished only every ``FINISHED_CHECK_EVERY`` tokens,
 not every token: steps past the end write EOT over EOT and add nothing to
 the scores, so the result is the same as stopping at once.
@@ -23,24 +26,31 @@ candidates for each input and keeps the best by ``sequence_score``
 
 Each call is the span ``decode`` (``utils.timing``), and the greedy loop's
 parts its children: ``decode.cast``, ``decode.init_cache``,
-``decode.prefix``, one ``decode.step`` an iteration (with
-``decode.finished_check`` inside it where the host reads the finished
-mask) and ``decode.readback``. They record only under a profiler or
-``timing.tracing()``.
+``decode.prefix``, ``decode.capture`` on the graph path, one
+``decode.step`` an iteration (with ``decode.finished_check`` inside it
+where the host reads the finished mask, and ``decode.replay`` where it
+replays the graph) and ``decode.readback``. They record only under a
+profiler or ``timing.tracing()``.
 """
 
 from __future__ import annotations
 
+import threading
 import zlib
 from dataclasses import dataclass, replace
-from typing import List, Optional, Sequence, Union
+from typing import List, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from ..config import WhisperConfig
 from ..models.whisper import cast_decoder_blocks, decode_step, encode, init_cache
+from ..ops.decode_attention import (
+    decode_cross_attention_int4_tminor,
+    decode_cross_attention_int8_tminor,
+)
 from ..ops.precision import full_fp32
+from ..ops.quant_matmul import int4_matmul, int8_matmul
 from ..tokenizer import LANGUAGES, LANGUAGES_V3, WhisperTokenizer, get_tokenizer
 from ..tokenizer.whisper_tokenizer import N_TIMESTAMPS
 from ..utils import timing
@@ -293,6 +303,95 @@ def apply_timestamp_rules(
 
 # -- greedy / sampling loop -----------------------------------------------
 
+class _LoopState(NamedTuple):
+    """The loop's state between iterations, all on the device: the logits
+    the next token is chosen from (B, n_vocab), the finished mask, the
+    summed log-probabilities, the last two tokens and the last timestamp
+    (the grammar's state) and the position of the next token (0-d)."""
+
+    logits: torch.Tensor
+    finished: torch.Tensor
+    sum_logprobs: torch.Tensor
+    prev_tok: torch.Tensor
+    prev2_tok: torch.Tensor
+    last_ts: torch.Tensor
+    pos: torch.Tensor
+
+
+# The kernel wrappers a decode step may launch. Each counts its launches
+# in ``.launches``; a graph replay runs no Python, so it adds the count its
+# capture made, and a decode counts what it would have counted eagerly.
+_COUNTED_KERNELS = (
+    decode_cross_attention_int8_tminor,
+    decode_cross_attention_int4_tminor,
+    int8_matmul,
+    int4_matmul,
+)
+
+# This thread's side stream and last captured graph, by CUDA device. A
+# capture shares the last graph's memory pool, which that graph, never
+# replayed again, no longer needs, so successive decodes reuse one pool
+# instead of leaving one behind each; threads do not share a pool, so
+# their graphs never replay over each other's memory.
+_GRAPHS = threading.local()
+
+
+def _graph_path(device: torch.device, tp, generator) -> bool:
+    """Whether the loop replays its steps as one CUDA graph: on CUDA,
+    without a tensor-parallel group (its collectives cannot be captured
+    over gloo) and without a sampling generator (a replay would not
+    advance it)."""
+    return device.type == "cuda" and tp is None and generator is None
+
+
+def _capture_step(iteration, state: _LoopState, step: int):
+    """Capture ``iteration(state, step, True)`` as a CUDA graph whose
+    inputs are also its outputs: returns (graph, static state, launches),
+    the static state holding ``state``'s values until the first replay,
+    each replay advancing it by one iteration in place, and ``launches``
+    the ``.launches`` each of ``_COUNTED_KERNELS`` gains a replay.
+
+    The capture runs on the thread's side stream. The first capture on
+    that stream runs one warm-up iteration there before it, on a scratch
+    copy of the state: it sets up what the stream needs outside a capture
+    (cuBLAS's workspace for the stream), which later captures find in
+    place; the step's own kernels have run eagerly at step 0 already.
+    The warm-up writes its token and its K/V at the step's own position,
+    which the step's replay writes again, and adds nothing to the launch
+    counters: a decode counts what the eager loop counts."""
+    device = state.logits.device
+    slots = _GRAPHS.__dict__.setdefault("by_device", {})
+    side, last = slots.get(device.index, (None, None))
+    main = torch.cuda.current_stream(device)
+    before = [fn.launches for fn in _COUNTED_KERNELS]
+    static = _LoopState(*(t.clone() for t in state))
+    if side is None:
+        side = torch.cuda.Stream(device)
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        if last is None:
+            iteration(_LoopState(*(t.clone() for t in state)), step, True)
+        warm = [fn.launches for fn in _COUNTED_KERNELS]
+        graph = torch.cuda.CUDAGraph()
+        graph.capture_begin(pool=last.pool() if last is not None else None,
+                            capture_error_mode="thread_local")
+        try:
+            out = iteration(static, step, True)
+            # an output that is an input (the last token becomes the one
+            # before it) is copied before any input is overwritten
+            out = [o.clone() if any(o is t for t in static) else o for o in out]
+            for t, o in zip(static, out):
+                t.copy_(o)
+        finally:
+            graph.capture_end()
+    main.wait_stream(side)
+    launches = [fn.launches - w for fn, w in zip(_COUNTED_KERNELS, warm)]
+    for fn, n in zip(_COUNTED_KERNELS, before):
+        fn.launches = n
+    slots[device.index] = (side, graph)
+    return graph, static, launches
+
+
 def _greedy_decode(
     params,
     cfg: WhisperConfig,
@@ -320,7 +419,17 @@ def _greedy_decode(
     With ``timestamp_rules`` the grammar state follows the reference's
     loop: the last two tokens start at the prefix's last two, the last
     timestamp at ``timestamp_begin - 1``, and it moves only on a
-    timestamp token."""
+    timestamp token.
+
+    One iteration is one function (``iteration``) over the loop's state;
+    the position is a device value, so the iteration reads nothing from
+    the host. On the graph path (``_graph_path``) step 0 (the blank mask,
+    the timestamp grammar's first window) runs eagerly, step 1's
+    iteration is captured as a CUDA graph (the span ``decode.capture``)
+    and replayed for steps 1 to ``sample_len`` - 2 (``decode.replay``),
+    and the last iteration, which runs no forward, is eager again: the
+    same kernels on the same data as the eager loop, launched by one
+    call a step. The finished check stays on the host between steps."""
     # one cast before the loop, as the reference does outside its loop
     with timing.span("decode.cast"):
         params = cast_decoder_blocks(params, dtype)
@@ -336,57 +445,79 @@ def _greedy_decode(
             params, cfg, prefix_tokens, cache, 0, dtype=dtype, tp=tp
         )
         sot_logits = prefix_logits[:, sot_index]
-        logits = prefix_logits[:, -1]
 
         device = audio_features.device
         tokens = torch.full((B, max_len), eot, dtype=torch.long, device=device)
         tokens[:, :n_prefix] = prefix_tokens
-        finished = torch.zeros(B, dtype=torch.bool, device=device)
-        sum_logprobs = torch.zeros(B, dtype=torch.float32, device=device)
         vocab_idx = torch.arange(suppress_mask.shape[0], device=device)
-        prev_tok = prefix_tokens[:, -1]
-        prev2_tok = prefix_tokens[:, -2] if n_prefix >= 2 else prefix_tokens[:, -1]
-        last_ts = torch.full((B,), timestamp_begin - 1, dtype=torch.long,
-                             device=device)
+        state = _LoopState(
+            logits=prefix_logits[:, -1],
+            finished=torch.zeros(B, dtype=torch.bool, device=device),
+            sum_logprobs=torch.zeros(B, dtype=torch.float32, device=device),
+            prev_tok=prefix_tokens[:, -1],
+            prev2_tok=prefix_tokens[:, -2] if n_prefix >= 2 else prefix_tokens[:, -1],
+            last_ts=torch.full((B,), timestamp_begin - 1, dtype=torch.long,
+                               device=device),
+            pos=torch.full((), n_prefix, dtype=torch.long, device=device),
+        )
 
+    def iteration(st: _LoopState, step: int, forward: bool) -> _LoopState:
+        """Choose the token at ``st.pos`` (``step`` counts from the first
+        sampled position) and write it; with ``forward`` run it through
+        the decoder for the next logits."""
+        filtered = st.logits + suppress_mask
+        if step == 0:
+            filtered = filtered + blank_mask
+        if timestamp_rules:
+            filtered = apply_timestamp_rules(
+                filtered, vocab_idx, step, st.prev_tok, st.prev2_tok, st.last_ts,
+                eot=eot, timestamp_begin=timestamp_begin,
+                max_initial_ts_index=max_initial_ts_index,
+            )
+        if temperature == 0.0:
+            next_tok = filtered.argmax(dim=-1)
+        else:
+            probs = torch.softmax(filtered / temperature, dim=-1)
+            next_tok = torch.multinomial(probs, 1, generator=generator)[:, 0]
+        logprobs = torch.log_softmax(filtered, dim=-1)
+        tok_logprob = logprobs.gather(-1, next_tok[:, None])[:, 0]
+
+        next_tok = torch.where(st.finished, eot, next_tok)
+        sum_logprobs = st.sum_logprobs + torch.where(st.finished, 0.0, tok_logprob)
+        finished = st.finished | (next_tok == eot)
+        last_ts = torch.where(next_tok >= timestamp_begin, next_tok, st.last_ts)
+
+        tokens.index_copy_(1, st.pos.view(1), next_tok[:, None])
+        logits = st.logits
+        if forward:  # the last token's logits are never read
+            step_logits, _ = decode_step(
+                params, cfg, next_tok[:, None], cache, st.pos, dtype=dtype, tp=tp
+            )
+            logits = step_logits[:, 0]
+        return _LoopState(logits, finished, sum_logprobs, next_tok, st.prev_tok,
+                          last_ts, st.pos + 1)
+
+    use_graph = _graph_path(device, tp, generator)
+    graph = None
     for step in range(sample_len):
+        forward = step + 1 < sample_len
+        if use_graph and step == 1 and forward:
+            with timing.span("decode.capture"):
+                graph, state, launches = _capture_step(iteration, state, step)
         with timing.span("decode.step"):
             if step and step % FINISHED_CHECK_EVERY == 0:
                 with timing.span("decode.finished_check"):
-                    done = bool(finished.all())
+                    done = bool(state.finished.all())
                 if done:
                     break
-            filtered = logits + suppress_mask
-            if step == 0:
-                filtered = filtered + blank_mask
-            if timestamp_rules:
-                filtered = apply_timestamp_rules(
-                    filtered, vocab_idx, step, prev_tok, prev2_tok, last_ts,
-                    eot=eot, timestamp_begin=timestamp_begin,
-                    max_initial_ts_index=max_initial_ts_index,
-                )
-            if temperature == 0.0:
-                next_tok = filtered.argmax(dim=-1)
+            if graph is not None and forward:
+                with timing.span("decode.replay"):
+                    graph.replay()
+                for fn, n in zip(_COUNTED_KERNELS, launches):
+                    fn.launches += n
             else:
-                probs = torch.softmax(filtered / temperature, dim=-1)
-                next_tok = torch.multinomial(probs, 1, generator=generator)[:, 0]
-            logprobs = torch.log_softmax(filtered, dim=-1)
-            tok_logprob = logprobs.gather(-1, next_tok[:, None])[:, 0]
-
-            next_tok = torch.where(finished, eot, next_tok)
-            sum_logprobs = sum_logprobs + torch.where(finished, 0.0, tok_logprob)
-            finished = finished | (next_tok == eot)
-            prev2_tok, prev_tok = prev_tok, next_tok
-            last_ts = torch.where(next_tok >= timestamp_begin, next_tok, last_ts)
-
-            pos = n_prefix + step
-            tokens[:, pos] = next_tok
-            if step + 1 < sample_len:  # the last token's logits are never read
-                step_logits, cache = decode_step(
-                    params, cfg, next_tok[:, None], cache, pos, dtype=dtype, tp=tp
-                )
-                logits = step_logits[:, 0]
-    return tokens, sum_logprobs, sot_logits
+                state = iteration(state, step, forward)
+    return tokens, state.sum_logprobs, sot_logits
 
 
 # -- public API -----------------------------------------------------------

@@ -25,7 +25,7 @@ gathers them where it runs, and again when its backward recomputes it.
 from __future__ import annotations
 
 import functools
-from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -503,7 +503,7 @@ def decode_step(
     cfg: WhisperConfig,
     tokens,
     cache: DecoderCache,
-    pos: int,
+    pos: Union[int, torch.Tensor],
     dtype=torch.float32,
     tp=None,
 ) -> Tuple[torch.Tensor, DecoderCache]:
@@ -512,22 +512,30 @@ def decode_step(
     Returns (logits (B, S, n_vocab) f32, cache). Each layer attends over
     [frozen cache rows < pos | the S new keys] with the reference's
     two-part mask; the new K/V then land in the cache in place.
+
+    ``pos`` is a Python int or a 0-d long tensor on the tokens' device;
+    the step reads a tensor only on the device, so a CUDA graph captured
+    with one replays at whatever position the tensor then holds.
     """
     dec = params["decoder"]
     S = tokens.shape[1]
     n_ctx = cache.self_k.shape[2]
     device = tokens.device
     with full_fp32():
+        if isinstance(pos, torch.Tensor):
+            pos_idx = pos + torch.arange(S, device=device)
+        else:
+            pos_idx = torch.arange(pos, pos + S, device=device)
         x = dec["token_embedding"][tokens].to(dtype)
-        x = x + dec["positional_embedding"][pos:pos + S].to(dtype)
+        x = x + dec["positional_embedding"].index_select(0, pos_idx).to(dtype)
 
         key_idx = torch.arange(n_ctx, device=device)[None, :]
-        query_idx = pos + torch.arange(S, device=device)[:, None]
+        query_idx = pos_idx[:, None]
         zero = torch.zeros((), device=device)
         neg = torch.full((), float("-inf"), device=device)
         # frozen cache rows: strictly before pos (rows >= pos are stale)
         mask_cache = torch.where(
-            (key_idx < pos) & (key_idx <= query_idx), zero, neg
+            (key_idx < pos_idx[0]) & (key_idx <= query_idx), zero, neg
         )
         blk = torch.arange(S, device=device)
         mask_new = torch.where(blk[None, :] <= blk[:, None], zero, neg)
@@ -543,8 +551,8 @@ def decode_step(
             dec, cfg, x, cache, self_attn, _cross_attn_default(cfg, tp), tp
         )
         for i, (k_new, v_new) in enumerate(news):
-            cache.self_k[i, :, pos:pos + S] = k_new
-            cache.self_v[i, :, pos:pos + S] = v_new
+            cache.self_k[i].index_copy_(1, pos_idx, k_new)
+            cache.self_v[i].index_copy_(1, pos_idx, v_new)
         step_logits = _final_logits(dec, x)
     return step_logits, cache
 

@@ -9,7 +9,9 @@ Spans (the port's own; the reference has none): ``span(name)`` marks a
 stretch of the program, such as one ``decode`` call, its cache build or
 one step of its loop. It records only while a ``torch.profiler`` is
 recording or inside ``tracing()``; otherwise entering it is a flag test
-and nothing more: no CUDA call, no allocation, no synchronisation. A
+and nothing more: no CUDA call, no allocation, no synchronisation.
+While the current stream captures a CUDA graph a span records nothing
+either: its CUDA events would become nodes of the graph. A
 record (``SpanRecord``) holds the span's name, its id, its parent's id,
 the id of the outermost span it runs in (``call``: one ``decode`` call,
 one training step), its host interval and, where CUDA is initialised,
@@ -234,11 +236,18 @@ class _Span:
         return False
 
 
+def _capturing() -> bool:
+    """A CUDA graph is being captured on the current stream (no capture
+    can be underway where CUDA was never initialised)."""
+    return torch.cuda.is_initialized() and torch.cuda.is_current_stream_capturing()
+
+
 def span(name: str):
     """A context manager that records the stretch it encloses as the span
-    ``name`` while recording is on (see the module docstring)."""
+    ``name`` while recording is on and the current stream is not
+    capturing a CUDA graph (see the module docstring)."""
     if _REC.depth or _profiler._is_profiler_enabled:
-        return _Span(name)
+        return _NO_SPAN if _capturing() else _Span(name)
     _REC.off_seen = True
     return _NO_SPAN
 
