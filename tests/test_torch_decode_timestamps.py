@@ -214,7 +214,7 @@ def test_best_of_keeps_each_inputs_best(params, mel, tok):
     def spy(*args, **kwargs):
         out = real(*args, **kwargs)
         seen["tokens"], seen["sums"] = out[0].numpy(), out[1].numpy()
-        seen["batch"] = args[2].shape[0]
+        seen["batch"] = args[1].shape[0]
         return out
 
     opts = DecodingOptions(language="en", sample_len=SAMPLE_LEN,

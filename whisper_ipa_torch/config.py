@@ -106,12 +106,80 @@ CONFIGS["test-tiny"] = WhisperConfig(
 )
 
 
-def get_config(name: str) -> WhisperConfig:
-    """Resolve a model name (accepts HF/MLX-style repo ids) to a config."""
+@dataclass(frozen=True)
+class AudioLLMConfig:
+    """An audio language model: a Whisper encoder (``tower``) whose frames a
+    linear connector pools to ``n_audio_tokens`` embeddings inside the
+    prompt of a decoder-only language model (Qwen2-style: RMSNorm, RoPE,
+    grouped-query attention with q/k/v biases) whose MLP is a dynamic-
+    capacity mixture of experts: ``n_shared`` SwiGLU experts always on,
+    ``n_routed`` routed SwiGLU experts and ``n_null`` null experts under a
+    float32 softmax router, each token taking the shortest prefix of its
+    sorted probabilities that sums to ``top_p``, at most ``top_k`` of them.
+    """
+
+    name: str
+    tower: WhisperConfig
+    n_audio_tokens: int
+    d_model: int
+    n_layer: int
+    n_head: int
+    n_kv_head: int
+    head_dim: int
+    n_vocab: int
+    n_shared: int
+    shared_ffn: int
+    n_routed: int
+    routed_ffn: int
+    n_null: int
+    top_p: float
+    top_k: int
+    rms_eps: float
+    rope_theta: float
+    first_special: int  # the first id of the special tokens
+    eos: int
+
+    @property
+    def n_slots(self) -> int:
+        """The router's outputs: the routed experts, then the null ones."""
+        return self.n_routed + self.n_null
+
+    @property
+    def n_mels(self) -> int:
+        return self.tower.n_mels
+
+
+# HIT-TMG/Uni-MoE-2.0-Omni (config.json; arXiv:2511.12609): the path from
+# speech to text, whisper-large-v3's encoder under a 28-layer language
+# model. Qwen2's special ids start at <|endoftext|> 151643; <|im_end|>
+# 151645 ends a turn.
+AUDIO_LLM_CONFIGS: Dict[str, AudioLLMConfig] = {
+    "uni-moe-2.0-omni": AudioLLMConfig(
+        name="uni-moe-2.0-omni", tower=CONFIGS["large-v3"], n_audio_tokens=200,
+        d_model=3584, n_layer=28, n_head=28, n_kv_head=4, head_dim=128,
+        n_vocab=152064, n_shared=2, shared_ffn=2368, n_routed=4,
+        routed_ffn=18944, n_null=1, top_p=0.7, top_k=2, rms_eps=1e-6,
+        rope_theta=1e6, first_special=151643, eos=151645),
+    # the unit tests' size: the same blocks, toy widths
+    "test-tiny-omni": AudioLLMConfig(
+        name="test-tiny-omni", tower=CONFIGS["test-tiny"], n_audio_tokens=8,
+        d_model=64, n_layer=2, n_head=4, n_kv_head=2, head_dim=16,
+        n_vocab=512, n_shared=2, shared_ffn=16, n_routed=4, routed_ffn=32,
+        n_null=1, top_p=0.7, top_k=2, rms_eps=1e-6, rope_theta=1e6,
+        first_special=500, eos=501),
+}
+
+
+def get_config(name: str):
+    """Resolve a model name (accepts HF/MLX-style repo ids) to a config: a
+    ``WhisperConfig``, or an ``AudioLLMConfig`` for the audio language
+    models (``uni-moe-2.0-omni``)."""
     key = name.lower()
-    for prefix in ("mlx-community/", "openai/"):
+    for prefix in ("mlx-community/", "openai/", "hit-tmg/"):
         if key.startswith(prefix):
             key = key[len(prefix):]
+    if key in AUDIO_LLM_CONFIGS:
+        return AUDIO_LLM_CONFIGS[key]
     key = key.replace("whisper-", "").replace("-mlx", "")
     if key in CONFIGS:
         return CONFIGS[key]

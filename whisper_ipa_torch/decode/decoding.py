@@ -24,8 +24,15 @@ the suppress and blank masks. At temperature > 0, ``best_of=N`` samples N
 candidates for each input and keeps the best by ``sequence_score``
 (``rank_candidates``); ``beam_size`` hands the batch to ``beam.py``.
 
+The loop takes a model's cache build, prefix and single-token step
+(``DecodeSteps``): Whisper's by default, and an audio language model's
+(``models.audio_llm``, an ``AudioLLMConfig``) when ``decode`` is given
+one; both share the masks, the finished check, ``DecodingResult`` and
+the graph path.
+
 Each call is the span ``decode`` (``utils.timing``), and the greedy loop's
-parts its children: ``decode.cast``, ``decode.init_cache``,
+parts its children: ``decode.cast``, ``decode.init_cache`` (an audio
+language model's ``llm.init_cache``),
 ``decode.prefix``, ``decode.capture`` on the graph path, one
 ``decode.step`` an iteration (with ``decode.finished_check`` inside it
 where the host reads the finished mask, and ``decode.replay`` where it
@@ -38,12 +45,13 @@ from __future__ import annotations
 import threading
 import zlib
 from dataclasses import dataclass, replace
-from typing import List, NamedTuple, Optional, Sequence, Union
+from typing import Any, Callable, List, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
-from ..config import WhisperConfig
+from ..config import AudioLLMConfig, WhisperConfig
+from ..models import audio_llm
 from ..models.whisper import cast_decoder_blocks, decode_step, encode, init_cache
 from ..ops.decode_attention import (
     decode_cross_attention_int4_tminor,
@@ -93,6 +101,9 @@ class DecodingResult:
     compression_ratio: float
     audio_features: Optional[np.ndarray] = None
     language: Optional[str] = None
+    # an audio language model's row: the slots each position was routed
+    # to in each layer, (L, T, top_k) int8 on the device (models.audio_llm)
+    routes: Optional[torch.Tensor] = None
 
 
 def detect_language(
@@ -358,7 +369,8 @@ def _capture_step(iteration, state: _LoopState, step: int):
     place; the step's own kernels have run eagerly at step 0 already.
     The warm-up writes its token and its K/V at the step's own position,
     which the step's replay writes again, and adds nothing to the launch
-    counters: a decode counts what the eager loop counts."""
+    counters or to the program's counters (``timing.paused``): a decode
+    counts what the eager loop counts."""
     device = state.logits.device
     slots = _GRAPHS.__dict__.setdefault("by_device", {})
     side, last = slots.get(device.index, (None, None))
@@ -370,7 +382,8 @@ def _capture_step(iteration, state: _LoopState, step: int):
     side.wait_stream(main)
     with torch.cuda.stream(side):
         if last is None:
-            iteration(_LoopState(*(t.clone() for t in state)), step, True)
+            with timing.paused():
+                iteration(_LoopState(*(t.clone() for t in state)), step, True)
         warm = [fn.launches for fn in _COUNTED_KERNELS]
         graph = torch.cuda.CUDAGraph()
         graph.capture_begin(pool=last.pool() if last is not None else None,
@@ -392,10 +405,71 @@ def _capture_step(iteration, state: _LoopState, step: int):
     return graph, static, launches
 
 
+class DecodeSteps(NamedTuple):
+    """A model's three parts of the greedy loop: ``init_cache(max_len)``
+    builds the cache for ``max_len`` positions; ``prefix(cache)`` runs the
+    prefix and returns (logits (B, P, n_vocab) float32, of which the loop
+    reads the last position and ``sot_index``, and the cache);
+    ``step(tokens (B, 1), cache, pos)`` runs one token a row at the 0-d
+    device position ``pos`` and returns logits (B, 1, n_vocab) float32,
+    reading nothing on the host (the graph path replays it)."""
+
+    init_cache: Callable[[int], Any]
+    prefix: Callable[[Any], Any]
+    step: Callable[[torch.Tensor, Any, torch.Tensor], torch.Tensor]
+
+
+def _whisper_steps(params, cfg: WhisperConfig, audio_features, prefix_tokens,
+                   dtype, cross_kv_int8: bool, cross_kv_int4: bool, tp):
+    """Whisper's parts: the decoder cast once (``decode.cast``), the cross
+    cache (``decode.init_cache``), ``decode_step`` on the prefix and on
+    each token."""
+    # one cast before the loop, as the reference does outside its loop
+    with timing.span("decode.cast"):
+        params = cast_decoder_blocks(params, dtype)
+
+    def build(max_len):
+        with timing.span("decode.init_cache"):
+            return init_cache(
+                params, cfg, audio_features, max_len=max_len, dtype=dtype,
+                cross_kv_int8=cross_kv_int8, cross_kv_int4=cross_kv_int4, tp=tp,
+            )
+
+    def prefix(cache):
+        return decode_step(params, cfg, prefix_tokens, cache, 0, dtype=dtype, tp=tp)
+
+    def step(tokens, cache, pos):
+        return decode_step(params, cfg, tokens, cache, pos, dtype=dtype, tp=tp)[0]
+
+    return DecodeSteps(build, prefix, step)
+
+
+def _audio_llm_steps(params, cfg: AudioLLMConfig, features, prompt_ids,
+                     audio_start: int, dtype, built: list):
+    """An audio language model's parts (``models.audio_llm``): the K/V
+    cache (``llm.init_cache``; appended to ``built``, for the caller to
+    read the routes and the routing counter after the loop), the prefill
+    of the prompt with its audio, and the single-token step."""
+
+    def build(max_len):
+        with timing.span("llm.init_cache"):
+            cache = audio_llm.init_cache(cfg, prompt_ids.shape[0], max_len, dtype,
+                                         prompt_ids.device)
+        built.append(cache)
+        return cache
+
+    def prefix(cache):
+        return audio_llm.prefill(params, cfg, prompt_ids, audio_start, features,
+                                 cache, dtype), cache
+
+    def step(tokens, cache, pos):
+        return audio_llm.decode_step(params, cfg, tokens, cache, pos, dtype)
+
+    return DecodeSteps(build, prefix, step)
+
+
 def _greedy_decode(
-    params,
-    cfg: WhisperConfig,
-    audio_features: torch.Tensor,
+    steps: DecodeSteps,
     prefix_tokens: torch.Tensor,  # (B, n_prefix) int64
     suppress_mask: torch.Tensor,  # (n_vocab,) f32
     blank_mask: torch.Tensor,  # (n_vocab,) f32
@@ -403,10 +477,7 @@ def _greedy_decode(
     sample_len: int,
     temperature: float,
     generator: Optional[torch.Generator],
-    dtype: torch.dtype,
     sot_index: int,
-    cross_kv_int8: bool,
-    cross_kv_int4: bool,
     *,
     timestamp_rules: bool,
     timestamp_begin: int,
@@ -415,6 +486,10 @@ def _greedy_decode(
 ):
     """Batched greedy/temperature decode; returns (tokens (B, n_prefix +
     sample_len), sum_logprobs (B,), sot_logits (B, n_vocab)).
+
+    ``steps`` are the model's cache build, prefix and single-token step
+    (``DecodeSteps``: ``_whisper_steps`` or ``_audio_llm_steps``); the
+    loop itself names no model. ``tp`` only keeps it off the graph path.
 
     With ``timestamp_rules`` the grammar state follows the reference's
     loop: the last two tokens start at the prefix's last two, the last
@@ -430,23 +505,14 @@ def _greedy_decode(
     and the last iteration, which runs no forward, is eager again: the
     same kernels on the same data as the eager loop, launched by one
     call a step. The finished check stays on the host between steps."""
-    # one cast before the loop, as the reference does outside its loop
-    with timing.span("decode.cast"):
-        params = cast_decoder_blocks(params, dtype)
     B, n_prefix = prefix_tokens.shape
     max_len = n_prefix + sample_len
-    with timing.span("decode.init_cache"):
-        cache = init_cache(
-            params, cfg, audio_features, max_len=max_len, dtype=dtype,
-            cross_kv_int8=cross_kv_int8, cross_kv_int4=cross_kv_int4, tp=tp,
-        )
+    cache = steps.init_cache(max_len)
     with timing.span("decode.prefix"):
-        prefix_logits, cache = decode_step(
-            params, cfg, prefix_tokens, cache, 0, dtype=dtype, tp=tp
-        )
+        prefix_logits, cache = steps.prefix(cache)
         sot_logits = prefix_logits[:, sot_index]
 
-        device = audio_features.device
+        device = prefix_tokens.device
         tokens = torch.full((B, max_len), eot, dtype=torch.long, device=device)
         tokens[:, :n_prefix] = prefix_tokens
         vocab_idx = torch.arange(suppress_mask.shape[0], device=device)
@@ -490,10 +556,7 @@ def _greedy_decode(
         tokens.index_copy_(1, st.pos.view(1), next_tok[:, None])
         logits = st.logits
         if forward:  # the last token's logits are never read
-            step_logits, _ = decode_step(
-                params, cfg, next_tok[:, None], cache, st.pos, dtype=dtype, tp=tp
-            )
-            logits = step_logits[:, 0]
+            logits = steps.step(next_tok[:, None], cache, st.pos)[:, 0]
         return _LoopState(logits, finished, sum_logprobs, next_tok, st.prev_tok,
                           last_ts, st.pos + 1)
 
@@ -547,7 +610,91 @@ def decode(
     The reference reads the sharding from its arrays; here it is named.
     """
     with timing.span("decode"):
+        if isinstance(cfg, AudioLLMConfig):
+            return _decode_audio_llm(params, cfg, audio_input, options)
         return _decode(params, cfg, audio_input, options, tokenizer, tp)
+
+
+def _prompt_ids(ids, what: str) -> List[int]:
+    if ids is None:
+        return []
+    if isinstance(ids, str):
+        raise ValueError(f"an audio language model takes its {what} as token ids")
+    return [int(t) for t in ids]
+
+
+def audio_llm_suppress_mask(cfg: AudioLLMConfig, options: DecodingOptions) -> np.ndarray:
+    """Additive mask (n_vocab,): -inf at ``options.suppress_tokens``' ids;
+    "-1" (alone or among the ids) stands for every special id but the end
+    of turn."""
+    opt = options.suppress_tokens
+    ids = [-1] if opt == "-1" else [] if isinstance(opt, str) or not opt else [
+        int(t) for t in opt]
+    suppress = {t for t in ids if t >= 0}
+    if -1 in ids:
+        suppress.update(t for t in range(cfg.first_special, cfg.n_vocab) if t != cfg.eos)
+    mask = np.zeros((cfg.n_vocab,), dtype=np.float32)
+    mask[sorted(t for t in suppress if t < cfg.n_vocab)] = -np.inf
+    return mask
+
+
+def _decode_audio_llm(params, cfg: AudioLLMConfig, audio_input,
+                      options: DecodingOptions) -> List[DecodingResult]:
+    """``decode`` for an audio language model (``models.audio_llm``): the
+    tower over a log-mel (or its frames as given), the prompt
+    [``options.prompt`` ids; the audio; ``options.prefix`` ids], then the
+    same greedy loop as Whisper's (``_greedy_decode``) until the end of
+    turn (``cfg.eos``) or ``sample_len`` tokens. Results carry no text (no
+    tokenizer) and each row's ``routes``; ``no_speech_prob`` is NaN. Beam
+    search and best-of are Whisper's only."""
+    if options.beam_size is not None or (options.best_of and options.temperature > 0):
+        raise ValueError("an audio language model decodes greedily or by sampling")
+    dtype = torch.bfloat16 if options.fp16 else torch.float32
+    device = params["embed"].device
+    pre = _prompt_ids(options.prompt, "prompt")
+    post = _prompt_ids(options.prefix, "prefix")
+    with torch.inference_mode(), full_fp32():
+        x = torch.as_tensor(audio_input).to(device)
+        if x.dim() == 2:
+            x = x[None]
+        if x.shape[-1] == cfg.n_mels:
+            features = audio_llm.encode_audio(params, cfg, x, dtype)
+        else:
+            features = x
+        B = features.shape[0]
+        prompt = pre + [-1] * cfg.n_audio_tokens + post
+        prompt_ids = torch.tensor(prompt, device=device)[None].repeat(B, 1)
+        sample_len = int(options.sample_len or 224)
+        suppress_mask = torch.from_numpy(audio_llm_suppress_mask(cfg, options)).to(device)
+        blank_mask = torch.zeros(cfg.n_vocab, device=device)
+        generator = None
+        if options.temperature > 0.0:
+            generator = torch.Generator(device=device).manual_seed(options.seed)
+        built = []
+        steps = _audio_llm_steps(params, cfg, features, prompt_ids, len(pre), dtype,
+                                 built)
+        tokens, sum_logprobs, _ = _greedy_decode(
+            steps, prompt_ids, suppress_mask, blank_mask, cfg.eos, sample_len,
+            float(options.temperature), generator, 0, timestamp_rules=False,
+            timestamp_begin=cfg.n_vocab, max_initial_ts_index=0,
+        )
+    cache = built[0]
+    with timing.span("decode.readback"):
+        audio_llm.record_routing(cache)
+        tokens_np = tokens.cpu().numpy()
+        sum_logprobs_np = sum_logprobs.cpu().numpy()
+    n_prefix = len(prompt)
+    results = []
+    for b in range(B):
+        seq = tokens_np[b, n_prefix:]
+        eos = np.nonzero(seq == cfg.eos)[0]
+        end = int(eos[0]) if len(eos) else len(seq)
+        results.append(DecodingResult(
+            tokens=seq[:end].tolist(), text="",
+            avg_logprob=float(sum_logprobs_np[b]) / (end + 1),
+            no_speech_prob=float("nan"), temperature=options.temperature,
+            compression_ratio=0.0, routes=cache.routes[:, b]))
+    return results
 
 
 def _decode(params, cfg, audio_input, options, tokenizer, tp):
@@ -632,11 +779,11 @@ def _decode(params, cfg, audio_input, options, tokenizer, tp):
         if options.temperature > 0.0:
             generator = torch.Generator(device=device).manual_seed(options.seed)
 
+        steps = _whisper_steps(params, cfg, audio_features, prefix_tokens, dtype,
+                               options.kv_int8, options.kv_int4, tp)
         tokens, sum_logprobs, sot_logits = _greedy_decode(
-            params, cfg, audio_features, prefix_tokens, suppress_mask,
-            blank_mask, tokenizer.eot, int(sample_len),
-            float(options.temperature), generator, dtype, sot_index,
-            options.kv_int8, options.kv_int4,
+            steps, prefix_tokens, suppress_mask, blank_mask, tokenizer.eot,
+            int(sample_len), float(options.temperature), generator, sot_index,
             timestamp_rules=not options.without_timestamps,
             timestamp_begin=tokenizer.timestamp_begin,
             max_initial_ts_index=max_initial_ts_index,

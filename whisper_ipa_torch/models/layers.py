@@ -367,3 +367,51 @@ def attention_block(x, p, n_head: int, mask=None, kv=None, tp=None):
 def mlp_block(x, p, tp=None):
     h = gelu(linear(copy_to_tp(x, tp), p["mlp1"]))
     return row_linear(h, p["mlp2"], tp)
+
+
+# -- the audio language model's blocks (``models.audio_llm``) -------------
+
+def rms_norm(x, g, eps: float):
+    """RMSNorm with f32 statistics: x / sqrt(mean(x^2) + eps) * g, cast
+    back to x's dtype."""
+    xf = x.float()
+    y = xf * torch.rsqrt(xf.pow(2).mean(dim=-1, keepdim=True) + eps)
+    return (y * g.float()).to(x.dtype)
+
+
+def rope_tables(n_pos: int, head_dim: int, theta: float, device=None):
+    """(cos, sin), each (n_pos, head_dim) f32, for rotate-half RoPE over
+    the whole head: angle(t, i) = t * theta ** (-2 (i mod head_dim/2) /
+    head_dim)."""
+    inv = theta ** (-torch.arange(0, head_dim, 2, dtype=torch.float64,
+                                  device=device) / head_dim)
+    ang = torch.arange(n_pos, dtype=torch.float64, device=device)[:, None] * inv
+    ang = torch.cat([ang, ang], dim=-1)
+    return torch.cos(ang).float(), torch.sin(ang).float()
+
+
+def apply_rope(x, cos, sin):
+    """Rotate-half RoPE in f32 over (..., T, head_dim), with (T, head_dim)
+    tables (or tables broadcastable to x), cast back to x's dtype."""
+    xf = x.float()
+    half = xf.shape[-1] // 2
+    rot = torch.cat([-xf[..., half:], xf[..., :half]], dim=-1)
+    return (xf * cos + rot * sin).to(x.dtype)
+
+
+def gqa_attention(q, k, v, mask=None):
+    """Grouped-query attention: q (B, H, Tq, Dh) over k, v (B, H_kv, Tk,
+    Dh), each K/V head serving H / H_kv consecutive query heads, scores
+    q k^T / sqrt(Dh) and softmax in f32; mask additive, broadcastable to
+    (B, H_kv, H / H_kv, Tq, Tk). Returns (B, H, Tq, Dh). A K/V head's query
+    heads are stacked as rows of one product, so K and V are read as they
+    are, never repeated."""
+    B, H, Tq, Dh = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    G = H // Hkv
+    qg = q.reshape(B, Hkv, G * Tq, Dh) * (Dh ** -0.5)
+    s = torch.matmul(qg, k.transpose(-1, -2)).float().view(B, Hkv, G, Tq, Tk)
+    if mask is not None:
+        s = s + mask
+    w = torch.softmax(s, dim=-1).to(v.dtype).view(B, Hkv, G * Tq, Tk)
+    return torch.matmul(w, v).view(B, H, Tq, Dh)

@@ -30,6 +30,11 @@ end. They put the span on the profiler's clock (``prof.events()``,
 encloses no launch gets no mirror on the device's timeline, so the
 markers leave the trace's device operations as they are; a range around
 the span itself would be mirrored over its kernels and their gaps.
+
+A program's counters (such as ``models.audio_llm``'s routing counter) ask
+``recording()`` whether to count: when spans would record, a CUDA graph's
+capture included, and never inside ``paused()``. ``current()`` names the
+open span a counter's reading belongs to.
 """
 
 from __future__ import annotations
@@ -165,6 +170,7 @@ class _Recorder:
 
     def __init__(self):
         self.depth = 0  # open tracing() blocks
+        self.paused = 0  # open paused() blocks
         self.off_seen = True  # a span found recording off since the last record
         self.records: List[SpanRecord] = []
         self.epochs = {}  # device index -> the origin of its stream times
@@ -250,6 +256,31 @@ def span(name: str):
         return _NO_SPAN if _capturing() else _Span(name)
     _REC.off_seen = True
     return _NO_SPAN
+
+
+def recording() -> bool:
+    """Whether the program's counters record now: inside ``tracing()`` or
+    under a profiler, as spans, but also while a CUDA graph is captured
+    (a counter's device additions become nodes of the graph, and each
+    replay counts again), and not inside ``paused()``."""
+    return bool((_REC.depth or _profiler._is_profiler_enabled) and not _REC.paused)
+
+
+@contextlib.contextmanager
+def paused():
+    """Counters record nothing inside this block (spans are unaffected):
+    for work the program runs twice, such as a capture's warm-up."""
+    _REC.paused += 1
+    try:
+        yield
+    finally:
+        _REC.paused -= 1
+
+
+def current() -> Optional[SpanRecord]:
+    """The innermost span this thread has open and recording, or None."""
+    stack = _REC.stack()
+    return stack[-1] if stack else None
 
 
 @contextlib.contextmanager
