@@ -12,12 +12,11 @@ then drives the port's two paths at whisper-small width with random
 weights from seed 0:
 
   serving   waveform -> log-mel (K1) -> encoder (K2) -> int8 cross-KV
-            greedy decode (K4), batch 16; the same batch with the encoder
-            attention through the head-merged kernel (K10), tokens equal
-            to the default's; CUDA against the CPU; the micro-batching
-            service
-  quantized serving, the same batch three more ways: the int8 cross cache
-            built by the fused kernel (K3); int8 weights with int8
+            built by K3 -> greedy decode (K4), batch 16; the same batch
+            with the encoder attention through the head-merged kernel
+            (K10), tokens equal to the default's; CUDA against the CPU;
+            the micro-batching service
+  quantized serving, the same batch two more ways: int8 weights with int8
             activations (K6), the weights quantized on the host and again
             on the card (K9, stochastic rounding, one launch for the
             tree); int4 weights (K7) with the int4 cross cache (K8);
@@ -678,6 +677,26 @@ def rel_err(a, b) -> float:
     return max_abs(a, b) / float(b.float().abs().max())
 
 
+def kv_build_gaps(torch, got, want, T):
+    """A K3 build against its plain version: (codes past the scale-aware
+    bound, least share of codes equal, largest code difference, largest
+    scale relative difference); requires the tail's code 0 and scale 0."""
+    over, equal, worst, scale_rel = 0, 1.0, 0, 0.0
+    for i in (0, 2):
+        diff = (got[i].int() - want[i].int()).abs()
+        same = (got[i + 1] == want[i + 1])[:, :, None, :]
+        over += int((diff > torch.where(same, 1, 2)).sum())
+        equal = min(equal, float((diff == 0).float().mean()))
+        worst = max(worst, int(diff.max()))
+        scale_rel = max(scale_rel, float(((got[i + 1] - want[i + 1]).abs()
+                                          / want[i + 1].clamp_min(1e-30)).max()))
+        require(bool((got[i][..., T:] == 0).all())
+                and bool((got[i + 1][..., T:] == 0).all())
+                and bool((got[i + 1][..., :T] > 0).all()),
+                "K3 tail code 0 and scale 0")
+    return over, equal, worst, scale_rel
+
+
 def check_kv_init(torch, dev):
     from whisper_ipa_torch.models.layers import linear
     from whisper_ipa_torch.ops import kv_init as kv
@@ -704,36 +723,24 @@ def check_kv_init(torch, dev):
         got = kv.fused_kv_init_int8(*args, out_dtype=dtype)
         torch.cuda.synchronize()
         require(kv.fused_kv_init_int8.launches == before + 1, "K3 counter rose")
+        require(got[0].shape == (B, H, 64, 1536), f"K3 shape {tuple(got[0].shape)}")
         want = kv.fused_kv_init_plain(*args, dtype)
         if dtype == torch.bfloat16:
             tol = 2 ** -7 if bias is None else 2 ** -6
         else:
             tol = 1e-5
-        equal, worst, scale_rel, over = [], 0, 0.0, 0
-        for i in (0, 2):
-            require(got[i].shape == (B, H, 64, 1536), f"K3 shape {tuple(got[i].shape)}")
-            diff = (got[i].int() - want[i].int()).abs()
-            same = (got[i + 1] == want[i + 1])[:, :, None, :]
-            over += int((diff > torch.where(same, 1, 2)).sum())
-            equal.append(float((diff == 0).float().mean()))
-            worst = max(worst, int(diff.max()))
-            scale_rel = max(scale_rel, float(((got[i + 1] - want[i + 1]).abs()
-                                              / want[i + 1].clamp_min(1e-30)).max()))
-            require(bool((got[i][..., T:] == 0).all())
-                    and bool((got[i + 1][..., T:] == 0).all())
-                    and bool((got[i + 1][..., :T] > 0).all()),
-                    "K3 tail code 0 and scale 0")
+        over, equal, worst, scale_rel = kv_build_gaps(torch, got, want, T)
         ms = cuda_ms(lambda: kv.fused_kv_init_int8(*args, out_dtype=dtype))
         plain_ms = cuda_ms(lambda: kv.fused_kv_init_plain(*args, dtype))
         log(f"[K3 kv init] x ({B}, {T}, {d}) {str(dtype)[6:]}, H {H}, V bias "
-            f"{bias is not None}: codes equal {min(equal):.6f}, max|diff| "
+            f"{bias is not None}: codes equal {equal:.6f}, max|diff| "
             f"{worst} (scale-aware bound 1/2; {over} codes past it), scales max relative "
             f"{scale_rel:.3e} (bound {tol:g}); kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms")
-        require(over == 0 and min(equal) >= 0.999 and scale_rel <= tol,
+        require(over == 0 and equal >= 0.999 and scale_rel <= tol,
                 f"K3 {dtype} bias {bias is not None} within bounds")
         if entry is None:
-            def unfused():  # what init_cache runs without the switch
+            def unfused():  # init_cache's build where K3 is not taken
                 return [kv.quantize_kv_heads(linear(xd, {"w": w, "b": bb}), H)
                         for w, bb in ((wkd, None), (wvd, bias))]
 
@@ -745,6 +752,29 @@ def check_kv_init(torch, dev):
                          **bound(nbytes(xd, wkd, wvd) + out_bytes,
                                  2 * 2 * B * T * d * d, "bf16"),
                          library_ms=lib_ms)
+    del x, got, want
+
+    # the benchmark's builds, bf16 with the V bias: whisper-small at batch
+    # 512 and whisper-large-v3 at batch 128, timed against their bound
+    for B, d, H in ((512, 768, 12), (128, 1280, 20)):
+        x = (0.5 * torch.randn((B, T, d), generator=gen, device=dev)).bfloat16()
+        wk, wv = ((0.05 * torch.randn((d, d), generator=gen, device=dev)).bfloat16()
+                  for _ in range(2))
+        b = (0.1 * torch.randn((d,), generator=gen, device=dev)).bfloat16()
+        args = (x, wk, None, wv, b, H)
+        got = kv.fused_kv_init_int8(*args)
+        over, equal, worst, scale_rel = kv_build_gaps(
+            torch, got, kv.fused_kv_init_plain(*args, torch.bfloat16), T)
+        ms = cuda_ms(lambda: kv.fused_kv_init_int8(*args))
+        cost = bound(nbytes(x, wk, wv, b, *got), 2 * 2 * B * T * d * d, "bf16")
+        log(f"[K3 kv init] benchmark build x ({B}, {T}, {d}) bf16, H {H}, V bias: "
+            f"kernel {ms:.4f} ms, bound {cost['bound_ms']:.4f} ms "
+            f"({cost['bound_by']}), {100 * cost['bound_ms'] / ms:.2f}% of it; codes "
+            f"equal {equal:.6f}, max|diff| {worst} ({over} codes past the "
+            f"scale-aware bound), scales max relative {scale_rel:.3e}")
+        require(equal >= 0.999 and scale_rel <= 2 ** -6,
+                f"K3 benchmark build ({B}, {d}) within bounds")
+        del x, got
     return entry
 
 
@@ -1395,30 +1425,15 @@ def phase_device_quantize(torch, dev, cfg, params, q8_host, by_path):
     return d8, dict(tree_device_ms=dev_ms, tree_wall_s=wall, tree_walls_s=walls)
 
 
-def phase_quantized_paths(torch, dev, cfg, params, tok, by_path, default_results):
-    """The three quantized serving runs of the main path's batch, and the
-    int8 run again with the weights quantized on the card (K9); returns
-    the card quantizer's numbers for K9's entry."""
-    from whisper_ipa_torch.models import (params_to, use_fused_kv_init,
-                                          use_int8_activations)
+def phase_quantized_paths(torch, dev, cfg, params, tok, by_path):
+    """The quantized serving runs of the main path's batch (int8, int4),
+    and the int8 run again with the weights quantized on the card (K9);
+    returns the card quantizer's numbers for K9's entry."""
+    from whisper_ipa_torch.models import params_to, use_int8_activations
     from whisper_ipa_torch.ops.quant import quantize_params
 
     steps = MAIN_SAMPLE_LEN - 1  # single-query steps after the prefix step
     n_dec, n_enc = cfg.n_text_layer, cfg.n_audio_layer
-    try:
-        use_fused_kv_init(True)
-        by_path["serving fused KV init"], fused = phase_serving_path(
-            torch, dev, cfg, params, tok, "serving fused KV init",
-            {"K1": 1, "K2": n_enc, "K3": n_dec, "K4": steps * n_dec},
-            kv_int8=True)
-    finally:
-        use_fused_kv_init(False)
-    same = sum(x == y for a, b in zip(fused, default_results)
-               for x, y in zip(a.tokens, b.tokens))
-    log(f"[serving fused KV init] {same}/{MAIN_BATCH * MAIN_SAMPLE_LEN} token "
-        f"positions equal the default serving run's (informative: random "
-        f"weights, near-tie argmaxes)")
-
     t0 = time.time()
     q8 = params_to(quantize_params(params, bits=8), dev)
     log(f"[quantize] whisper-small int8 on the host in {time.time() - t0:.4f} s")
@@ -4418,7 +4433,7 @@ def phase_tools(torch, dev, learned: dict, by_path) -> None:
     small, tiny = CONFIGS["small"], CONFIGS["tiny"]
     for name, argv, want in (
         ("decode", ["--model", "small", "--batch", "8", "--sample-len", "32"],
-         {"K1": 1, "K2/K10": small.n_audio_layer,
+         {"K1": 1, "K2/K10": small.n_audio_layer, "K3": small.n_text_layer,
           "K4": 31 * small.n_text_layer}),
         ("train", ["--model", "small", "--batch", "8", "--train"],
          {"K2/K10": small.n_audio_layer}),
@@ -4976,8 +4991,8 @@ def engine_mesh_cases(torch, cfg, tok, fresh, cases, clips, gaps,
     TP-sharded where model > 1, on the stream ``clips`` at ``gaps``
     (``parallel_mesh_run``). Records in ``out`` each case's launches
     ("paths"), their prediction from the rank's installs and steps ("want":
-    K1 once an installed window, K2 once an encoder layer of one, K4 once
-    a decoder layer a single-query step), wall, stats, local shapes and,
+    K1 once an installed window, K2 once an encoder layer of one, K3 once a
+    decoder layer of one, K4 once a decoder layer a single-query step), wall, stats, local shapes and,
     on rank 0, the steps it asked for ("asked"). Returns the runs by
     name."""
     from whisper_ipa_torch.parallel import make_mesh
@@ -5000,6 +5015,7 @@ def engine_mesh_cases(torch, cfg, tok, fresh, cases, clips, gaps,
         st = run["stats"]
         out["want"][name] = {"K1": st["installs"],
                              "K2": cfg.n_audio_layer * st["installs"],
+                             "K3": cfg.n_text_layer * st["installs"],
                              "K4": cfg.n_text_layer * st["steps"]}
         out["paths"][name] = run["launches"]
         out["walls"][name] = run["wall"]
@@ -5122,8 +5138,10 @@ def parallel_engine_paths(torch, rank: int, dev, cfg, tok, fresh, out) -> None:
     batches = 1
     out["paths"][name] = read_counts(torch)
     out["walls"][name] = time.time() - t0
+    # K3 builds the target's int8 cross cache; the draft's is not int8
     out["want"][name] = {"K1": batches, "K2": (cfg.n_audio_layer
-                                               + tiny.n_audio_layer) * batches}
+                                               + tiny.n_audio_layer) * batches,
+                         "K3": cfg.n_text_layer * batches}
     out["shapes"][name] = dict(K2=[PARALLEL_SVC_BATCH * cfg.n_audio_head // 2,
                                    1500, 64])
     require(len(decoded) == PARALLEL_SVC_BATCH * batches,
@@ -5213,7 +5231,8 @@ def phase_parallel(torch, dev, by_path) -> None:
 
     layers = 12
     want = {
-        "tp2 decode": {"K1": 1, "K2": layers, "K4": (MAIN_SAMPLE_LEN - 1) * layers},
+        "tp2 decode": {"K1": 1, "K2": layers, "K3": layers,
+                       "K4": (MAIN_SAMPLE_LEN - 1) * layers},
         "dp dp2 train": {"K2": layers * PARALLEL_STEPS},
         "zero1 dp2 train": {"K2": layers * PARALLEL_STEPS},
         "fsdp dp2 train": {"K2": layers * PARALLEL_STEPS},
@@ -5362,11 +5381,10 @@ def main() -> int:
     by_path = {}
     by_path["serving"], default_results = phase_serving_path(
         torch, dev, cfg, params, tok, "serving",
-        {"K1": 1, "K2": cfg.n_audio_layer,
+        {"K1": 1, "K2": cfg.n_audio_layer, "K3": cfg.n_text_layer,
          "K4": (MAIN_SAMPLE_LEN - 1) * cfg.n_text_layer}, kv_int8=True)
     phase_merged_path(torch, dev, cfg, params, tok, by_path, default_results)
-    k9_tree = phase_quantized_paths(torch, dev, cfg, params, tok, by_path,
-                                    default_results)
+    k9_tree = phase_quantized_paths(torch, dev, cfg, params, tok, by_path)
     for phase in (phase_timestamps, phase_beam, phase_transcribe):
         t0 = time.time()
         phase(torch, dev, cfg, params, tok, by_path)

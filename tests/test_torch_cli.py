@@ -469,10 +469,16 @@ def test_http_continuous_backpressure(setup):
     ["--kv-int4"],
     ["--tp", "2", "--quant-bits", "8"],
 ])
-def test_serve_continuous_refusals_match_jax(setup, argv):
+def test_serve_continuous_refusals_match_jax(setup, argv, monkeypatch):
     """The engine's refused combinations exit with the JAX CLI's messages."""
     from whisper_ipa_tpu.cli import serve as jax_serve_cli
 
+    # the JAX CLI turns its executable cache on through the environment;
+    # setenv records each variable's state before the test and delenv
+    # unsets it, so both are as they were when the test ends
+    for name in ("WHISPER_IPA_TPU_AOT_CACHE", "WHISPER_IPA_TPU_AOT_FAST_DISK"):
+        monkeypatch.setenv(name, "")
+        monkeypatch.delenv(name)
     base = ["--model", MODEL, "--weights", setup["weights"], "--continuous"]
     with pytest.raises(SystemExit) as want:
         jax_serve_cli.main(base + argv)

@@ -16,10 +16,11 @@ import torch
 
 from whisper_ipa_torch.config import CONFIGS
 from whisper_ipa_torch.decode import DecodingOptions, decode
-from whisper_ipa_torch.models import init_params
+from whisper_ipa_torch.models import init_params, params_to
 from whisper_ipa_torch.models.convert import flatten_params
 from whisper_ipa_torch.models import layers
-from whisper_ipa_torch.models.whisper import _quantize_kv_heads4
+from whisper_ipa_torch.models import whisper as whisper_model
+from whisper_ipa_torch.models.whisper import _quantize_kv_heads4, cast_decoder_blocks
 from whisper_ipa_torch.ops import (
     _build,
     attention_backward,
@@ -40,7 +41,9 @@ from whisper_ipa_torch.ops import (
     log_mel_power_plain,
     sr_quant,
 )
-from whisper_ipa_torch.ops.quant import quantize_linear, quantize_linear_int4
+from whisper_ipa_torch.ops.kv_init import quantize_kv_heads
+from whisper_ipa_torch.ops.quant import (quantize_linear, quantize_linear_int4,
+                                         quantize_params)
 from whisper_ipa_torch.ops.quant_matmul import int4_uses_split_k
 from whisper_ipa_torch.ops.attention import (
     _forward_kernel,
@@ -799,17 +802,35 @@ def test_decode_attention_int4_misaligned_operand_raises(dev, operand):
     assert decode_cross_attention_int4_tminor.launches == before
 
 
+def _assert_kv_build_close(got, want, T, tol):
+    """A K3 build against another: codes >= 99.9% equal, within 1 where
+    the (position, head) scale is the same and within 2 where the head's
+    maximum itself rounded the other way; scales within ``tol`` relative;
+    tail code 0 and scale 0."""
+    for i in (0, 2):
+        diff = (got[i].int() - want[i].int()).abs()
+        same_scale = (got[i + 1] == want[i + 1])[..., None, :]
+        assert (diff <= torch.where(same_scale, 1, 2)).all()
+        assert (diff == 0).float().mean().item() >= 0.999
+        assert (got[i][..., T:] == 0).all()
+    for i in (1, 3):
+        assert ((got[i] - want[i]).abs() <= tol * want[i].abs()).all()
+        assert (got[i][..., T:] == 0).all() and (got[i][..., :T] > 0).all()
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bias", [False, True])
 @pytest.mark.parametrize("B,T,d,H", [(2, 150, 64, 2), (2, 1500, 768, 12),
-                                     (3, 1500, 384, 6)])
+                                     (3, 1500, 384, 6), (64, 1500, 768, 12),
+                                     (8, 1500, 1280, 20)])
 def test_kv_init_kernel(dev, B, T, d, H, bias, dtype):
     """K3 against its plain version at test-tiny's d 64 (Dh 32),
-    whisper-small's 768 and whisper-tiny's 384 (Dh 64); cuBLAS sums in
-    another order, so a bf16 rounding of the projection may fall the other
-    way. Bounds: scales within
-    2^-7 relative in bf16 (one ulp of the head's maximum), 2^-6 in bf16
-    with a bias (one ulp of the projection, then the bias add's own
+    whisper-small's 768 (also at batch 64: 4,608 tiles of the bf16 body,
+    many waves of its persistent grid), whisper-tiny's 384 and
+    whisper-large-v3's 1280 (Dh 64); cuBLAS sums in another order, so a
+    bf16 rounding of the projection may fall the other way. Bounds: scales
+    within 2^-7 relative in bf16 (one ulp of the head's maximum), 2^-6 in
+    bf16 with a bias (one ulp of the projection, then the bias add's own
     rounding: two ulps of a sum that the bias made smaller) and 1e-5 in
     f32; codes >= 99.9% equal, within 1 where the (position, head) scale
     is the same and within 2 where the head's maximum itself rounded the
@@ -823,15 +844,109 @@ def test_kv_init_kernel(dev, B, T, d, H, bias, dtype):
     assert fused_kv_init_int8.launches == before + 1
     want = fused_kv_init_plain(x, wk, None, wv, bv, H, dtype)
     tol = (2 ** -6 if bias else 2 ** -7) if dtype == torch.bfloat16 else 1e-5
-    for i in (0, 2):
-        diff = (got[i].int() - want[i].int()).abs()
-        same_scale = (got[i + 1] == want[i + 1])[:, :, None, :]
-        assert (diff <= torch.where(same_scale, 1, 2)).all()
-        assert (diff == 0).float().mean().item() >= 0.999
-        assert (got[i][..., T:] == 0).all()
-    for i in (1, 3):
-        assert ((got[i] - want[i]).abs() <= tol * want[i].abs()).all()
-        assert (got[i][..., T:] == 0).all() and (got[i][..., :T] > 0).all()
+    _assert_kv_build_close(got, want, T, tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kv_init_writes_into_out_views(dev, dtype):
+    """With ``out`` (one layer's views of a stacked cache) K3 writes the
+    build there and returns those views: equal, bit for bit, to a build
+    into fresh tensors, and the other layers' bytes untouched."""
+    B, T, d, H, L = 2, 1500, 384, 6, 3
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = (0.5 * torch.randn((B, T, d), generator=gen, device=dev)).to(dtype)
+    wk, wv = ((0.05 * torch.randn((d, d), generator=gen, device=dev)).to(dtype)
+              for _ in range(2))
+    bv = (0.1 * torch.randn((d,), generator=gen, device=dev)).to(dtype)
+    codes = [torch.full((L, B, H, 64, 1536), 7, dtype=torch.int8, device=dev)
+             for _ in range(2)]
+    scales = [torch.full((L, B, H, 1536), -1.0, device=dev) for _ in range(2)]
+    out = (codes[0][1], scales[0][1], codes[1][1], scales[1][1])
+    got = fused_kv_init_int8(x, wk, None, wv, bv, H, out_dtype=dtype, out=out)
+    assert [g.data_ptr() for g in got] == [o.data_ptr() for o in out]
+    want = fused_kv_init_int8(x, wk, None, wv, bv, H, out_dtype=dtype)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    for t, fill in ((codes[0], 7), (codes[1], 7), (scales[0], -1), (scales[1], -1)):
+        assert (t[0] == fill).all() and (t[2] == fill).all()
+
+
+def _tiny_bf16_params(dev):
+    """whisper-tiny's decoder cast to bf16, with a seeded V bias (init_params
+    writes zeros) so that the bias path is exercised."""
+    params = cast_decoder_blocks(init_params(CONFIGS["tiny"], seed=0, device=dev),
+                                 torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    for blk in params["decoder"]["blocks"]:
+        value = blk["cross_attn"]["value"]
+        value["b"] = (0.1 * torch.randn(value["b"].shape, generator=gen,
+                                        device=dev)).to(torch.bfloat16)
+    return params
+
+
+def test_init_cache_builds_the_int8_cache_with_k3(dev, monkeypatch):
+    """On the card in bf16 the int8 cross cache is K3's: one launch a layer,
+    each written into the stacked cache (the tensors K3 returns are the
+    cache's own layer views, so no stack copy follows), and equal within
+    ``test_kv_init_kernel``'s bounds (with a bias) to the unfused build,
+    ``linear`` then ``quantize_kv_heads``, of each layer."""
+    cfg = CONFIGS["tiny"]
+    params = _tiny_bf16_params(dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    T = cfg.n_audio_ctx
+    feats = (0.5 * torch.randn((3, T, cfg.n_audio_state), generator=gen,
+                               device=dev)).to(torch.bfloat16)
+    built = []
+    real = whisper_model.fused_kv_init_int8
+    monkeypatch.setattr(whisper_model, "fused_kv_init_int8",
+                        lambda *a, **k: built.append(real(*a, **k)) or built[-1])
+    before = fused_kv_init_int8.launches
+    cache = whisper_model.init_cache(params, cfg, feats, max_len=8,
+                                     dtype=torch.bfloat16, cross_kv_int8=True)
+    assert fused_kv_init_int8.launches == before + cfg.n_text_layer
+    assert len(built) == cfg.n_text_layer
+    H = cfg.n_text_head
+    for i, blk in enumerate(params["decoder"]["blocks"]):
+        got = (cache.cross_k[i], cache.cross_k_scale[i], cache.cross_v[i],
+               cache.cross_v_scale[i])
+        assert [t.data_ptr() for t in built[i]] == [t.data_ptr() for t in got]
+        want = (*quantize_kv_heads(layers.linear(feats, blk["cross_attn"]["key"]), H),
+                *quantize_kv_heads(layers.linear(feats, blk["cross_attn"]["value"]), H))
+        _assert_kv_build_close(got, want, T, 2 ** -6)
+
+
+def test_decode_launches_k3_once_a_layer(tiny_on_card):
+    """A greedy ``decode()`` on the card in bf16 with the int8 cache adds
+    exactly ``n_text_layer`` launches of K3, on the graph path and the
+    eager one."""
+    cfg, params, feats = tiny_on_card
+    opts = DecodingOptions(language="en", fp16=True, sample_len=8, kv_int8=True,
+                           without_timestamps=True)
+    for path in ("graph", "eager"):
+        before = fused_kv_init_int8.launches
+        _decode_on(path, params, cfg, feats[:7], opts)
+        assert fused_kv_init_int8.launches == before + cfg.n_text_layer
+
+
+@pytest.mark.parametrize("build", ["f32 int8", "bf16 int4", "bf16 int8 weights"])
+def test_init_cache_leaves_k3_off_other_builds(dev, build):
+    """K3 is taken in bf16 with the int8 cache and float weights alone:
+    float32 on the card, the int4 cache and int8 weights keep the unfused
+    build (with the fused switch off, as by default)."""
+    cfg = CONFIGS["tiny"]
+    params = _tiny_bf16_params(dev)
+    dtype = torch.float32 if build.startswith("f32") else torch.bfloat16
+    if build == "bf16 int8 weights":
+        params = params_to(quantize_params(params, bits=8), dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    feats = torch.randn((2, cfg.n_audio_ctx, cfg.n_audio_state), generator=gen,
+                        device=dev).to(dtype)
+    before = fused_kv_init_int8.launches
+    cache = whisper_model.init_cache(params, cfg, feats, max_len=8, dtype=dtype,
+                                     cross_kv_int8="int4" not in build,
+                                     cross_kv_int4="int4" in build)
+    torch.cuda.synchronize()
+    assert fused_kv_init_int8.launches == before
+    assert cache.cross_k_scale is not None
 
 
 @pytest.mark.parametrize("rows,cols", [(256, 64), (300, 70), (768, 3072), (3072, 768),

@@ -167,6 +167,43 @@ def test_fused_switch_skips_quantized_weights_and_int4(params, fused_kv_init,
     assert len(calls) == CFG.n_text_layer
 
 
+@pytest.mark.parametrize("switch", [False, True])
+def test_init_cache_bf16_on_the_cpu_keeps_its_route(params, jax_params, switch,
+                                                    monkeypatch):
+    """K3's bf16 body takes only CUDA tensors: on the CPU in bf16 the int8
+    cache is built by ``linear`` + the quantizer with the fused switch off
+    (no call of ``fused_kv_init_int8``) and by K3's plain version with it
+    on (one call a layer), and either build matches the JAX package's bf16
+    build. Bounds as ``tests/test_torch_cuda.py::test_kv_init_kernel``
+    holds a bf16 build with a bias: scales within 2^-6 relative (the two
+    packages sum the projection in another order, so a bf16 rounding may
+    fall the other way), codes >= 99.9% equal and within 1 where the
+    (position, head) scale is the same, 2 where it is not."""
+    feats = _features(seed=3)
+    calls = _count_fused_calls(monkeypatch)
+    use_fused_kv_init(switch)
+    try:
+        ours = init_cache(params, CFG, torch.from_numpy(feats), max_len=8,
+                          dtype=torch.bfloat16, cross_kv_int8=True)
+    finally:
+        use_fused_kv_init(False)
+    ref = jax_whisper.init_cache(jax_params, JCFG, jnp.asarray(feats), max_len=8,
+                                 dtype=jnp.bfloat16, cross_kv_int8=True)
+    assert len(calls) == (CFG.n_text_layer if switch else 0)
+    assert ours.self_k.dtype == torch.bfloat16
+    for codes, scale, rcodes, rscale in (
+            (ours.cross_k, ours.cross_k_scale, ref.cross_k, ref.cross_k_scale),
+            (ours.cross_v, ours.cross_v_scale, ref.cross_v, ref.cross_v_scale)):
+        rscale = torch.from_numpy(np.array(rscale))
+        rcodes = torch.from_numpy(np.array(rcodes))
+        assert codes.shape == rcodes.shape == (CFG.n_text_layer, 2, 2, 32, 128)
+        assert ((scale - rscale).abs() <= 2 ** -6 * rscale.abs()).all()
+        diff = (codes.int() - rcodes.int()).abs()
+        same = (scale == rscale)[..., None, :]
+        assert (diff <= torch.where(same, 1, 2)).all()
+        assert (diff == 0).float().mean().item() >= 0.999
+
+
 # -- greedy decoding ---------------------------------------------------------------
 
 @pytest.mark.parametrize(

@@ -34,7 +34,7 @@ import torch
 PORT_KERNELS = {
     "K1": ("log_mel_fft_kernel",),
     "K2/K10": ("attention_fwd_",),
-    "K3": ("kv_init_wgmma", "kv_init_f32"),
+    "K3": ("kv_init_tma", "kv_init_f32"),
     "K4": ("decode_int8_cluster_kernel",),
     "K5": ("attn_bwd_",),
     "K6": ("int8_gemm_", "quantize_rows_kernel"),

@@ -32,7 +32,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..config import WhisperConfig
-from ..ops.kv_init import fused_kv_init_int8, quantize_kv_heads
+from ..ops.kv_init import bf16_body_takes, fused_kv_init_int8, quantize_kv_heads
 from ..ops.precision import div_ieee, full_fp32
 from ..parallel.sharded import FSDPBlock, copy_to_tp, local_heads
 from .convert import flatten_params, params_to
@@ -379,9 +379,10 @@ _FUSED_KV_INIT = False
 
 
 def use_fused_kv_init(enabled: bool) -> None:
-    """Build the int8 cross cache with K3 (``ops/kv_init.py``): projection
-    and quantization in one kernel on CUDA, its plain version on the CPU.
-    Taken only with float cross weights and the int8 (not int4) cache."""
+    """Build the int8 cross cache with K3 (``ops/kv_init.py``) where its
+    bf16 body does not already take it (on the CPU its plain version; f32
+    on CUDA): projection and quantization in one pass. Taken only with
+    float cross weights and the int8 (not int4) cache."""
     global _FUSED_KV_INIT
     _FUSED_KV_INIT = enabled
 
@@ -400,7 +401,13 @@ def init_cache(
     per layer (int8- or int4-quantized when ``cross_kv_int8`` /
     ``cross_kv_int4``). With ``tp`` the cache holds the rank's heads: the
     quantization is per (position, head), so a local head's codes equal
-    the unsharded ones."""
+    the unsharded ones.
+
+    The int8 cache from float cross weights is built by K3, one launch a
+    layer written into the stacked cache, wherever its bf16 body takes the
+    call (``bf16_body_takes``: a CUDA tensor in bf16, head dim 32 or 64,
+    widths multiples of 64) or the fused switch is on; otherwise each layer
+    is projected by ``linear`` and quantized."""
     B = audio_features.shape[0]
     L = cfg.n_text_layer
     n_ctx = max_len or cfg.n_text_ctx
@@ -408,6 +415,30 @@ def init_cache(
     d = cfg.n_text_state * H // cfg.n_text_head
     device = audio_features.device
     audio_features = audio_features.to(dtype)
+    self_k = torch.zeros((L, B, n_ctx, d), dtype=dtype, device=device)
+    self_v = torch.zeros((L, B, n_ctx, d), dtype=dtype, device=device)
+    blocks = params["decoder"]["blocks"]
+    # the reference's condition (float weights, int8 mode), and the switch
+    # or the bf16 body
+    if (cross_kv_int8 and not cross_kv_int4
+            and all("w" in blk["cross_attn"]["key"] and "w" in blk["cross_attn"]["value"]
+                    for blk in blocks)
+            and (_FUSED_KV_INIT or bf16_body_takes(audio_features, d, H, dtype))):
+        T = audio_features.shape[1]
+        t_pad = ((T + 127) // 128) * 128
+        cross_k, cross_v = (
+            torch.empty((L, B, H, d // H, t_pad), dtype=torch.int8, device=device)
+            for _ in range(2))
+        k_scale, v_scale = (
+            torch.empty((L, B, H, t_pad), dtype=torch.float32, device=device)
+            for _ in range(2))
+        for i, blk in enumerate(blocks):
+            pk, pv = blk["cross_attn"]["key"], blk["cross_attn"]["value"]
+            fused_kv_init_int8(audio_features, pk["w"], pk.get("b"), pv["w"],
+                               pv.get("b"), H, out_dtype=dtype,
+                               out=(cross_k[i], k_scale[i], cross_v[i], v_scale[i]))
+        return DecoderCache(self_k, self_v, cross_k, cross_v, k_scale, v_scale)
+
     quantized = cross_kv_int8 or cross_kv_int4
     quantize = _quantize_kv_heads4 if cross_kv_int4 else _quantize_kv_heads
     ks: List[torch.Tensor] = []
@@ -417,29 +448,19 @@ def init_cache(
     with full_fp32():
         # one layer at a time: the float projection transient stays one
         # layer's (B, T_a, d)
-        for block in params["decoder"]["blocks"]:
-            pk, pv = block["cross_attn"]["key"], block["cross_attn"]["value"]
-            # the reference's condition: float weights, int8 mode, switch on
-            if (_FUSED_KV_INIT and cross_kv_int8 and not cross_kv_int4
-                    and "w" in pk and "w" in pv):
-                k, k_s, v, v_s = fused_kv_init_int8(
-                    audio_features, pk["w"], pk.get("b"), pv["w"],
-                    pv.get("b"), H, out_dtype=dtype,
-                )
-            else:
-                k = linear(audio_features, pk)
-                v = linear(audio_features, pv)
-                if quantized:
-                    k, k_s = quantize(k, H)
-                    v, v_s = quantize(v, H)
+        for blk in blocks:
+            k = linear(audio_features, blk["cross_attn"]["key"])
+            v = linear(audio_features, blk["cross_attn"]["value"])
             if quantized:
+                k, k_s = quantize(k, H)
+                v, v_s = quantize(v, H)
                 k_scales.append(k_s)
                 v_scales.append(v_s)
             ks.append(k)
             vs.append(v)
     return DecoderCache(
-        self_k=torch.zeros((L, B, n_ctx, d), dtype=dtype, device=device),
-        self_v=torch.zeros((L, B, n_ctx, d), dtype=dtype, device=device),
+        self_k=self_k,
+        self_v=self_v,
         cross_k=torch.stack(ks),
         cross_v=torch.stack(vs),
         cross_k_scale=torch.stack(k_scales) if quantized else None,

@@ -7,7 +7,9 @@ result to int8 per (position, head), written T-minor for the decode kernels,
 in one kernel. The rounding order is that of ``linear`` followed by
 ``quantize_kv_heads``: f32 accumulation, rounded to the compute dtype, plus
 the bias (rounded to that dtype), rounded again, then quantized in f32.
-``models/whisper.init_cache`` calls it under ``use_fused_kv_init(True)``.
+``models/whisper.init_cache`` calls it wherever the bf16 body takes the
+call (``bf16_body_takes``), and under ``use_fused_kv_init(True)`` elsewhere,
+writing each layer into its views of the stacked cache (``out=``).
 """
 
 from __future__ import annotations
@@ -58,14 +60,37 @@ def fused_kv_init_plain(x, wk, bk, wv, bv, n_head: int, out_dtype):
     return tuple(outs)
 
 
+def bf16_body_takes(x, d: int, n_head: int, out_dtype) -> bool:
+    """Whether K3's bf16 body takes x (B, T, d_in) projected to d columns
+    in n_head heads: a CUDA tensor, bf16, head dim 32 or 64, d_in (its
+    k-tile) and d (its weight box) multiples of 64."""
+    return (x.device.type == "cuda" and out_dtype == torch.bfloat16
+            and d % n_head == 0 and d // n_head in (32, 64)
+            and x.shape[-1] % 64 == 0 and d % 64 == 0)
+
+
+def _check_out(out, shapes, device):
+    """The caller's (k_codes, k_scale, v_codes, v_scale): contiguous, of
+    the build's shapes and dtypes, on x's device."""
+    if len(out) != 4:
+        raise ValueError("out must be (k_codes, k_scale, v_codes, v_scale)")
+    for t, (shape, dtype) in zip(out, shapes):
+        if (tuple(t.shape) != shape or t.dtype != dtype or t.device != device
+                or not t.is_contiguous()):
+            raise ValueError(f"out tensors must be contiguous {shape} {dtype} "
+                             f"on {device}, got {tuple(t.shape)} {t.dtype} "
+                             f"on {t.device}")
+
+
 def fused_kv_init_int8(x, wk, bk, wv, bv, n_head: int,
-                       out_dtype=torch.bfloat16):
+                       out_dtype=torch.bfloat16, out=None):
     """K3 wrapper: x (B, T, d_in), wk/wv (d_in, d), bk/bv (d,) or None ->
     (k_codes, k_scale, v_codes, v_scale): codes (B, H, Dh, T_pad) int8,
     scales (B, H, T_pad) f32, T_pad the 128 round-up, code 0 and scale 0
-    past T.
+    past T. With ``out`` (four such tensors, e.g. one layer's views of a
+    stacked cache) the build is written there and ``out`` returned.
 
-    CUDA tensors run the kernel (bf16: wgmma products; f32: the CUDA
+    CUDA tensors run the kernel (bf16: TMA and wgmma; f32: the CUDA
     cores), CPU tensors the plain version.
     """
     B, T, d_in = x.shape
@@ -74,39 +99,58 @@ def fused_kv_init_int8(x, wk, bk, wv, bv, n_head: int,
         raise ValueError(f"weights must be ({d_in}, d) with d % {n_head} == 0")
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"out_dtype must be f32 or bf16, got {out_dtype}")
+    dh = d // n_head
+    t_pad = ((T + 127) // 128) * 128
+    shapes = [((B, n_head, dh, t_pad), torch.int8), ((B, n_head, t_pad), torch.float32)] * 2
+    if out is not None:
+        _check_out(out, shapes, x.device)
     if x.device.type == "cpu":
-        return fused_kv_init_plain(x, wk, bk, wv, bv, n_head, out_dtype)
+        built = fused_kv_init_plain(x, wk, bk, wv, bv, n_head, out_dtype)
+        if out is None:
+            return built
+        for o, t in zip(out, built):
+            o.copy_(t)
+        return tuple(out)
     if any(t is not None and t.device != x.device for t in (wk, bk, wv, bv)):
         raise ValueError("all operands must be on one CUDA device")
-    dh = d // n_head
-    # the bf16 body multiplies 64-feature k-tiles, the f32 body 32-feature
-    step = 64 if out_dtype == torch.bfloat16 else 32
-    if dh not in (32, 64) or d_in % step:
+    if out_dtype == torch.bfloat16:
+        if not bf16_body_takes(x, d, n_head, out_dtype):
+            raise ValueError(f"head dim {dh} (32 or 64), d_in {d_in} and d {d} "
+                             f"(multiples of 64) not supported")
+    elif dh not in (32, 64) or d_in % 32:
         raise ValueError(f"head dim {dh} (32 or 64) and d_in {d_in} (a "
-                         f"multiple of {step}) not supported")
-    t_pad = ((T + 127) // 128) * 128
+                         f"multiple of 32) not supported")
+    if out is None:
+        out = tuple(torch.empty(shape, dtype=dtype, device=x.device)
+                    for shape, dtype in shapes)
     xc = x.to(out_dtype).contiguous()
-    wkc = wk.to(out_dtype).contiguous()
-    wvc = wv.to(out_dtype).contiguous()
-    if out_dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (xc, wkc, wvc)):
-        raise ValueError("the bf16 kernel copies 16-byte chunks: x, wk and wv "
-                         "must be 16-byte aligned")
-    bkc = _bias_f32(bk, d, out_dtype, x.device)
-    bvc = _bias_f32(bv, d, out_dtype, x.device)
-    codes = [torch.empty((B, n_head, dh, t_pad), dtype=torch.int8,
-                         device=x.device) for _ in range(2)]
-    scales = [torch.empty((B, n_head, t_pad), dtype=torch.float32,
-                          device=x.device) for _ in range(2)]
-    fn = _build.entry("kv_init", "wipa_kv_init_int8",
-                      [_build.P] * 9 + [_build.I] * 8 + [_build.P])
-    rc = fn(xc.data_ptr(), wkc.data_ptr(), bkc.data_ptr(), wvc.data_ptr(),
-            bvc.data_ptr(), codes[0].data_ptr(), scales[0].data_ptr(),
-            codes[1].data_ptr(), scales[1].data_ptr(), B, T, t_pad, d_in,
-            n_head, dh, int(out_dtype == torch.bfloat16), x.device.index,
-            torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(rc, "wipa_kv_init_int8")
+    # the weights as stored, (d_in, d); the bf16 body reads them MN-major
+    wkc, wvc = (w.to(out_dtype).contiguous() for w in (wk, wv))
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if out_dtype == torch.bfloat16:
+        if any(t.data_ptr() % 16 for t in (xc, wkc, wvc, out[0], out[2])):
+            raise ValueError("the bf16 kernel moves 16-byte chunks: x, the "
+                             "weights and the codes must be 16-byte aligned")
+        biases = [None if b is None else b.to(out_dtype).contiguous()
+                  for b in (bk, bv)]
+        fn = _build.entry("kv_init", "wipa_kv_init_bf16",
+                          [_build.P] * 9 + [_build.I] * 7 + [_build.P])
+        rc = fn(xc.data_ptr(), wkc.data_ptr(), wvc.data_ptr(),
+                *(0 if b is None else b.data_ptr() for b in biases),
+                *(t.data_ptr() for t in out), B, T, t_pad, d_in, n_head, dh,
+                x.device.index, stream)
+        _build.check(rc, "wipa_kv_init_bf16")
+    else:
+        bkc = _bias_f32(bk, d, out_dtype, x.device)
+        bvc = _bias_f32(bv, d, out_dtype, x.device)
+        fn = _build.entry("kv_init", "wipa_kv_init_f32",
+                          [_build.P] * 9 + [_build.I] * 7 + [_build.P])
+        rc = fn(xc.data_ptr(), wkc.data_ptr(), bkc.data_ptr(), wvc.data_ptr(),
+                bvc.data_ptr(), *(t.data_ptr() for t in out), B, T, t_pad,
+                d_in, n_head, dh, x.device.index, stream)
+        _build.check(rc, "wipa_kv_init_f32")
     fused_kv_init_int8.launches += 1
-    return codes[0], scales[0], codes[1], scales[1]
+    return tuple(out)
 
 
 fused_kv_init_int8.launches = 0

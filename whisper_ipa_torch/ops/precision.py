@@ -60,6 +60,7 @@ def div_ieee(a: torch.Tensor, c: float) -> torch.Tensor:
     quantizers' scales must be the IEEE quotient the kernels and the
     reference compute, because a one-ulp scale decides exact rounding ties
     (frequent with bf16 inputs). A 0-dim tensor divisor on the same device
-    takes the true division.
+    takes the true division. It is filled on the device: a copy from the
+    host would hold the host until the stream drained.
     """
-    return a / a.new_tensor(c)
+    return a / torch.full((), c, dtype=a.dtype, device=a.device)
